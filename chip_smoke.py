@@ -38,7 +38,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: NVIDIA H100 SXM peaks (data sheet; the on-chip-measurement guide's table)
+#: NVIDIA H100 SXM peaks (data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 PEAK_F64_OPS_PER_S = 34e12  # f64 outside the tensor cores (data sheet)
