@@ -176,7 +176,16 @@ def _auction_square(
     use_kernel: bool,
     init_prices: Optional[torch.Tensor],
     warm: Optional[torch.Tensor],
+    init_col_of: Optional[torch.Tensor] = None,
+    top2=None,
 ) -> AuctionResult:
+    """The square auction on a (B, n, n) batch.  ``init_col_of`` (B, n)
+    starts each instance from an explicit assignment (default: all -1); a
+    warm instance whose initial assignment is complete stops with zero bid
+    rounds.  ``top2`` replaces the bid top-2 of ``use_kernel``: the fused
+    migrate stage passes a raw COST matrix as ``benefit`` and a top-2 that
+    assembles the benefit from it (the starting epsilon then scales with
+    the cost's span, as in the JAX ``fused._pair_auction``)."""
     b, n, _ = benefit.shape
     dev = benefit.device
     eps_min_t = _eps_min_tensor(eps_min, n, dev)
@@ -185,7 +194,7 @@ def _auction_square(
     eps0 = torch.maximum(span / 4.0, eps_min_t)
     if warm is not None:
         eps0 = torch.where(warm, eps_min_t, eps0)
-    bid_round = _make_bid_round(benefit, _pick_top2(use_kernel))
+    bid_round = _make_bid_round(benefit, top2 or _pick_top2(use_kernel))
 
     def active_fn(state):
         _, col_of, eps, it = state
@@ -210,7 +219,9 @@ def _auction_square(
     )
     state = (
         p0,
-        torch.full((b, n), -1, dtype=torch.int64, device=dev),
+        torch.full((b, n), -1, dtype=torch.int64, device=dev)
+        if init_col_of is None
+        else init_col_of.to(device=dev, dtype=torch.int64),
         eps0.expand(b).clone(),
         torch.zeros(b, dtype=torch.int32, device=dev),
     )

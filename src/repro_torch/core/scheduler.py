@@ -44,9 +44,6 @@ class DegradeReason:
     planner before starting the migrate stage -> ``deadline-greedy``: the
     watchdog skipped relabelling entirely and emitted the greedy-feasible
     logical plan (``algorithm="none"``) — always valid, zero extra LAPs.
-
-    The port has no fused planner yet, so its rounds take ``none`` or
-    ``deadline-greedy``; the names stay so both packages tag alike.
     """
 
     NONE = "none"
@@ -111,8 +108,12 @@ class TesseraeScheduler:
         # jobs to the slowest sufficient GPU type, gangs to the fastest
         # empty nodes).  No-op on homogeneous clusters.
         type_affinity: bool = True,
-        # the fused device-resident migrate stage (core/fused.py with the
-        # fused bid kernels) is a later slice of the port: True raises.
+        # route the migrate stage through the fused device-resident
+        # planner (repro_torch.core.fused): one device program + one
+        # readout per round, with the pair fan-out split into
+        # `fanout_shards` chunks; on CUDA its pair bid runs on the
+        # lap_bid_fused kernel.  Only meaningful with
+        # migration_algorithm == "node".
         fused_fanout: bool = False,
         fanout_shards: int = 1,
         # graceful-degradation ladder: wall-clock budget for one decide()
@@ -143,12 +144,6 @@ class TesseraeScheduler:
         # the caller asks for the CPU; raises when CUDA is asked and absent.
         device=None,
     ):
-        if fused_fanout:
-            raise NotImplementedError(
-                "fused_fanout=True needs the fused migrate stage (core/fused.py "
-                "with the lap_bid_fused kernels), which the PyTorch port does "
-                "not have yet (ROADMAP.md, section 1)"
-            )
         self.device = resolve_device(device)
         self.cluster = cluster
         self.policy = policy
@@ -166,6 +161,7 @@ class TesseraeScheduler:
         self._clock = clock
         self.health_aware = health_aware
         self.spread_mtbf_h = spread_mtbf_h
+        self._fused_planner = None  # lazily built FusedMigrationPlanner
         #: identity-keyed warm-start state threaded across rounds: the
         #: packing matching (keyed by job ids), the Algorithm-2 node-pair
         #: fan-out (node-pair / GPU-slot ids) and the final node match
@@ -185,10 +181,12 @@ class TesseraeScheduler:
 
     def set_observability(self, obs) -> None:
         """Attach (or detach, with ``None``) an observability bundle to the
-        scheduler AND its matching context, so LAP-solve spans nest under
-        this scheduler's decide spans."""
+        scheduler AND its matching context / fused planner, so LAP-solve
+        and fused-round spans nest under this scheduler's decide spans."""
         self.obs = obs
         self.match_context.obs = obs
+        if self._fused_planner is not None:
+            self._fused_planner.obs = obs
 
     def decide(
         self,
@@ -298,6 +296,7 @@ class TesseraeScheduler:
 
         t0 = time.perf_counter()
         migration: Optional[MigrationResult] = None
+        fused_before: Dict[str, int] = {}
         if prev_plan is not None:
             gmap: Dict[int, int] = dict(num_gpus_of or {})
             for j in active_jobs:
@@ -306,25 +305,50 @@ class TesseraeScheduler:
             deadline = self.decide_deadline_s
             elapsed = self._clock() - t_start if deadline is not None else 0.0
             algorithm = self.migration_algorithm
+            use_fused = self.fused_fanout and algorithm == "node"
             if deadline is not None and elapsed >= deadline:
                 # past the full budget: skip relabelling, ship the
                 # greedy-feasible logical plan (already avoids down nodes)
                 algorithm = "none"
+                use_fused = False
                 degrade = DegradeReason.DEADLINE_GREEDY
-            with tracer.span("migrate.host", algorithm=algorithm) as sp_mig:
-                migration = plan_migration(
+            elif deadline is not None and elapsed >= 0.5 * deadline and use_fused:
+                # half the budget gone: demote fused to the host planner
+                use_fused = False
+                degrade = DegradeReason.DEADLINE_HOST
+            if use_fused:
+                if self._fused_planner is None:
+                    from repro_torch.core.fused import FusedMigrationPlanner
+
+                    self._fused_planner = FusedMigrationPlanner(
+                        shards=self.fanout_shards, obs=self.obs, device=self.device
+                    )
+                fused_before = dict(self._fused_planner.stats)
+                migration = self._fused_planner.plan(
                     prev_plan,
                     plan,
                     gmap,
-                    algorithm=algorithm,
-                    backend=self.lap_backend,
-                    context=self.match_context,
                     tie_break=self.tie_break,
                     down_nodes=down,
                     speed_factor=speed,
-                    device=self.device,
                 )
-                sp_mig.annotate(migrations=migration.num_migrations)
+                if self._fused_planner.last_fallback_reason is not None:
+                    degrade = self._fused_planner.last_fallback_reason
+            else:
+                with tracer.span("migrate.host", algorithm=algorithm) as sp_mig:
+                    migration = plan_migration(
+                        prev_plan,
+                        plan,
+                        gmap,
+                        algorithm=algorithm,
+                        backend=self.lap_backend,
+                        context=self.match_context,
+                        tie_break=self.tie_break,
+                        down_nodes=down,
+                        speed_factor=speed,
+                        device=self.device,
+                    )
+                    sp_mig.annotate(migrations=migration.num_migrations)
             plan = migration.physical_plan
         timings["migrate_s"] = time.perf_counter() - t0
 
@@ -333,6 +357,14 @@ class TesseraeScheduler:
             for k, v in self.match_context.stats.items()
             if v != stats_before.get(k, 0)
         }
+        if self._fused_planner is not None:
+            # the fused planner's per-round telemetry rides the same dict
+            # the simulator already aggregates (its readout count is the
+            # migrate stage's entire host-sync budget for the round)
+            for k, v in self._fused_planner.stats.items():
+                d = v - fused_before.get(k, 0)
+                if d:
+                    match_stats[k] = match_stats.get(k, 0) + d
         return RoundDecision(
             plan,
             placed,
@@ -348,8 +380,9 @@ class TesseraeScheduler:
         """TARGETED warm-state invalidation for one physical node (called
         by the simulator on node-down AND node-up events): every cached
         matching identity involving the node is poisoned — the Algorithm-2
-        fan-out pairs touching it and the single-instance node match and
-        flat families — while all other nodes' memo/warm state survives (the paper's
+        fan-out pairs touching it, the single-instance node match and flat
+        families, and the fused planner's device-resident occupancy rows —
+        while all other nodes' memo/warm state survives (the paper's
         temporal locality is exactly why a full reset would be wasteful).
         Returns the number of cached LAP instances invalidated.
         """
@@ -365,6 +398,8 @@ class TesseraeScheduler:
         count += self.match_context.invalidate_instances(
             [0], families=("migration_node", "migration_flat")
         )
+        if self._fused_planner is not None:
+            self._fused_planner.invalidate_nodes([node])
         return count
 
     def prewarm(

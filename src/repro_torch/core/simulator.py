@@ -1076,6 +1076,11 @@ class Simulator:
                 lambda name: z[f"ctx.{name}"],
                 device=self.scheduler.match_context.device,
             )
+            # the fused planner's device cache is NOT serialised: a cold
+            # cache only costs one all-dirty fused round, never changes the
+            # plan (the fused program is exact within its budget)
+            if self.scheduler._fused_planner is not None:
+                self.scheduler._fused_planner.invalidate()
             # fresh registry, reseeded from the snapshot's deterministic
             # telemetry so the resumed run's counters finish equal to an
             # uninterrupted run's (timing histograms excepted — wall time

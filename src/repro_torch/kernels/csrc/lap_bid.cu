@@ -1,17 +1,24 @@
-// Auction bid step: batched masked row-wise top-2 of (a - p).
+// Auction bid step: batched masked row-wise top-2 of (a - p), plain or with
+// the benefit assembled from a raw cost matrix (the fused variant).
 //
 // Replaces the TPU kernels src/repro/kernels/lap_bid.py:lap_bid_pallas
-// (_bid_kernel, _tile_top2, _merge_top2) and
-// src/repro/kernels/lap_bid.py:lap_bid_pallas_batched (_bid_kernel_batched).
-// For every (instance b, row i):
+// (_bid_kernel, _tile_top2, _merge_top2),
+// src/repro/kernels/lap_bid.py:lap_bid_pallas_batched (_bid_kernel_batched)
+// and, with kFused, src/repro/kernels/lap_bid.py:lap_bid_fused_pallas
+// (_bid_fused_kernel, _fused_vals) and
+// src/repro/kernels/lap_bid.py:lap_bid_fused_pallas_batched
+// (_bid_fused_kernel_batched).  For every (instance b, row i):
 //   vals[j]  = a[b, i, j] - p[b, j]           over the m real columns
+//              (kFused: a[b, i, j] = (tb[b] * (i+1)^2) * (j+1) - cost[b, i, j],
+//               i the row WITHIN the instance, assembled in registers)
 //   best_v   = max_j vals[j],  best_j = first argmax
 //   second   = max over j != best_j of vals[j], or -1e30 when m == 1
 //              (the Pallas kernel's NEG_INF fill of the argmax cell)
 //
 // What bounds it on an H100: bytes.  Each call reads a (B, n, m) f32 matrix
-// and (B, m) prices once and writes 12 bytes per row; there are three
-// compares per element, so it sits far below the card's compute ridge.
+// and (B, m) prices once (plus B tie-break scales when fused) and writes 12
+// bytes per row; there are a handful of flops per element, so it sits far
+// below the card's compute ridge.
 // On the auction's main path the instances are tiny (4x4 node-pair LAPs,
 // B = k_c^2) or one large square (the node match), so the design must keep
 // lanes busy for both:
@@ -27,6 +34,12 @@
 // is "on equal values the LOWER column index wins".  The merged second is
 // max(loser's best, both seconds), so a duplicated maximum gives
 // second == best exactly as the reference does.
+// Fused assembly: nvcc -O3 would contract "x * y - c" into one fma, which
+// rounds once where the reference (XLA on the TPU, PyTorch's plain version)
+// rounds after the multiply and again after the subtraction.  The assembly
+// is written with __fmul_rn / __fsub_rn, which are never contracted, so
+// every value is bit-identical to the plain version's even when the cost
+// is not an integer.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -46,13 +59,14 @@ __device__ __forceinline__ void merge_top2(float& best, int& arg, float& second,
   second = fmaxf(loser, fmaxf(second, o_second));
 }
 
-__global__ void lap_bid_batched_kernel(const float* __restrict__ a,
-                                       const float* __restrict__ p,
-                                       float* __restrict__ best_v,
-                                       int* __restrict__ best_j,
-                                       float* __restrict__ second_v,
-                                       long long rows, int n, int m,
-                                       int group_log2) {
+template <bool kFused>
+__global__ void lap_bid_kernel(const float* __restrict__ a,
+                               const float* __restrict__ p,
+                               const float* __restrict__ tb,
+                               float* __restrict__ best_v,
+                               int* __restrict__ best_j,
+                               float* __restrict__ second_v,
+                               long long rows, int n, int m, int group_log2) {
   const int group = 1 << group_log2;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = tid >> group_log2;
@@ -62,10 +76,22 @@ __global__ void lap_bid_batched_kernel(const float* __restrict__ a,
   float best = -INFINITY, second = -INFINITY;
   int arg = INT_MAX;  // an empty lane loses every tie
   if (valid) {
+    const long long inst = row / n;
     const float* arow = a + row * (long long)m;
-    const float* prow = p + (row / n) * (long long)m;
+    const float* prow = p + inst * (long long)m;
+    float ramp_i = 0.0f;  // tb * (i+1)^2, i the row within the instance
+    if (kFused) {
+      const float gi = (float)(row - inst * n + 1);
+      ramp_i = __fmul_rn(tb[inst], __fmul_rn(gi, gi));
+    }
     for (int j = lane; j < m; j += group) {
-      const float v = arow[j] - prow[j];
+      float v;
+      if (kFused) {
+        const float bj = __fsub_rn(__fmul_rn(ramp_i, (float)(j + 1)), arow[j]);
+        v = __fsub_rn(bj, prow[j]);
+      } else {
+        v = arow[j] - prow[j];
+      }
       if (v > best) {  // strict: this lane's earlier (lower) column keeps a tie
         second = fmaxf(second, best);
         best = v;
@@ -89,19 +115,35 @@ __global__ void lap_bid_batched_kernel(const float* __restrict__ a,
   }
 }
 
-}  // namespace
-
-extern "C" int lap_bid_batched(const void* a, const void* prices, void* best_v,
-                               void* best_j, void* second_v, long long batch,
-                               long long n, long long m, void* stream) {
+template <bool kFused>
+int launch(const void* a, const void* prices, const void* tb, void* best_v,
+           void* best_j, void* second_v, long long batch, long long n,
+           long long m, void* stream) {
   const long long rows = batch * n;
   int group_log2 = 0;
   while ((1LL << group_log2) < m && group_log2 < 5) ++group_log2;
   const int threads = 256;
   const long long total = rows << group_log2;
   const long long blocks = (total + threads - 1) / threads;
-  lap_bid_batched_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)prices, (float*)best_v, (int*)best_j,
-      (float*)second_v, rows, (int)n, (int)m, group_log2);
+  lap_bid_kernel<kFused><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)prices, (const float*)tb, (float*)best_v,
+      (int*)best_j, (float*)second_v, rows, (int)n, (int)m, group_log2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int lap_bid_batched(const void* a, const void* prices, void* best_v,
+                               void* best_j, void* second_v, long long batch,
+                               long long n, long long m, void* stream) {
+  return launch<false>(a, prices, nullptr, best_v, best_j, second_v, batch, n, m,
+                       stream);
+}
+
+extern "C" int lap_bid_fused_batched(const void* cost, const void* prices,
+                                     const void* tb, void* best_v, void* best_j,
+                                     void* second_v, long long batch, long long n,
+                                     long long m, void* stream) {
+  return launch<true>(cost, prices, tb, best_v, best_j, second_v, batch, n, m,
+                      stream);
 }

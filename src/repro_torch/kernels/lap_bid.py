@@ -8,11 +8,18 @@ needs, per auction round::
     best_j[b, i]  = first argmax_j vals[b, i, j]            (int32)
     second[b, i]  = max_{j != best_j} vals[b, i, j]   (-1e30 when m == 1)
 
+The FUSED variant takes a raw cost matrix instead and assembles the benefit
+per element, ``a[b, i, j] = tb[b] * (i+1)^2 * (j+1) - cost[b, i, j]`` (the
+positional tie-break ramp of the fused migrate stage, ``tb = 0`` for none),
+so the benefit never exists as a tensor.
+
 The hand-written kernel is ``csrc/lap_bid.cu`` (its header says what bounds
 it and how it is laid out); it replaces the Pallas kernels
-``lap_bid_pallas`` / ``lap_bid_pallas_batched`` of the JAX package.  The
-wrapper :func:`lap_bid_batched` launches it for CUDA tensors and takes the
-plain version :func:`lap_bid_top2_plain` only for CPU tensors.
+``lap_bid_pallas`` / ``lap_bid_pallas_batched`` and ``lap_bid_fused_pallas``
+/ ``lap_bid_fused_pallas_batched`` of the JAX package.  The wrappers
+:func:`lap_bid_batched` and :func:`lap_bid_fused_batched` launch it for CUDA
+tensors and take the plain versions :func:`lap_bid_top2_plain` /
+:func:`lap_bid_fused_top2_plain` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -40,42 +47,51 @@ def lap_bid_top2_plain(a: torch.Tensor, prices: torch.Tensor):
     return best_v, best_j.to(torch.int32), second
 
 
-def _check(a: torch.Tensor, prices: torch.Tensor) -> None:
+def lap_bid_fused_top2_plain(cost: torch.Tensor, prices: torch.Tensor, tb: torch.Tensor):
+    """Plain PyTorch version of the fused bid: ``cost`` (B, n, m) f32,
+    ``prices`` (B, m) f32, ``tb`` (B,) f32; the benefit
+    ``(tb * (i+1)^2) * (j+1) - cost`` is assembled in the kernel's order."""
+    b, n, m = cost.shape
+    gi = (torch.arange(n, dtype=torch.float32, device=cost.device) + 1.0).view(1, n, 1)
+    gj = (torch.arange(m, dtype=torch.float32, device=cost.device) + 1.0).view(1, 1, m)
+    return lap_bid_top2_plain(tb.view(b, 1, 1) * (gi * gi) * gj - cost, prices)
+
+
+def _check(what: str, a: torch.Tensor, prices: torch.Tensor, tb=None) -> None:
     if a.ndim != 3 or prices.ndim != 2:
         raise ValueError(
-            f"lap_bid_batched: want a (B, n, m) and prices (B, m), got "
+            f"{what}: want a (B, n, m) and prices (B, m), got "
             f"{tuple(a.shape)} and {tuple(prices.shape)}"
         )
-    if a.dtype != torch.float32 or prices.dtype != torch.float32:
+    operands = (a, prices) if tb is None else (a, prices, tb)
+    if any(t.dtype != torch.float32 for t in operands):
         raise ValueError(
-            f"lap_bid_batched: want float32, got {a.dtype} and {prices.dtype}"
+            f"{what}: want float32, got {', '.join(str(t.dtype) for t in operands)}"
         )
     b, n, m = a.shape
     if tuple(prices.shape) != (b, m):
         raise ValueError(
-            f"lap_bid_batched: prices {tuple(prices.shape)} do not match a "
+            f"{what}: prices {tuple(prices.shape)} do not match a "
             f"{tuple(a.shape)} (want {(b, m)})"
         )
-    if a.device != prices.device:
+    if tb is not None and tuple(tb.shape) != (b,):
         raise ValueError(
-            f"lap_bid_batched: a on {a.device}, prices on {prices.device}"
+            f"{what}: tb {tuple(tb.shape)} does not match a {tuple(a.shape)} (want {(b,)})"
+        )
+    if any(t.device != a.device for t in operands):
+        raise ValueError(
+            f"{what}: operands on {', '.join(str(t.device) for t in operands)}"
         )
 
 
-def lap_bid_batched(a: torch.Tensor, prices: torch.Tensor):
-    """Bid top-2 over ``a`` (B, n, m) with ``prices`` (B, m), both f32.
-
-    CUDA tensors launch the kernel (contiguous operands, one launch, counted
-    in ``lap_bid_batched.launches``); CPU tensors take
-    :func:`lap_bid_top2_plain`.  Any other device raises.
-    """
-    _check(a, prices)
-    if a.device.type == "cpu":
-        return lap_bid_top2_plain(a, prices)
+def _launch(what: str, entry: str, a: torch.Tensor, prices: torch.Tensor, tb=None):
+    """Launch the C entry point ``entry`` of ``csrc/lap_bid.cu`` on CUDA
+    operands (already checked) and return its three outputs."""
     if a.device.type != "cuda":
-        raise ValueError(f"lap_bid_batched: unsupported device {a.device}")
-    if not (a.is_contiguous() and prices.is_contiguous()):
-        raise ValueError("lap_bid_batched: a and prices must be contiguous")
+        raise ValueError(f"{what}: unsupported device {a.device}")
+    operands = (a, prices) if tb is None else (a, prices, tb)
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError(f"{what}: operands must be contiguous")
     b, n, m = a.shape
     best_v = torch.empty((b, n), dtype=torch.float32, device=a.device)
     best_j = torch.empty((b, n), dtype=torch.int32, device=a.device)
@@ -86,20 +102,54 @@ def lap_bid_batched(a: torch.Tensor, prices: torch.Tensor):
     while group < m and group < 32:
         group *= 2
     if (b * n * group + 255) // 256 > _GRID_LIMIT:
-        raise ValueError(f"lap_bid_batched: {b * n} rows exceed one launch")
-    lib = build.library("lap_bid")
-    fn = lib.lap_bid_batched
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+        raise ValueError(f"{what}: {b * n} rows exceed one launch")
+    fn = getattr(build.library("lap_bid"), entry)
+    fn.argtypes = [ctypes.c_void_p] * (len(operands) + 3) + [ctypes.c_longlong] * 3 + [
+        ctypes.c_void_p
+    ]
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(
-            a.data_ptr(), prices.data_ptr(), best_v.data_ptr(), best_j.data_ptr(),
+            *(t.data_ptr() for t in operands), best_v.data_ptr(), best_j.data_ptr(),
             second.data_ptr(), b, n, m, stream,
         )
-    build.check(err, "lap_bid_batched")
-    lap_bid_batched.launches += 1
+    build.check(err, what)
     return best_v, best_j, second
 
 
+def lap_bid_batched(a: torch.Tensor, prices: torch.Tensor):
+    """Bid top-2 over ``a`` (B, n, m) with ``prices`` (B, m), both f32.
+
+    CUDA tensors launch the kernel (contiguous operands, one launch, counted
+    in ``lap_bid_batched.launches``); CPU tensors take
+    :func:`lap_bid_top2_plain`.  Any other device raises.
+    """
+    _check("lap_bid_batched", a, prices)
+    if a.device.type == "cpu":
+        return lap_bid_top2_plain(a, prices)
+    out = _launch("lap_bid_batched", "lap_bid_batched", a, prices)
+    lap_bid_batched.launches += 1
+    return out
+
+
 lap_bid_batched.launches = 0
+
+
+def lap_bid_fused_batched(cost: torch.Tensor, prices: torch.Tensor, tb: torch.Tensor):
+    """Fused bid top-2 over a raw ``cost`` (B, n, m) with ``prices`` (B, m)
+    and a per-instance tie-break scale ``tb`` (B,), all f32.
+
+    CUDA tensors launch the kernel (counted in
+    ``lap_bid_fused_batched.launches``); CPU tensors take
+    :func:`lap_bid_fused_top2_plain`.  Any other device raises.
+    """
+    _check("lap_bid_fused_batched", cost, prices, tb)
+    if cost.device.type == "cpu":
+        return lap_bid_fused_top2_plain(cost, prices, tb)
+    out = _launch("lap_bid_fused_batched", "lap_bid_fused_batched", cost, prices, tb)
+    lap_bid_fused_batched.launches += 1
+    return out
+
+
+lap_bid_fused_batched.launches = 0

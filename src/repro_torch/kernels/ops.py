@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.lap_bid import lap_bid_batched
+from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_fused_batched
 from repro_torch.kernels.migration_cost import migration_cost
 
 EMPTY = -1
@@ -31,6 +31,30 @@ def lap_bid(a: torch.Tensor, prices: torch.Tensor):
         bv, bj, sv = lap_bid_batched(a[None].contiguous(), prices[None].contiguous())
         return bv[0], bj[0], sv[0]
     return lap_bid_batched(a, prices)
+
+
+def lap_bid_fused(cost: torch.Tensor, prices: torch.Tensor, tb_scale=0.0):
+    """Fused-benefit bid step on a raw COST matrix: ``-cost`` plus the
+    positional tie-break ramp ``tb_scale * (i+1)^2 * (j+1)`` is assembled
+    per element inside the kernel, so no benefit tensor is ever built.
+    ``tb_scale=0`` is the plain bid on ``-cost``.
+
+    Shapes: ``cost`` (n, m) with ``prices`` (m,), or batched ``cost``
+    (B, n, m) with ``prices`` (B, m); float32.  ``tb_scale`` is a scalar, or
+    (B,) when batched.  Returns ``(best_v, best_j, second_v)``, each (n,) /
+    (B, n), ``best_j`` int32.
+    """
+    if cost.ndim == 2:
+        if prices.ndim != 1:
+            raise ValueError(
+                f"lap_bid_fused: prices {tuple(prices.shape)} do not match cost "
+                f"{tuple(cost.shape)}"
+            )
+        bv, bj, sv = lap_bid_fused(cost[None], prices[None], tb_scale)
+        return bv[0], bj[0], sv[0]
+    tb = torch.as_tensor(tb_scale, dtype=torch.float32, device=cost.device)
+    tb = tb.reshape(-1).expand(cost.shape[0]).contiguous()
+    return lap_bid_fused_batched(cost.contiguous(), prices.contiguous(), tb)
 
 
 def slot_weights(slots: np.ndarray, weights: np.ndarray) -> np.ndarray:

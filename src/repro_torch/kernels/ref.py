@@ -3,7 +3,8 @@
 
 These state the semantics the kernels must reproduce, written as directly
 as the JAX oracles are; the kernels' own plain versions
-(``lap_bid.lap_bid_top2_plain``, ``migration_cost.migration_cost_plain``)
+(``lap_bid.lap_bid_top2_plain``, ``lap_bid.lap_bid_fused_top2_plain``,
+``migration_cost.migration_cost_plain``)
 are held against them in the tests.  Only the oracles of ported kernels
 live here.
 """
@@ -24,6 +25,24 @@ def lap_bid_top2(vals: torch.Tensor):
     onehot = best_j[..., None] == torch.arange(vals.shape[-1], device=vals.device)
     second_v = torch.where(onehot, NEG_INF, vals).max(dim=-1).values
     return best_v, best_j.to(torch.int32), second_v
+
+
+def lap_bid_fused_top2(cost: torch.Tensor, prices=None, tb_scale=0.0):
+    """Oracle for the fused-benefit bid step (``lap_bid_fused_batched``).
+
+    ``cost``: (..., n, m) raw COST matrix; the benefit is assembled here as
+    ``(tb_scale * (i+1)^2 * (j+1) - cost) - p`` with 1-based indices within
+    the instance and the kernel's operation order.  ``tb_scale`` is a scalar
+    or one value per instance (the leading shape of ``cost``)."""
+    n, m = cost.shape[-2], cost.shape[-1]
+    if prices is None:
+        prices = torch.zeros(cost.shape[:-2] + (m,), dtype=cost.dtype, device=cost.device)
+    gi = (torch.arange(n, dtype=cost.dtype, device=cost.device) + 1.0)[:, None]
+    gj = (torch.arange(m, dtype=cost.dtype, device=cost.device) + 1.0)[None, :]
+    tb = torch.as_tensor(tb_scale, dtype=cost.dtype, device=cost.device)
+    tb = tb.reshape(tb.shape + (1, 1))
+    vals = (tb * (gi * gi) * gj - cost) - prices[..., None, :]
+    return lap_bid_top2(vals)
 
 
 def migration_cost(slots_u, slots_v, w_u, w_v) -> torch.Tensor:

@@ -14,6 +14,7 @@ import torch
 
 from repro.core.matching import auction as jx
 from repro_torch.core.matching import auction as tx
+from tests.test_torch_round import _one_torch_thread  # noqa: F401  (autouse)
 
 
 def _int_benefits(rng, b, n, m, lo=-20, hi=20):

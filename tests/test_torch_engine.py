@@ -15,6 +15,7 @@ import torch
 
 from repro.core.matching import engine as jx
 from repro_torch.core.matching import engine as tx
+from tests.test_torch_round import _one_torch_thread  # noqa: F401  (autouse)
 
 BACKENDS = ["scipy", "numpy", "smallperm", "auction", "auction_kernel", "auto"]
 

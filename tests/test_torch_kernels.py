@@ -16,13 +16,26 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.fused import _tb_scale as jax_tb_scale
 from repro.core.migration import _weight_lookup as jax_weight_lookup
 from repro.core.migration import pairwise_migration_cost
-from repro.kernels.lap_bid import lap_bid_pallas, lap_bid_pallas_batched
+from repro.kernels import ref as jax_ref
+from repro.kernels.lap_bid import (
+    lap_bid_fused_pallas,
+    lap_bid_fused_pallas_batched,
+    lap_bid_pallas,
+    lap_bid_pallas_batched,
+)
 from repro.kernels.migration_cost import migration_cost_pallas
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_top2_plain
+from repro_torch.kernels.lap_bid import (
+    lap_bid_batched,
+    lap_bid_fused_batched,
+    lap_bid_fused_top2_plain,
+    lap_bid_top2_plain,
+)
 from repro_torch.kernels.migration_cost import migration_cost
+from tests.test_torch_round import _one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -109,6 +122,136 @@ def test_lap_bid_wrapper_rejects_bad_operands():
         lap_bid_batched(a, torch.zeros(2, 5))
     with pytest.raises(ValueError, match="unsupported device"):
         lap_bid_batched(a.to("meta"), torch.zeros(2, 4, device="meta"))
+
+
+# --------------------------------------------------------------------------- #
+# lap_bid_fused (cost in, benefit assembled per element)
+# --------------------------------------------------------------------------- #
+def _fused_case(name):
+    """(cost (B, n, m), prices (B, m), tb (B,)) f32 cases of the fused bid."""
+    rng = np.random.default_rng(100 + FUSED_CASES.index(name))
+    tb4 = jax_tb_scale(4, 4)
+    if name == "tb_zero":
+        cost = rng.integers(0, 40, size=(5, 4, 4)).astype(np.float32)
+        p = rng.integers(0, 6, size=(5, 4)).astype(np.float32)
+        tb = np.zeros(5, np.float32)
+    elif name == "tb_scale_mixed":
+        # the fan-out's shape with per-instance scales: 0 and _tb_scale(4, 4)
+        cost = rng.integers(0, 40, size=(6, 4, 4)).astype(np.float32)
+        cost[:, :, 1] = cost[:, :, 0]  # ties that only the ramp breaks
+        p = rng.integers(0, 6, size=(6, 4)).astype(np.float32)
+        tb = np.where(np.arange(6) % 2 == 0, 0.0, tb4).astype(np.float32)
+    elif name == "ragged_tile":
+        # m > 512: a ragged Pallas tile, and a row count across its 8-row tile
+        cost = rng.integers(0, 90, size=(2, 9, 700)).astype(np.float32)
+        p = rng.integers(0, 3, size=(2, 700)).astype(np.float32)
+        tb = np.array([0.0, jax_tb_scale(9, 700)], np.float32)
+    elif name == "duplicate_maxima":
+        cost = np.full((3, 6, 600), 50.0, np.float32)
+        p = np.zeros((3, 600), np.float32)
+        cost[0, 0, [100, 550]] = 1.0  # across the 512 tile boundary
+        cost[0, 1, [31, 32]] = 1.0  # across a 32-lane stride boundary
+        cost[1, 2, [5, 37, 69]] = 1.0  # same lane, three strides apart
+        cost[1, 3, [511, 512]] = 1.0  # the tile edge itself
+        cost[2, 4, [0, 599]] = 1.0  # first and last column
+        cost[2, 5, :] = 7.0  # every column tied
+        tb = np.zeros(3, np.float32)
+    elif name == "single_column":
+        cost = rng.integers(0, 9, size=(4, 3, 1)).astype(np.float32)
+        p = rng.integers(0, 3, size=(4, 1)).astype(np.float32)
+        tb = np.array([0.0, 0.5, 0.0, 0.25], np.float32)
+    elif name == "non_integer":
+        # outside the exact-integer regime the operation order still decides
+        # every bit
+        cost = rng.normal(scale=3.0, size=(4, 5, 5)).astype(np.float32)
+        p = rng.normal(size=(4, 5)).astype(np.float32)
+        tb = np.array([0.0, 0.125, 2.0 ** -9, 0.5], np.float32)
+    else:
+        raise KeyError(name)
+    return cost, p, tb
+
+
+FUSED_CASES = [
+    "tb_zero", "tb_scale_mixed", "ragged_tile", "duplicate_maxima", "single_column",
+    "non_integer",
+]
+
+
+def _assert_top2_bitwise(want, got):
+    """Equal bit patterns (so -0.0 and +0.0 count as different)."""
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        g = g.numpy()
+        assert w.dtype == g.dtype
+        np.testing.assert_array_equal(w.view(np.int32), g.view(np.int32))
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_lap_bid_fused_plain_matches_pallas_batched(case):
+    cost, p, tb = _fused_case(case)
+    want = lap_bid_fused_pallas_batched(
+        jnp.asarray(cost), jnp.asarray(p), jnp.asarray(tb), interpret=True
+    )
+    got = lap_bid_fused_batched(torch.from_numpy(cost), torch.from_numpy(p), torch.from_numpy(tb))
+    _assert_top2_bitwise(want, got)
+    assert got[1].dtype == torch.int32
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_lap_bid_fused_2d_matches_pallas(case):
+    """``ops.lap_bid_fused`` on one instance (K3) and on the batch with a
+    per-instance ``tb`` (K4), each against its Pallas kernel."""
+    cost, p, tb = _fused_case(case)
+    for b in range(cost.shape[0]):
+        want = lap_bid_fused_pallas(
+            jnp.asarray(cost[b]), jnp.asarray(p[b]), float(tb[b]), interpret=True
+        )
+        got = ops.lap_bid_fused(torch.from_numpy(cost[b]), torch.from_numpy(p[b]), float(tb[b]))
+        _assert_top2_bitwise(want, got)
+    got = ops.lap_bid_fused(torch.from_numpy(cost), torch.from_numpy(p), torch.from_numpy(tb))
+    want = lap_bid_fused_pallas_batched(
+        jnp.asarray(cost), jnp.asarray(p), jnp.asarray(tb), interpret=True
+    )
+    _assert_top2_bitwise(want, got)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_lap_bid_fused_oracle_matches_jax_oracle(case):
+    cost, p, tb = _fused_case(case)
+    ct, pt, tbt = torch.from_numpy(cost), torch.from_numpy(p), torch.from_numpy(tb)
+    got_plain = lap_bid_fused_top2_plain(ct, pt, tbt)
+    for b in range(cost.shape[0]):
+        want = jax_ref.lap_bid_fused_top2(jnp.asarray(cost[b]), jnp.asarray(p[b]), float(tb[b]))
+        got = ref.lap_bid_fused_top2(ct[b], pt[b], float(tb[b]))
+        _assert_top2_bitwise(want, got)
+        for w, g in zip(got, got_plain):
+            assert torch.equal(w, g[b])
+    # the oracle takes a per-instance tb on a batch, too
+    for w, g in zip(ref.lap_bid_fused_top2(ct, pt, tbt), got_plain):
+        assert torch.equal(w, g)
+
+
+def test_lap_bid_fused_single_column_second_is_neg_inf():
+    cost, p, tb = _fused_case("single_column")
+    _, _, second = lap_bid_fused_batched(
+        torch.from_numpy(cost), torch.from_numpy(p), torch.from_numpy(tb)
+    )
+    assert (second == np.float32(-1e30)).all()
+
+
+def test_lap_bid_fused_wrapper_rejects_bad_operands():
+    c = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError, match="float32"):
+        lap_bid_fused_batched(c, torch.zeros(2, 4), torch.zeros(2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="does not match"):
+        lap_bid_fused_batched(c, torch.zeros(2, 4), torch.zeros(3))
+    with pytest.raises(ValueError, match="do not match"):
+        lap_bid_fused_batched(c, torch.zeros(2, 5), torch.zeros(2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lap_bid_fused_batched(c.to("meta"), torch.zeros(2, 4, device="meta"),
+                              torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError, match="do not match"):
+        ops.lap_bid_fused(torch.zeros(3, 4), torch.zeros(1, 4))
 
 
 # --------------------------------------------------------------------------- #

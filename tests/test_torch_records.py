@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from repro_torch.core.matching import MatchContext, solve_lap_batched
+from tests.test_torch_round import _one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

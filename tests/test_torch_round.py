@@ -12,6 +12,7 @@ in the port.
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core.cluster as jcl
 import repro.core.faults as jfa
@@ -39,6 +40,20 @@ TORCH = dict(
     cl=tcl, fa=tfa, jb=tjb, pl=tpl, pol=tpol, prof=tprof, sch=tsch, sim=tsim, tr=ttr, obs=tobs,
     kw={"device": "cpu"},
 )
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run each test on one intra-op thread.  The port's tensors here are
+    tiny, and under pytest-xdist every worker's default pool (one thread
+    per core) spins against the other workers': measured on 8 cores with
+    five busy neighbours, the shard-split tests of ``test_torch_fused.py``
+    took 379 s with 8 threads and 9 s with one.  The other CPU
+    ``test_torch_*`` files import this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _scheduler(pkg, cluster, backend, policy="TiresiasPolicy", **kw):
@@ -178,15 +193,6 @@ def test_speculative_prewarm_and_invalidate_node_match_jax():
     assert nj == nt > 0
     assert sorted(rj.jcts) == sorted(rt.jcts)
     assert rj.total_migrations == rt.total_migrations
-
-
-def test_fused_fanout_is_a_later_slice():
-    prof = tprof.ThroughputProfile()
-    with pytest.raises(NotImplementedError, match="fused"):
-        tsch.TesseraeScheduler(
-            tcl.ClusterSpec(2, 4), tpol.TiresiasPolicy(prof), prof,
-            fused_fanout=True, device="cpu",
-        )
 
 
 @pytest.mark.parametrize(
