@@ -9,11 +9,15 @@ holds each against its plain PyTorch version on the card, then drives the
 Tesserae round at 2048 GPUs (512 nodes x 4) through the entry points a
 user calls — ``TesseraeScheduler.decide`` and ``Simulator.run`` with
 ``lap_backend="auction_kernel"``, then the same with the fused migrate
-stage (``fused_fanout=True``) — and checks what comes out:
+stage (``fused_fanout=True``) — and serves Llama-3-8B at full width and
+depth (``transformer.forward`` prefill, ``greedy_generate``), and checks
+what comes out:
 
 1. environment: the card, torch/CUDA versions, the kernels' build time;
 2. kernels vs their plain versions at the main path's shapes (exact,
-   ``lap_bid_fused_batched`` bit for bit also on non-integer costs), with
+   ``lap_bid_fused_batched`` bit for bit also on non-integer costs;
+   ``flash_attention`` and ``flash_decode`` in bf16 at 3e-2, at the serving
+   path's shapes and at ``prefill_32k`` / ``decode_32k``'s length), with
    kernel / plain / bound / library times;
 3. the round's path: (a) ``decide()`` x3 on 512 synthetic jobs (cold, with
    the previous plan, warm), as the scalability benchmark does, and (b)
@@ -34,7 +38,23 @@ stage (``fused_fanout=True``) — and checks what comes out:
    included; the fused steps replayed through
    ``FusedMigrationPlanner(use_kernel=False)`` give bit-identical plans,
    costs and bid iterations; a tie-break run at 8 nodes gives fused plans
-   bit-identical to the host scipy planner; every plan is feasible.
+   bit-identical to the host scipy planner; every plan is feasible;
+5. serving ``llama3-8b`` (32 layers, bf16, random weights from a seeded
+   ``torch.Generator`` on the card, freed after the phase): (e) a prefill
+   forward of 8192 random tokens on the flash branch (sdpa's default on
+   CUDA; K6 launched once per layer), each layer's K6 output held to the
+   plain version on that layer's q/k/v (3e-2), and the einsum path's
+   forward; (f) ``greedy_generate`` with batch 8, a 32-token prompt and 32
+   new tokens against an 8192-slot cache, and one forward of the 64
+   tokens; then K7 launched on layer 0's final cache with the last step's q
+   (valid_len 63) and held to its plain version and to the einsum ``sdpa``
+   (3e-2).  The whole-model comparisons — flash forward vs einsum forward,
+   stepped logits vs the forward's — are enforced on the same weights
+   upcast to f32 (1e-4); in bf16 they are reported with each path's
+   distance from the f32 forward (at depth 32 bf16 rounding alone moves
+   logits by up to ~0.08, the einsum path's as much as the flash path's).
+   Counters zeroed before (e) and read after: K6 must have launched once
+   per layer of every flash forward, K7 once.
 
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's ``name, power.limit`` and ``{"ok": true, "device": ...}``.
@@ -42,6 +62,7 @@ the card's ``name, power.limit`` and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -54,6 +75,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 PEAK_F64_OPS_PER_S = 34e12  # f64 outside the tensor cores (data sheet)
+PEAK_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense (data sheet)
 
 FULL = dict(
     nodes=512, jobs_decide=512, jobs_sim=2048, sim_rounds=6, fanout=262144,
@@ -63,6 +85,21 @@ FULL = dict(
         bid_iters=[4751608, 609, 308, 307, 609, 308],
         dirty_pairs=[262144, 0, 0, 0, 0, 0],
     ),
+    # phase 5: serving llama3-8b at full width and depth (bf16)
+    serve=dict(
+        arch="llama3-8b", reduced=False, prefill_s=8192, batch=8, prompt=32, gen=32,
+        context=8192,
+        # kernel rows: (B, S, H, KV, D) for flash_attention, (B, S, H, KV, D,
+        # valid) for flash_decode; the first of each is the path's shape
+        k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128)],
+        k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768)],
+    ),
+)
+
+#: the CPU rehearsal's serve scale (reduced llama3-8b, S = 64)
+SERVE_REHEARSAL = dict(
+    arch="llama3-8b", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64,
+    k6_shapes=[(1, 64, 4, 2, 64)], k7_shapes=[(2, 64, 4, 2, 64, 15)],
 )
 
 
@@ -109,7 +146,7 @@ def timed(fn, device, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, device, reps=20, replays=5):
+def graph_ms(fn, device, reps=20, replays=5, warmup=3):
     """Mean DEVICE milliseconds per call of ``fn``: ``reps`` calls captured
     in one CUDA graph and replayed, so the host's per-call dispatch (the
     wrapper's checks, allocation and ctypes call) is not in the time."""
@@ -120,7 +157,7 @@ def graph_ms(fn, device, reps=20, replays=5):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -288,6 +325,362 @@ def compare_migration_cost(u, device, gen, reps=20):
     )
     log(f"[kernel] migration_cost {u}x{u}: bit-identical to plain; " + json.dumps(row))
     return row
+
+
+def logits_stats(a, b, tol, chunk=512):
+    """How far logits ``a`` are from ``b`` (both (B, S, V)): the max |a - b|,
+    how many entries break ``|a - b| <= tol + tol * |b|``, how many differ
+    by more than 0.01 / 0.02, and the share of positions whose argmax
+    agrees.  Computed in f32 a chunk of positions at a time."""
+    st = dict(max_abs_err=0.0, over_tol=0, over_0p01=0, over_0p02=0, argmax_agree=0,
+              positions=a.shape[0] * a.shape[1], entries=a.numel())
+    for i in range(0, a.shape[1], chunk):
+        x, y = a[:, i:i + chunk].float(), b[:, i:i + chunk].float()
+        diff = (x - y).abs()
+        st["max_abs_err"] = max(st["max_abs_err"], float(diff.max()))
+        st["over_tol"] += int((diff > tol + tol * y.abs()).sum())
+        st["over_0p01"] += int((diff > 0.01).sum())
+        st["over_0p02"] += int((diff > 0.02).sum())
+        st["argmax_agree"] += int((x.argmax(-1) == y.argmax(-1)).sum())
+    st["argmax_agree"] /= st["positions"]
+    return st
+
+
+def logits_close(a, b, tol):
+    """(max |a - b|, all |a - b| <= tol + tol * |b|) of two (B, S, ...) tensors."""
+    st = logits_stats(a, b, tol)
+    return st["max_abs_err"], st["over_tol"] == 0
+
+
+def compare_flash_attention(shape, device, seed, long=False):
+    """``flash_attention`` (K6) against its plain version on random bf16
+    q (B, S, H, D) and k/v (B, S, KV, D), causal, at 3e-2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    b, s, h, kv, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*sh):
+        return torch.randn(sh, generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    err, ok = logits_close(got.reshape(b, s, -1), want.reshape(b, s, -1), 3e-2)
+    check(ok, f"flash_attention {shape}: differs from plain beyond 3e-2 (max {err})")
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True,
+        )
+
+    lib_err = None
+    if not long:  # the yardstick computes the same function
+        lib_err, lib_ok = logits_close(library().transpose(1, 2).reshape(b, s, -1),
+                                       want.reshape(b, s, -1), 3e-2)
+        check(lib_ok, f"flash_attention {shape}: scaled_dot_product_attention disagrees ({lib_err})")
+    del got, want
+    g = dict(reps=2, replays=1, warmup=1) if long else dict(reps=5, replays=2, warmup=2)
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)  # q, out; k, v (bf16)
+    ops = 4 * b * h * s * s * d // 2  # causal: half of the S x S products
+    bnd, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S)
+    row = dict(
+        shape=list(shape), dtype="bfloat16", causal=True, max_abs_err=err, library_err=lib_err,
+        ms=graph_ms(lambda: flash_attention(q, k, v, causal=True), device, **g),
+        eager_ms=timed(lambda: flash_attention(q, k, v, causal=True), device, g["reps"], 1),
+        plain_ms=timed(lambda: flash_attention_plain(q, k, v, causal=True), device, 1, 1),
+        library_ms=graph_ms(library, device, **g),
+        library_note="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        bound_ms=bnd, bound_by=by, ops=ops, bytes=nbytes,
+    )
+    row["tflops"] = ops / row["ms"] / 1e9
+    log(f"[kernel] flash_attention {shape}: within 3e-2 of plain; " + json.dumps(row))
+    return row
+
+
+def compare_flash_decode(shape, device, seed):
+    """``flash_decode`` (K7) against its plain version on a random bf16
+    cache (B, S, KV, D), ``valid_len`` slots valid, at 3e-2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, splits_for
+
+    b, s, h, kv, d, valid = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*sh):
+        return torch.randn(sh, generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v = rand(b, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    got = flash_decode(q, k, v, valid)
+    want = flash_decode_plain(q, k, v, valid)
+    err, ok = logits_close(got, want, 3e-2)
+    check(ok, f"flash_decode {shape}: differs from plain beyond 3e-2 (max {err})")
+    mask = (torch.arange(s, device=device) < valid)[None, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
+        )
+
+    lib_err, lib_ok = logits_close(library()[:, :, 0], want, 3e-2)
+    check(lib_ok, f"flash_decode {shape}: scaled_dot_product_attention disagrees ({lib_err})")
+    nbytes = 2 * (2 * b * valid * kv * d + 2 * b * h * d)  # valid K, V slots; q, out
+    ops = 4 * b * h * valid * d
+    bnd, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S)
+    g = dict(reps=10, replays=3)
+    row = dict(
+        shape=list(shape), dtype="bfloat16", max_abs_err=err, library_err=lib_err,
+        splits=list(splits_for(b * kv, s)),
+        ms=graph_ms(lambda: flash_decode(q, k, v, valid), device, **g),
+        eager_ms=timed(lambda: flash_decode(q, k, v, valid), device, 10, 2),
+        plain_ms=timed(lambda: flash_decode_plain(q, k, v, valid), device, 3, 1),
+        library_ms=graph_ms(library, device, **g),
+        library_note="scaled_dot_product_attention(boolean mask, enable_gqa=True)",
+        bound_ms=bnd, bound_by=by, ops=ops, bytes=nbytes,
+    )
+    row["gb_per_s"] = nbytes / row["ms"] / 1e6
+    log(f"[kernel] flash_decode {shape}: within 3e-2 of plain; " + json.dumps(row))
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: serving llama3-8b
+# --------------------------------------------------------------------------- #
+def profile_window(fn, device, top=8):
+    """Run ``fn`` once under ``torch.profiler`` and return its host wall
+    time, the device's kernel time and busy share over that wall, and the
+    ``top`` kernels by device time.  A measurement only: a profiler that
+    fails is reported, not fatal."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # the kernels themselves (the host ops above them carry their
+        # kernels' device time too, and would count it twice)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    except Exception as exc:  # noqa: BLE001 - reported with the row
+        return dict(error=f"{type(exc).__name__}: {exc}")
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return dict(
+        wall_ms=wall * 1e3, device_ms=busy_us / 1e3,
+        busy_share=busy_us / 1e3 / (wall * 1e3) if wall > 0 else None,
+        top=[dict(name=e.key[:80], calls=e.count, ms=e.self_device_time_total / 1e3)
+             for e in kernels[:top]],
+    )
+
+
+def _upcast(tree):
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_upcast(v) for v in tree]
+    return tree.float()
+
+
+def serve_phase(device, scale):
+    """Serve ``llama3-8b`` in bf16 on random weights: (e) a prefill forward
+    on the flash branch (sdpa's default on CUDA), each layer's K6 output held
+    to the plain version on that layer's own q/k/v (3e-2), and the einsum
+    path's forward (``REPRO_USE_FLASH=0``); (f) ``greedy_generate`` (prefill
+    by stepping, greedy decode) and one forward of the generated tokens; K7
+    launched on layer 0's final cache with the last step's q, held to its
+    plain version and to the einsum ``sdpa`` (3e-2).
+
+    The whole-model comparisons are enforced on the same weights upcast to
+    f32, where rounding does not swamp them: the flash forward against the
+    einsum forward, and the stepped logits against the forward's, at 1e-4.
+    In bf16 the two paths of a 32-layer model differ by up to ~0.08 — as far
+    as the einsum path itself is from the f32 forward — so the bf16
+    comparisons (with each path's distance from the f32 forward) are
+    reported, not enforced."""
+    import collections
+    import os
+
+    import torch
+
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeConfig, greedy_generate, init_serving_cache, make_serve_step
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = (get_reduced if scale["reduced"] else get_config)(scale["arch"])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = get_model(cfg)
+    out = dict(model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+               param_count=cfg.param_count(), flash_forwards=0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0), cfg)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+    # on the card the flash branch is sdpa's default; the CPU rehearsal forces it
+    flash_env = None if device.type == "cuda" else "1"
+    saved_env = os.environ.get("REPRO_USE_FLASH")
+
+    def set_flash(value):
+        if value is None:
+            os.environ.pop("REPRO_USE_FLASH", None)
+        else:
+            os.environ["REPRO_USE_FLASH"] = value
+
+    def forward(p, c, tokens, flash=True):
+        set_flash(flash_env if flash else "0")
+        out["flash_forwards"] += int(flash)
+        sync()
+        t = time.perf_counter()
+        logits, _ = model.forward(p, c, {"tokens": tokens})
+        sync()
+        check(bool(torch.isfinite(logits).all()), f"{c.dtype} forward: logits are not finite")
+        return logits, time.perf_counter() - t
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    orig_sdpa = attention.sdpa
+    try:
+        # ---- (e) prefill ---------------------------------------------------- #
+        s = scale["prefill_s"]
+        tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=device)
+        logits, out["prefill_s"] = forward(params, cfg, tokens)
+        out["prefill_tokens_per_s"] = s / out["prefill_s"]
+        check(tuple(logits.shape) == (1, s, cfg.vocab_size), f"prefill logits {tuple(logits.shape)}")
+
+        layer_errs = []
+
+        def checked_sdpa(q, k, v, causal, q_offset=None, kv_valid_len=None):
+            res = orig_sdpa(q, k, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+            want = fa.flash_attention_plain(q, k, v, causal)
+            b_, s_ = q.shape[:2]
+            layer_errs.append(logits_close(res.reshape(b_, s_, -1), want.reshape(b_, s_, -1), 3e-2))
+            return res
+
+        attention.sdpa = checked_sdpa
+        launches0 = fa.flash_attention.launches
+        again, _ = forward(params, cfg, tokens)
+        attention.sdpa = orig_sdpa
+        check(len(layer_errs) == cfg.num_layers,
+              f"prefill: attention ran in {len(layer_errs)} of {cfg.num_layers} layers")
+        if device.type == "cuda":
+            check(fa.flash_attention.launches - launches0 == cfg.num_layers,
+                  "prefill: the flash kernel did not run in every layer")
+        for i, (err, ok) in enumerate(layer_errs):
+            check(ok, f"prefill layer {i}: flash_attention differs from plain beyond 3e-2 ({err})")
+        out["prefill_layer_max_err"] = max(err for err, _ in layer_errs)
+        check(torch.equal(again, logits), "prefill: two flash forwards differ")
+        del again
+        einsum_logits, out["prefill_einsum_s"] = forward(params, cfg, tokens, flash=False)
+        out["bf16_prefill_vs_einsum"] = logits_stats(logits, einsum_logits, 0.05)
+
+        # ---- (f) greedy serving --------------------------------------------- #
+        b, p, n = scale["batch"], scale["prompt"], scale["gen"]
+        prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=device)
+        sc = ServeConfig(batch_size=b, context_len=scale["context"])
+        captured = collections.deque(maxlen=cfg.num_layers)  # the last step's layers
+
+        def recording_sdpa(q, k, v, causal, q_offset=None, kv_valid_len=None):
+            res = orig_sdpa(q, k, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+            if kv_valid_len is not None:
+                captured.append((q, k, v, kv_valid_len, res))
+            return res
+
+        attention.sdpa = recording_sdpa
+        set_flash(flash_env)
+        sync()
+        t0 = time.perf_counter()
+        seq, step_logits = greedy_generate(params, cfg, prompt, n, sc, return_logits=True)
+        sync()
+        attention.sdpa = orig_sdpa
+        steps = p + n - 1
+        out.update(generate_s=time.perf_counter() - t0, steps=steps, batch=b,
+                   cache_len=sc.cache_len(cfg))
+        out["step_ms"] = out["generate_s"] / steps * 1e3
+        out["decode_tokens_per_s"] = b * steps / out["generate_s"]
+        check(tuple(seq.shape) == (b, p + n), f"generated {tuple(seq.shape)}")
+        check(bool(torch.isfinite(step_logits).all()), "stepped logits are not finite")
+        full, _ = forward(params, cfg, seq)
+        out["bf16_decode_vs_forward"] = logits_stats(step_logits, full[:, :-1], 0.05)
+        del full
+
+        # where the time goes: one prefill forward and three decode steps
+        out["profile_prefill"] = profile_window(lambda: forward(params, cfg, tokens), device)
+        cache = init_serving_cache(cfg, sc, device)
+        serve_step = make_serve_step(cfg)
+        out["profile_decode_3_steps"] = profile_window(
+            lambda: [serve_step(params, seq[:, i:i + 1], cache, i) for i in range(steps - 3, steps)],
+            device,
+        )
+        del cache
+
+        q, k, v, valid, einsum_out = captured[0]  # layer 0 of the last step
+        check(valid == steps, f"last step's valid_len {valid}, wanted {steps}")
+        got = flash_decode(q[:, 0], k, v, valid)
+        err_plain, ok_plain = logits_close(got, flash_decode_plain(q[:, 0], k, v, valid), 3e-2)
+        err_sdpa, ok_sdpa = logits_close(got, einsum_out[:, 0], 3e-2)
+        check(ok_plain, f"flash_decode on the served cache differs from plain ({err_plain})")
+        check(ok_sdpa, f"flash_decode on the served cache differs from sdpa ({err_sdpa})")
+        out.update(k7_valid_len=valid, k7_vs_plain_max_err=err_plain, k7_vs_sdpa_max_err=err_sdpa)
+        del captured, q, k, v, einsum_out, got
+
+        # ---- the whole-model checks, on the same weights in f32 ------------- #
+        params32 = _upcast(params)
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        ref, _ = forward(params32, cfg32, tokens, flash=False)
+        out["bf16_prefill_flash_vs_f32"] = logits_stats(logits, ref, 0.05)
+        out["bf16_prefill_einsum_vs_f32"] = logits_stats(einsum_logits, ref, 0.05)
+        del logits, einsum_logits
+        flash32, _ = forward(params32, cfg32, tokens)
+        st = logits_stats(flash32, ref, 1e-4)
+        out["f32_prefill_vs_einsum"] = st
+        check(st["over_tol"] == 0, f"f32 prefill: flash logits differ from the einsum path's beyond 1e-4 ({st})")
+        del flash32, ref
+        set_flash(flash_env)
+        seq32, steps32 = greedy_generate(params32, cfg32, prompt, n, sc, return_logits=True)
+        check(torch.equal(seq32[:, :p], prompt), "f32 serving lost the prompt")
+        full32, _ = forward(params32, cfg32, seq32)
+        st = logits_stats(steps32, full32[:, :-1], 1e-4)
+        out["f32_decode_vs_forward"] = st
+        check(st["over_tol"] == 0, f"f32 decode parity: stepped logits differ from the forward's beyond 1e-4 ({st})")
+        if torch.equal(seq32, seq):
+            out["bf16_steps_vs_f32_forward"] = logits_stats(step_logits, full32[:, :-1], 0.05)
+        del full32, steps32, step_logits, params32
+    finally:
+        attention.sdpa = orig_sdpa
+        set_flash(saved_env)
+    if device.type == "cuda":
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    log(f"[serve] {cfg.name} prefill S={s}: per-layer K6 max err {out['prefill_layer_max_err']:.3g}; "
+        f"f32 flash vs einsum {out['f32_prefill_vs_einsum']['max_abs_err']:.3g}, "
+        f"decode parity {out['f32_decode_vs_forward']['max_abs_err']:.3g}; bf16 flash vs einsum "
+        f"{out['bf16_prefill_vs_einsum']['max_abs_err']:.3g}; K7 on the served cache (valid {valid}) "
+        f"vs plain {err_plain:.3g}, vs sdpa {err_sdpa:.3g}")
+    log("[serve] " + json.dumps(out))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -641,6 +1034,8 @@ def run(device, scale):
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.core.migration import plan_migration
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_fused_batched
     from repro_torch.kernels.migration_cost import migration_cost
 
@@ -648,7 +1043,10 @@ def run(device, scale):
         "lap_bid_batched": lap_bid_batched,
         "migration_cost": migration_cost,
         "lap_bid_fused_batched": lap_bid_fused_batched,
+        "flash_attention": flash_attention,
+        "flash_decode": flash_decode,
     }
+    serve = scale.get("serve", SERVE_REHEARSAL)
 
     def zero_counts():
         for fn in counted.values():
@@ -686,6 +1084,12 @@ def run(device, scale):
             (4096, 4, 4), device, gen, tb="scale", non_integer=True, reps=5
         ),
     }
+    k6_rows = [compare_flash_attention(shape, device, seed=10 + i, long=i > 0)
+               for i, shape in enumerate(serve["k6_shapes"])]
+    k7_rows = [compare_flash_decode(shape, device, seed=20 + i)
+               for i, shape in enumerate(serve["k7_shapes"])]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
     # ---- phase 3 (a, b): the round's path ---------------------------------- #
     cluster = ClusterSpec(kn, 4)
@@ -765,6 +1169,19 @@ def run(device, scale):
     replay_fused_steps(fsim_rec.fused, device, 1, "fused sim")
     fused_tie_break_check(device)
 
+    # ---- phase 5: serving llama3-8b ---------------------------------------- #
+    zero_counts()
+    t0 = time.perf_counter()
+    serve_row = serve_phase(device, serve)
+    serve_launches = read_counts()
+    log(f"[serve path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(serve_launches)}")
+    if device.type == "cuda":  # K6 once per layer of every flash forward
+        want = serve_row["flash_forwards"] * serve_row["layers"]
+        check(serve_launches["flash_attention"] == want,
+              f"the serving path launched flash_attention {serve_launches['flash_attention']} "
+              f"times, wanted {want}")
+        check(serve_launches["flash_decode"] == 1, "flash_decode was not launched on the served cache")
+
     kernels = []
     for name, row, source, replaces in (
         ("lap_bid_batched", lap_rows["fanout"], "src/repro_torch/kernels/csrc/lap_bid.cu",
@@ -783,6 +1200,22 @@ def run(device, scale):
             library_ms=row["library_ms"], shape=row["shape"],
         ))
     kernels[-1]["also_replaces"] = ["src/repro/kernels/lap_bid.py:283"]
+    for name, rows, source, replaces in (
+        ("flash_attention", k6_rows, "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:89"),
+        ("flash_decode", k7_rows, "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "src/repro/kernels/flash_decode.py:86"),
+    ):
+        row = rows[0]  # the serving path's shape
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=serve_launches[name], launches_by_path={"serve": serve_launches[name]},
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["shape"],
+            other_shapes=[{key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "max_abs_err")} for r in rows[1:]],
+        ))
     return kernels
 
 

@@ -9,6 +9,10 @@ kernel (csrc/)         wrapper                          replaces (JAX/Pallas)
 (``kFused``)           lap_bid_fused_batched`           ``lap_bid_fused_pallas_batched``
 ``migration_cost.cu``  :func:`migration_cost.           ``migration_cost_pallas``
                        migration_cost`
+``flash_attention.cu`` :func:`flash_attention.          ``flash_attention_pallas``
+                       flash_attention`
+``flash_decode.cu``    :func:`flash_decode.             ``flash_decode_pallas``
+                       flash_decode`
 =====================  ===============================  ==========================
 
 Wrappers launch the kernel for CUDA tensors (building every kernel with

@@ -23,7 +23,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lap_bid", "migration_cost")
+SOURCES = ("lap_bid", "migration_cost", "flash_attention", "flash_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -88,6 +88,15 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building all on first use."""
     return build_all()[name]
+
+
+def aligned_view(x):
+    """``x`` as the attention kernels read it: last dim contiguous, a
+    16-byte aligned base and strides (a copy only where it is not)."""
+    step = 16 // x.element_size()
+    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(st % step == 0 for st in x.stride()[:-1]))
+    return x if ok else x.contiguous()
 
 
 def check(err: int, what: str) -> None:

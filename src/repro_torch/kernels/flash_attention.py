@@ -1,0 +1,126 @@
+"""Flash attention forward with GQA routing (CUDA kernel + plain).
+
+For q (B, S, H, D) and k/v (B, S, KV, D) with G = H / KV::
+
+    out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(D)) v[b, j, h // G]
+
+over j < S, and j <= i when causal; f32 accumulation, the result in q's
+type.  The hand-written kernel is ``csrc/flash_attention.cu`` (its header
+says what bounds it and how it is laid out); it replaces the Pallas kernel
+``flash_attention_pallas`` of the JAX package, which takes (BH, S, D) with
+the KV heads already repeated — ``ops.flash_attention`` keeps that
+contract.  :func:`flash_attention` launches the kernel for CUDA tensors
+and takes the plain version :func:`flash_attention_plain` only for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+#: head dims with a kernel instance (reduced and full GQA configs)
+HEAD_DIMS = (64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BLOCK_Q = 64
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, block_k: int = 512) -> torch.Tensor:
+    """Plain PyTorch version: an online softmax over key tiles of
+    ``block_k`` in f32, so it fits in memory at S = 32768.  A causal key
+    tile only meets the query rows at or below its first key."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qf = (q.float() * (1.0 / d**0.5)).reshape(b, s, kvh, g, d).permute(0, 2, 3, 1, 4)
+    m = torch.full((b, kvh, g, s, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, g, s, 1), device=q.device)
+    acc = torch.zeros((b, kvh, g, s, d), device=q.device)
+    rows_all = torch.arange(s, device=q.device)
+    for k0 in range(0, s, block_k):
+        k1 = min(k0 + block_k, s)
+        r0 = k0 if causal else 0
+        kt = k[:, k0:k1].float().permute(0, 2, 1, 3)[:, :, None]  # (B, KV, 1, BK, D)
+        vt = v[:, k0:k1].float().permute(0, 2, 1, 3)[:, :, None]
+        sc = qf[:, :, :, r0:] @ kt.transpose(-1, -2)  # (B, KV, G, S - r0, BK)
+        if causal:
+            ok = rows_all[r0:, None] >= torch.arange(k0, k1, device=q.device)[None, :]
+            sc.masked_fill_(~ok, NEG_INF)
+        m_prev = m[:, :, :, r0:]
+        m_cur = torch.maximum(m_prev, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_cur)
+        alpha = torch.exp(m_prev - m_cur)
+        l[:, :, :, r0:] = l[:, :, :, r0:] * alpha + p.sum(dim=-1, keepdim=True)
+        acc[:, :, :, r0:] = acc[:, :, :, r0:] * alpha + p @ vt
+        m[:, :, :, r0:] = m_cur
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def _check(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(
+            f"flash_attention: want q (B,S,H,D) and k/v (B,S,KV,D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.shape != v.shape:
+        raise ValueError(f"flash_attention: k/v shapes differ: {tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d):
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree on "
+            "batch, sequence or head dim"
+        )
+    if h % k.shape[2]:
+        raise ValueError(f"flash_attention: H={h} must be a multiple of KV={k.shape[2]}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention: dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: operands on several devices")
+
+
+def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """(B, S, H, D) attention output, contiguous.  CUDA tensors launch the
+    kernel (bf16 or f32, D in ``HEAD_DIMS``; counted in
+    ``flash_attention.launches``); CPU tensors take
+    :func:`flash_attention_plain`.  Any other device raises."""
+    _check(q, k, v)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: the kernel takes float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: no kernel instance for head dim {d} (have {HEAD_DIMS})")
+    if (s + _BLOCK_Q - 1) // _BLOCK_Q > 65535 or b * h > (1 << 31) - 1:
+        raise ValueError(f"flash_attention: {tuple(q.shape)} exceeds one launch")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    q, k, v = build.aligned_view(q), build.aligned_view(k), build.aligned_view(v)
+    fn = build.library("flash_attention").flash_attention
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, s, h, kvh, d, int(causal),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+        )
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_fused_batched
 from repro_torch.kernels.migration_cost import migration_cost
 
@@ -96,3 +98,32 @@ def migration_cost_matrix(
         dev(slot_weights(slots_u, weights), np.float64),
         dev(slot_weights(slots_v, weights), np.float64),
     )
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True):
+    """Flash attention with the JAX package's contract: q/k/v (B, H, S, D)
+    or (BH, S, D), all three of one shape (KV heads already repeated);
+    returns that shape (for 4-D input a (B, H, S, D) view of the kernel's
+    (B, S, H, D) output)."""
+    if q.ndim not in (3, 4):
+        raise ValueError(f"flash_attention: q must be (B,H,S,D) or (BH,S,D), got {tuple(q.shape)}")
+    if not (q.shape == k.shape == v.shape):
+        raise ValueError(
+            f"flash_attention: q/k/v shapes differ: {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}"
+        )
+    if q.ndim == 3:  # (BH, S, D) -> (BH, S, 1, D): one head per "batch" row
+        return _fa.flash_attention(q[:, :, None], k[:, :, None], v[:, :, None], causal)[:, :, 0]
+    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal)
+    return out.transpose(1, 2)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len):
+    """Single-token GQA decode attention; q (B, H, D), cache k/v
+    (B, S, KV, D).
+
+    ``H`` must be a multiple of ``KV``; ``valid_len`` is ONE scalar for the
+    whole batch (an int or a 0-d tensor; a (B,) array raises, as the
+    reference kernel's ``broadcast_to((1, 1))`` does).  Zeros at
+    ``valid_len = 0``.  Returns (B, H, D)."""
+    return _fd.flash_decode(q, k, v, valid_len)

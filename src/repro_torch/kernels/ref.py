@@ -4,7 +4,8 @@
 These state the semantics the kernels must reproduce, written as directly
 as the JAX oracles are; the kernels' own plain versions
 (``lap_bid.lap_bid_top2_plain``, ``lap_bid.lap_bid_fused_top2_plain``,
-``migration_cost.migration_cost_plain``)
+``migration_cost.migration_cost_plain``,
+``flash_attention.flash_attention_plain``, ``flash_decode.flash_decode_plain``)
 are held against them in the tests.  Only the oracles of ported kernels
 live here.
 """
@@ -59,3 +60,39 @@ def migration_cost(slots_u, slots_v, w_u, w_v) -> torch.Tensor:
     cost_out = (w_u[:, None, :] * ~u_in_v).sum(-1)
     cost_in = (w_v[None, :, :] * ~v_in_u).sum(-1)
     return cost_out + cost_in
+
+
+def flash_decode(q, k, v, valid_len):
+    """Single-query GQA attention over a cache, slots >= valid_len masked.
+
+    q (B, H, D), k/v (B, S, KV, D).  As the reference oracle, at
+    ``valid_len = 0`` every logit is -1e30 and the softmax is flat: the
+    result is the uniform mean of V (the kernels give zeros; ROADMAP F6)."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d).float()
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    logits = logits / (d**0.5)
+    mask = torch.arange(s, device=q.device)[None, None, None, :] < valid_len
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """Naive softmax attention oracle.
+
+    q/k/v: (BH, S, D) — batch*heads flattened.  fp32 accumulation.
+    """
+    bh, s, d = q.shape
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+        logits = torch.where(mask[None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bqk,bkd->bqd", p, v.float())
+    return out.to(q.dtype)

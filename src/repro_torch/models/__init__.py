@@ -1,0 +1,24 @@
+"""Workload substrate of the port: the dense GQA decoder in PyTorch.
+
+``get_model(cfg)`` returns a functional model namespace with
+
+* ``init(gen, cfg)``                           -> params dict (on ``gen``'s device)
+* ``forward(params, cfg, batch)``              -> (logits, aux)
+* ``init_cache(cfg, batch, cache_len, device)`` -> decode cache dict
+* ``decode_step(params, cfg, batch, cache, pos)`` -> (logits, cache)
+
+as the JAX package's ``models`` does.  Parameters made by the JAX package
+carry across with :func:`repro_torch.models.convert.params_from_jax`.
+"""
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def get_model(cfg: ModelConfig):
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"repro_torch: {cfg.name} is an encoder-decoder, a later slice of the "
+            "port (ROADMAP, queue: the MoE/MLA/SSM/hybrid/encdec families)"
+        )
+    return transformer

@@ -1,0 +1,42 @@
+"""Carry parameters made by the JAX package into the port.
+
+``params_from_jax(tree, cfg, device)`` takes the JAX params pytree with its
+leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
+the port's params dict: the same nested keys and layouts, with the leading
+L axis of ``tree["layers"]`` un-stacked into a list of per-layer dicts.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """numpy -> torch, bfloat16 included.  ``np.asarray`` of a JAX bf16 array
+    has the ``ml_dtypes`` bfloat16 dtype, which ``torch.from_numpy`` does
+    not take; its bits go across as uint16 and are viewed as bf16."""
+    a = np.array(a, copy=True)  # writable and contiguous, as torch wants
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: Dict, cfg: ModelConfig, device) -> Dict:
+    out = {k: _map(v, lambda a: tensor_from_numpy(a, device)) for k, v in tree.items()
+           if k != "layers"}
+    out["layers"] = [
+        _map(tree["layers"], lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
+        for i in range(cfg.num_layers)
+    ]
+    return out

@@ -31,6 +31,9 @@ from repro_torch.kernels.lap_bid import (
     lap_bid_top2_plain,
 )
 from repro_torch.kernels.migration_cost import migration_cost, migration_cost_plain
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, splits_for
 
 
 @pytest.fixture
@@ -203,3 +206,126 @@ def test_decide_on_card_equals_cpu(cuda, backend):
         assert dg.match_stats == dc.match_stats
         if dc.migration is not None:
             assert dg.migration.matching_cost == dc.migration.matching_cost
+
+
+# --------------------------------------------------------------------------- #
+# K6 / K7: the attention kernels against their plain versions
+# --------------------------------------------------------------------------- #
+_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _attn_inputs(seed, b, s, h, kv, d, dtype):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=g).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=g).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=g).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,causal", [(1, True), (127, True), (200, False), (640, True), (333, False)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, d, s, causal):
+    q, k, v = _attn_inputs(s + d, 2, s, 4, 2, d, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_routing_equals_repeated_kv(cuda, dtype):
+    """Query head h reads KV head h // G inside the kernel; the result equals
+    the reference's path, which repeats the KV heads and runs (BH, S, D)."""
+    b, s, h, kv, d = 2, 300, 8, 2, 128
+    q, k, v = (t.to(cuda) for t in _attn_inputs(7, b, s, h, kv, d, dtype))
+    got = flash_attention(q, k, v, causal=True)
+    kr = torch.repeat_interleave(k, h // kv, dim=2)
+    vr = torch.repeat_interleave(v, h // kv, dim=2)
+    rep = ops.flash_attention(q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, rep.transpose(1, 2), rtol=_TOL[dtype], atol=_TOL[dtype])
+    bh = ops.flash_attention(
+        q.transpose(1, 2).reshape(b * h, s, d), kr.transpose(1, 2).reshape(b * h, s, d),
+        vr.transpose(1, 2).reshape(b * h, s, d),
+    )
+    torch.testing.assert_close(bh.reshape(b, h, s, d), rep, rtol=0, atol=0)
+
+
+def test_sdpa_defaults_to_the_flash_kernel_on_cuda(cuda, monkeypatch):
+    from repro_torch.models.attention import sdpa
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    q, k, v = (t.to(cuda) for t in _attn_inputs(3, 1, 96, 4, 2, 64, torch.bfloat16))
+    before = flash_attention.launches
+    flash = sdpa(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    monkeypatch.setenv("REPRO_USE_FLASH", "0")
+    einsum = sdpa(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(flash.float(), einsum.float(), rtol=3e-2, atol=3e-2)
+
+
+def _decode_inputs(seed, b, h, kv, s, d, dtype):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=g).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=g).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,kv,s,d,valid",
+    [(2, 8, 2, 512, 64, 512), (2, 8, 2, 512, 64, 7), (1, 12, 2, 1000, 128, 999),
+     (3, 8, 8, 300, 128, 300), (2, 32, 8, 4096, 128, 63), (1, 4, 4, 128, 64, 0)],
+)
+def test_flash_decode_kernel_matches_plain(cuda, dtype, b, h, kv, s, d, valid):
+    q, k, v = _decode_inputs(s + valid, b, h, kv, s, d, dtype)
+    before = flash_decode.launches
+    got = flash_decode(q.to(cuda), k.to(cuda), v.to(cuda), valid)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    want = flash_decode_plain(q, k, v, valid)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+    if valid == 0:
+        assert not got.any()
+
+
+def test_flash_decode_valid_len_across_a_split_boundary(cuda):
+    """valid_len at, just below and just past the end of a split's tiles, and
+    read on the device from a 0-d tensor; slots past it are ignored."""
+    b, h, kv, s, d = 1, 8, 2, 8192, 128
+    nsplit, per = splits_for(b * kv, s)
+    assert nsplit > 1
+    edge = per * 64
+    q, k, v = _decode_inputs(11, b, h, kv, s, d, torch.float32)
+    qc, kc, vc = q.to(cuda), k.to(cuda), v.to(cuda)
+    for valid in (edge - 1, edge, edge + 1, s):
+        got = flash_decode(qc, kc, vc, torch.tensor(valid, device=cuda))
+        torch.testing.assert_close(got.cpu(), flash_decode_plain(q, k, v, valid), rtol=2e-5, atol=2e-5)
+        k2, v2 = kc.clone(), vc.clone()
+        k2[:, valid:] = 1e4
+        v2[:, valid:] = -1e4
+        torch.testing.assert_close(flash_decode(qc, k2, v2, valid), got, rtol=0, atol=0)
+
+
+def test_flash_decode_rejects_per_batch_valid_len(cuda):
+    q, k, v = (t.to(cuda) for t in _decode_inputs(0, 2, 4, 2, 64, 64, torch.float32))
+    with pytest.raises(ValueError, match="scalar"):
+        flash_decode(q, k, v, torch.tensor([4, 4], device=cuda))
+    with pytest.raises(ValueError, match="scalar"):
+        ops.flash_decode(q, k, v, torch.tensor([4, 4], device=cuda))
+
+
+def test_flash_kernels_reject_a_head_dim_without_an_instance(cuda):
+    q, k, v = (t.to(cuda) for t in _attn_inputs(0, 1, 16, 2, 2, 32, torch.float32))
+    with pytest.raises(ValueError, match="head dim 32"):
+        flash_attention(q, k, v)
+    q, k, v = (t.to(cuda) for t in _decode_inputs(0, 1, 2, 2, 16, 32, torch.float32))
+    with pytest.raises(ValueError, match="head dim 32"):
+        flash_decode(q, k, v, 16)
