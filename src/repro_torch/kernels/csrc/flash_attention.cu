@@ -4,35 +4,66 @@
 // flash_attention_pallas (_flash_kernel).  For every (batch b, query head h)
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] / sqrt(D)) v[b, j, h/G]
 // over keys j < S (and j <= i when causal), G = H / KV query heads per KV
-// head.  Inputs are read in their (B, S, heads, D) layout through the
-// strides the wrapper passes (last dim contiguous), so the model's q/k/v
-// need no transpose and the KV heads are never repeated; the output is
-// written contiguous (B, S, H, D).  Running max, denominator and
-// accumulator are f32; denom = max(l, 1e-30); the result is cast to the
-// input type (round to nearest even for bf16).  The ragged S edge is masked
-// from indices (keys >= S get no weight, rows >= S are not written): no
-// zero-padded copy of the inputs.
+// head.  Inputs are read in their (B, S, heads, D) layout (last dim
+// contiguous), so the model's q/k/v need no transpose and the KV heads are
+// never repeated; the output is written contiguous (B, S, H, D).  Running
+// max, denominator and accumulator are f32; denom = max(l, 1e-30); the
+// result is cast to the input type (round to nearest even for bf16).  The
+// ragged S edge is masked from indices (keys >= S get no weight, rows >= S
+// are not written): no zero-padded copy of the inputs.  Tiles above the
+// causal diagonal are never loaded and only the diagonal tile is masked;
+// query tiles are issued heaviest first (reverse order), so the long causal
+// rows do not trail the grid.
 //
-// What bounds it on an H100: operations.  It does 4*B*H*S^2*D/2 flops for
-// a causal call (S = 8192, H = 32, D = 128: 5.5e11, 0.56 ms at the 989
-// TFLOP/s bf16 tensor-core peak) against a few bytes per flop of traffic.
-// This first kernel runs them on the f32 CUDA cores (67 TFLOP/s peak, so
-// at best ~15x off the tensor-core bound); mma.sync / wgmma are later work.
-// Design for that: one block of 128 threads per (b*h, 64-query tile), two
-// threads per query row, each holding an interleaved half of D of the
-// scaled query and of the accumulator in registers (the score is the sum
-// of the two halves' dots, one shuffle).  K and V tiles of 32 keys are
-// staged in shared memory as f32 and read by the whole warp as broadcast
-// float4 loads, so each shared load feeds four FMAs; a loop over key tiles
-// replaces the TPU's sequential k grid axis, and tiles above the causal
-// diagonal are never loaded.  Query tiles are issued heaviest first
-// (reverse order), so the long causal rows do not trail the grid.
+// What bounds it on an H100: operations.  A causal call does 4*B*H*S^2*D/2
+// flops (S = 8192, H = 32, D = 128: 5.5e11, 0.56 ms at the 989 TFLOP/s bf16
+// tensor-core peak) against a few bytes per flop of traffic.
+//
+// Two instances:
+//
+// * bf16 (namespace tc): the tensor-core kernel, in the shape of
+//   FlashAttention-3.  One CTA per (b*h, 128-query tile): two consumer
+//   warpgroups of 64 query rows each and one producer warp, one of whose
+//   threads loads Q once and K/V tiles of 128 keys through a 3-stage ring with TMA
+//   (a 4-D tensor map per operand, dims (D, heads, S, B), read through the
+//   caller's strides; 128-byte swizzle, so a row of D = 128 is two 64-wide
+//   boxes, "panels"), each stage guarded by a full and an empty mbarrier.
+//   S = Q K^T is a shared-memory wgmma (m64n128k16, both operands K-major);
+//   the online softmax runs on the f32 accumulator fragment (row max and sum
+//   over the 4 threads of a quad); P is rounded to bf16 in registers, where
+//   the accumulator's pairs are already the A fragment of the register-A
+//   wgmma that computes O += P V (V read MN-major, the transpose flag set).
+//   A warpgroup runs its tile's two GEMMs and softmax in turn; the two
+//   warpgroups drift apart, so one's softmax overlaps the other's GEMMs.
+//   Registers bound the design: ptxas budgets 168 per thread (the block
+//   rounded up to three warpgroups) whatever setmaxnreg grants, and the S
+//   and O fragments (64 floats each at D = 128) and P (32) fit it only
+//   while S(t+1) is not issued before P(t) V(t) completes (FA3's overlap
+//   inside a warpgroup spills and serialises its wgmma here).
+//   TMA fills rows past S with zeros, so keys >= S are masked from their
+//   indices, not by their contents.
+// * f32 (namespace cc): the CUDA-core kernel (the f32 path must stay
+//   within 2e-5 of the plain version, which TF32 would not).  One block of
+//   128 threads per (b*h, 64-query tile), two threads per query row, each
+//   holding an interleaved half of D of the scaled query and of the
+//   accumulator in registers; K and V tiles of 32 keys staged in shared
+//   memory as f32 and read as broadcast float4 loads.
+//
+// The wrapper (kernels/flash_attention.py, launch_plan) computes the
+// dynamic shared memory and the three tensor maps' dims, strides and boxes
+// (and the grid, to hold it to one launch's limits); this file encodes the maps (cuTensorMapEncodeTiled, reached
+// through cudaGetDriverEntryPoint, so the library links no -lcuda) and
+// checks the shared-memory size against its own.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 #include <type_traits>
 
-namespace {
+// --------------------------------------------------------------------------
+// f32: CUDA cores
+// --------------------------------------------------------------------------
+namespace cc {
 
 constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;           // query rows per block
@@ -205,24 +236,443 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace cc
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim
-// of q/k/v is contiguous and the output is contiguous (B, S, H, D).
+// --------------------------------------------------------------------------
+// bf16: TMA + wgmma
+// --------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BM = 128;                  // query rows per CTA (two warpgroups of 64)
+constexpr int BN = 128;                  // keys per K/V tile
+constexpr int STAGES = 3;                // K/V ring depth
+constexpr int CONSUMERS = 256;           // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // plus one producer warp
+constexpr int PANEL = 64;                // bf16 per 128-byte swizzled row
+
+// Dynamic shared memory: Q, then STAGES x (K, V), each a multiple of the
+// 1024-byte swizzle atom, then the mbarriers; 1024 bytes of slack to align
+// the base to the atom.
+template <int D>
+struct Smem {
+  static constexpr int Q = BM * D * 2;
+  static constexpr int TILE = BN * D * 2;
+  static constexpr int BARRIERS = 8 * (1 + 2 * STAGES);
+  static constexpr int BYTES = 1024 + Q + STAGES * 2 * TILE + BARRIERS;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// wait that lasts ~10 s of SM clock traps: a pipeline fault then ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) asm volatile("trap;");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = 128B.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pin a fragment's registers at this point of the program: after a wait,
+// no read of it moves above the wait; before a batch of wgmma, no copy of it
+// lands inside the batch (ptxas would then serialise the batch).
+template <int N>
+__device__ __forceinline__ void fence_all(float* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+#define ACC8(d, i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32(d) ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
+#define ACC64(d) ACC32(d), ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+
+// D (64 x 128, f32) = A (64 x 16) * B (128 x 16)^T [+ D], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, db);
+  } else {
+    wgmma_rs_n64(d, a, db);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S (64 x BN) = Q K^T for this warpgroup's 64 rows: D/16 k-steps, 4 per
+// 64-wide panel; both operands K-major, the k-step advances 32 bytes
+// inside the swizzled 128-byte rows.
+template <int D>
+__device__ __forceinline__ void qk(float* s, uint32_t sq_wg, uint32_t sk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk / 4, c = kk % 4;
+    const uint64_t da = desc_sw128(sq_wg + p * BM * 128 + c * 32, 16, 1024);
+    const uint64_t db = desc_sw128(sk + p * BN * 128 + c * 32, 16, 1024);
+    wgmma_ss_n128(s, da, db, kk > 0);
+  }
+}
+
+// O += P V: P (64 x BN) in bf16 registers, V key-major with D contiguous
+// (MN-major B): 8 keys are a 1024-byte atom (stride byte offset), the next
+// 64 columns of D the next panel (leading byte offset).
+template <int D>
+__device__ __forceinline__ void pv(float* acc, const uint32_t* pa, uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    wgmma_rs<D>(acc, pa + 4 * kk, desc_sw128(sv + kk * 16 * 128, BN * 128, 1024));
+  }
+}
+
+// Online-softmax step on the S fragment of one tile (rows r0 and r0 + 8 of
+// this thread, columns 8j + cq, +1): mask it if it is the last tile (the
+// only one with keys >= S or above the diagonal), update the running max m
+// and this thread's share of the row sums l, overwrite S with P (f32), and
+// return the factors alpha by which the accumulator must be rescaled.
+__device__ __forceinline__ void softmax(float* s, float& m0, float& m1, float& l0, float& l1,
+                                        float& alpha0, float& alpha1, bool last, int k0, int r0,
+                                        int cq, int S, int causal, float scale_log2) {
+  if (last) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + cq + (e & 1);
+        const int row = r0 + (e >> 1) * 8;
+        if (key >= S || (causal && key > row)) s[4 * j + e] = -INFINITY;
+      }
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // a row with no key yet keeps max -inf: subtract 0 so exp2 gives 0, not NaN
+  const float sub0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+  const float sub1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+  alpha0 = exp2f(m0 * scale_log2 - sub0);
+  alpha1 = exp2f(m1 * scale_log2 - sub1);
+  m0 = mx0;
+  m1 = mx1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    s[4 * j] = exp2f(fmaf(s[4 * j], scale_log2, -sub0));
+    s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -sub0));
+    s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -sub1));
+    s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -sub1));
+    rs0 += s[4 * j] + s[4 * j + 1];
+    rs1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + rs0;
+  l1 = l1 * alpha1 + rs1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+                      int H, int G, int causal, float scale_log2) {
+  constexpr int NP = D / PANEL;           // 64-wide panels per row
+  constexpr int Q_BYTES = Smem<D>::Q, T_BYTES = Smem<D>::TILE;
+  constexpr int NACC = D / 2;             // O fragment: 64 x D over 128 threads
+  constexpr int NS = BN / 2;              // S fragment: 64 x BN over 128 threads
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t ring = base + Q_BYTES;   // stage st: K at ring + 2*st*T, V after it
+  const uint32_t q_full = ring + STAGES * 2 * T_BYTES;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - (bh / H) * H, kvh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest tiles first
+  const int key_end = causal ? min(q0 + BM, S) : S;
+  const int ntiles = (key_end + BN - 1) / BN;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // ---- producer warp: one thread issues every TMA load -----------------
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int p = 0; p < NP; ++p) tma_load(sq + p * BM * 128, &tq, q_full, p * PANEL, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % STAGES;
+        const uint32_t sk = ring + 2 * st * T_BYTES, sv = sk + T_BYTES;
+        mbar_wait(empty0 + 8 * st, ((t / STAGES) & 1) ^ 1);  // the first pass is free
+        mbar_expect_tx(full0 + 8 * st, 2 * T_BYTES);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(sk + p * BN * 128, &tk, full0 + 8 * st, p * PANEL, kvh, t * BN, b);
+          tma_load(sv + p * BN * 128, &tv, full0 + 8 * st, p * PANEL, kvh, t * BN, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64*wg .. +63 ----------
+    const int wg = warp >> 2, lane = threadIdx.x & 31;
+    // accumulator fragment: this thread holds rows r0 and r0 + 8, and in every
+    // 8-column chunk j the columns 8j + cq and 8j + cq + 1
+    const int r0 = q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    const int cq = 2 * (lane & 3);
+    float acc[NACC];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's share
+
+    const uint32_t sq_wg = sq + wg * 64 * 128;
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % STAGES;
+      const uint32_t sk = ring + 2 * st * T_BYTES;
+      mbar_wait(full0 + 8 * st, (t / STAGES) & 1);
+      // The fragments are defined and fenced before each batch of wgmma, so
+      // ptxas can keep the batch asynchronous instead of serialising it.
+      float s[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = 0.f;
+      fence_all<NS>(s);
+      fence_all<NACC>(acc);
+      wgmma_fence();
+      qk<D>(s, sq_wg, sk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_all<NS>(s);
+
+      float alpha0, alpha1;
+      softmax(s, m0, m1, l0, l1, alpha0, alpha1, t == ntiles - 1, t * BN, r0, cq, S, causal,
+              scale_log2);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha0;
+        acc[4 * j + 1] *= alpha0;
+        acc[4 * j + 2] *= alpha1;
+        acc[4 * j + 3] *= alpha1;
+      }
+      // P in bf16: the pairs of the fragment, in order, are the A fragments
+      // of the k16 steps of P V (step kk = keys 16kk .. 16kk + 15)
+      uint32_t pa[BN / 4];
+#pragma unroll
+      for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      fence_all<NACC>(acc);
+      wgmma_fence();
+      pv<D>(acc, pa, sk + T_BYTES);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_all<NACC>(acc);
+      if ((threadIdx.x & 127) == 0) mbar_arrive(empty0 + 8 * st);  // this warpgroup is done with the stage
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* o0 = o + (((long long)b * S + r0) * H + h) * D + cq;
+    __nv_bfloat16* o1 = o0 + 8LL * H * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (r0 < S) {
+        *reinterpret_cast<uint32_t*>(o0 + 8 * j) = pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      }
+      if (r0 + 8 < S) {
+        *reinterpret_cast<uint32_t*>(o1 + 8 * j) = pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+      }
+    }
+  }  // consumers
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess) ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// One operand's map from the wrapper's plan: dims[4], strides[3] (bytes),
+// box[4].  Out-of-bounds elements are filled with zeros.
+cudaError_t encode(CUtensorMap* map, const void* ptr, const unsigned long long* plan) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {plan[0], plan[1], plan[2], plan[3]};
+  const cuuint64_t strides[3] = {plan[4], plan[5], plan[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)plan[7], (cuuint32_t)plan[8], (cuuint32_t)plan[9],
+                             (cuuint32_t)plan[10]};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                   int KV, int causal, const unsigned long long* maps, int smem,
+                   cudaStream_t stream) {
+  if (smem != Smem<D>::BYTES) return cudaErrorInvalidValue;  // the plan and this file disagree
+  // Opt in to the shared memory once per instance (not a stream operation,
+  // so legal before any graph capture that later replays the launch).
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+  if (opt_in != cudaSuccess) return opt_in;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = encode(&tq, q, maps);
+  if (e == cudaSuccess) e = encode(&tk, k, maps + 11);
+  if (e == cudaSuccess) e = encode(&tv, v, maps + 22);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * H, (S + BM - 1) / BM);
+  flash_attention_wgmma<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, S, H, H / KV, causal, 1.4426950408889634f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements (the f32
+// instance reads through them); the last dim of q/k/v is contiguous and
+// the output is contiguous (B, S, H, D).  maps: the bf16 instance's tensor
+// maps for q, k, v (11 values each: dims[4], byte strides[3], box[4]);
+// smem: its dynamic shared memory in bytes.  Both are ignored for f32.
 // Returns a cudaError_t (cudaErrorInvalidValue for a D or dtype without an
-// instance).
+// instance, or a plan this file does not agree with).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                int dtype, int B, int S, int H, int KV, int D,
                                int causal, long long qb, long long qs, long long qh,
                                long long kb, long long ks, long long kh, long long vb,
-                               long long vs, long long vh, void* stream) {
-  const Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh};
+                               long long vs, long long vh, const unsigned long long* maps,
+                               int smem, void* stream) {
+  const cc::Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64) return (int)launch<float, 64>(q, k, v, o, B, S, H, KV, causal, st, s);
-  if (dtype == 0 && D == 128) return (int)launch<float, 128>(q, k, v, o, B, S, H, KV, causal, st, s);
-  if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, KV, causal, st, s);
-  if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, KV, causal, st, s);
+  if (dtype == 0 && D == 64) return (int)cc::launch<float, 64>(q, k, v, o, B, S, H, KV, causal, st, s);
+  if (dtype == 0 && D == 128) return (int)cc::launch<float, 128>(q, k, v, o, B, S, H, KV, causal, st, s);
+  if (dtype == 1 && D == 64) return (int)tc::launch<64>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
+  if (dtype == 1 && D == 128) return (int)tc::launch<128>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   return (int)cudaErrorInvalidValue;
 }

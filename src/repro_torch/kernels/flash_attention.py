@@ -11,7 +11,10 @@ says what bounds it and how it is laid out); it replaces the Pallas kernel
 the KV heads already repeated — ``ops.flash_attention`` keeps that
 contract.  :func:`flash_attention` launches the kernel for CUDA tensors
 and takes the plain version :func:`flash_attention_plain` only for CPU
-tensors.
+tensors.  :func:`launch_plan` is everything the wrapper computes for a
+launch — the instance (bf16 tensor cores or f32 CUDA cores), grid, shared
+memory and the bf16 instance's TMA tensor maps — so it is tested on a host
+without a card.
 """
 
 from __future__ import annotations
@@ -26,7 +29,12 @@ NEG_INF = -1e30
 #: head dims with a kernel instance (reduced and full GQA configs)
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_Q = 64
+#: the bf16 tensor-core instance (csrc/flash_attention.cu, namespace tc):
+#: query rows per CTA, keys per K/V tile, ring stages, bf16 per 128-byte
+#: swizzled TMA box row
+TC_BLOCK_Q, TC_BLOCK_K, TC_STAGES, TC_PANEL = 128, 128, 3, 64
+#: the f32 CUDA-core instance (namespace cc): query rows per tile
+CC_BLOCK_Q = 64
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, block_k: int = 512) -> torch.Tensor:
@@ -83,6 +91,67 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: operands on several devices")
 
 
+def tensor_map(shape, strides, box_rows: int, elem_bytes: int = 2) -> dict:
+    """The 4-D TMA map of one (B, S, heads, D) operand: dims innermost first
+    (D, heads, S, B), the byte strides of heads, S and B, and a box of
+    ``TC_PANEL`` x 1 x ``box_rows`` x 1 (a 128-byte swizzled row holds 64
+    bf16, so a D = 128 row takes two boxes).  A dim of size 1 gets the
+    stride it would have contiguous: its stride is never used, and TMA wants
+    every stride a non-zero multiple of 16 bytes."""
+    b, s, heads, d = shape
+    natural = (d * elem_bytes, heads * d * elem_bytes, s * heads * d * elem_bytes)
+    sizes = (heads, s, b)
+    byte_strides = tuple(
+        nat if n == 1 else st * elem_bytes for st, n, nat in zip(strides[2::-1], sizes, natural)
+    )
+    return dict(dims=(d, heads, s, b), strides=byte_strides, box=(TC_PANEL, 1, box_rows, 1))
+
+
+def _tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the bf16 instance (``tc::Smem<D>::BYTES``):
+    1 KB to align to the swizzle atom, Q, the K/V ring, its mbarriers."""
+    return 1024 + 2 * TC_BLOCK_Q * d + TC_STAGES * 2 * 2 * TC_BLOCK_K * d + 8 * (1 + 2 * TC_STAGES)
+
+
+def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v_strides=None) -> dict:
+    """What a launch of ``flash_attention`` on q (B, S, H, D) and k/v
+    (B, S, ``kv_heads``, D) of ``dtype`` hands the C entry or checks before
+    it: the instance, the grid (checked against one launch's limits), the
+    dynamic shared memory (the C entry checks it against its own) and the
+    bf16 instance's tensor maps.  Strides (elements, default contiguous)
+    matter only to the maps."""
+    b, s, h, d = q_shape
+    if dtype == torch.bfloat16:
+        kv_shape = (b, s, kv_heads, d)
+        contiguous = (s * h * d, h * d, d, 1), (s * kv_heads * d, kv_heads * d, d, 1)
+        return dict(
+            instance="tc_bf16", grid=(b * h, -(-s // TC_BLOCK_Q)), dynamic_smem_bytes=_tc_smem_bytes(d),
+            maps=dict(
+                q=tensor_map(q_shape, q_strides or contiguous[0], TC_BLOCK_Q),
+                k=tensor_map(kv_shape, k_strides or contiguous[1], TC_BLOCK_K),
+                v=tensor_map(kv_shape, v_strides or contiguous[1], TC_BLOCK_K),
+            ),
+        )
+    if dtype == torch.float32:
+        return dict(instance="cc_f32", grid=(b * h, -(-s // CC_BLOCK_Q)), dynamic_smem_bytes=0, maps=None)
+    raise ValueError(f"flash_attention: the kernel takes float32 or bfloat16, got {dtype}")
+
+
+def _maps_arg(maps) -> ctypes.Array:
+    """The three maps as the C entry reads them: 11 values each."""
+    flat = [x for name in ("q", "k", "v") for key in ("dims", "strides", "box") for x in maps[name][key]]
+    return (ctypes.c_ulonglong * len(flat))(*flat)
+
+
+def _tma_view(x):
+    """``x`` as a TMA source: ``build.aligned_view``, and contiguous where a
+    dim of size > 1 has stride 0 (a broadcast view, which a map cannot read)."""
+    x = build.aligned_view(x)
+    if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        x = x.contiguous()
+    return x
+
+
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """(B, S, H, D) attention output, contiguous.  CUDA tensors launch the
     kernel (bf16 or f32, D in ``HEAD_DIMS``; counted in
@@ -100,23 +169,27 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
         raise ValueError(f"flash_attention: the kernel takes float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: no kernel instance for head dim {d} (have {HEAD_DIMS})")
-    if (s + _BLOCK_Q - 1) // _BLOCK_Q > 65535 or b * h > (1 << 31) - 1:
-        raise ValueError(f"flash_attention: {tuple(q.shape)} exceeds one launch")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    q, k, v = build.aligned_view(q), build.aligned_view(k), build.aligned_view(v)
+    view = _tma_view if q.dtype == torch.bfloat16 else build.aligned_view
+    q, k, v = view(q), view(k), view(v)
+    plan = launch_plan(q.shape, kvh, q.dtype, q.stride(), k.stride(), v.stride())
+    if plan["grid"][1] > 65535 or plan["grid"][0] > (1 << 31) - 1:
+        raise ValueError(f"flash_attention: {tuple(q.shape)} exceeds one launch")
     fn = build.library("flash_attention").flash_attention
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 + [
-        ctypes.c_void_p
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
+    maps = _maps_arg(plan["maps"]) if plan["maps"] else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, s, h, kvh, d, int(causal),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            maps, plan["dynamic_smem_bytes"], stream,
         )
     build.check(err, "flash_attention")
     flash_attention.launches += 1

@@ -17,7 +17,9 @@ The hand-written kernel is ``csrc/flash_decode.cu`` (its header says what
 bounds it and how it is laid out); it replaces the Pallas kernel
 ``flash_decode_pallas`` of the JAX package.  :func:`flash_decode` launches
 it for CUDA tensors and takes the plain version :func:`flash_decode_plain`
-only for CPU tensors.
+only for CPU tensors.  :func:`launch_plan` is everything the wrapper
+computes for a launch (instance, split-K grid, shared memory, heads per
+warp), so it is tested on a host without a card.
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64
 #: blocks the split-K grid aims for: four per SM of an H100 (132 SMs)
 _TARGET_BLOCKS = 4 * 132
+#: warps of the partial kernels; a bf16 warp serves at most four heads
+WARPS = 4
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: the bf16 ring's budget: at most this much shared memory (two blocks per
+#: SM) and at most ``_MAX_STAGES`` tiles
+_RING_BYTES, _MAX_STAGES = 110 * 1024, 4
 
 
 def flash_decode_plain(q, k, v, valid_len) -> torch.Tensor:
@@ -95,6 +104,33 @@ def splits_for(batch_kv: int, cache_len: int):
     return -(-tiles // per), per
 
 
+def ring_stages(d: int) -> int:
+    """K/V tiles in flight in the bf16 kernel's ring (``ring::stages<D>``)."""
+    return min(_MAX_STAGES, _RING_BYTES // (2 * TILE * d * 2))
+
+
+def launch_plan(q_shape, cache_shape, dtype) -> dict:
+    """What a launch of ``flash_decode`` on q (B, H, D) against a cache
+    (B, S, KV, D) of ``dtype`` hands the C entry: the partial kernel's
+    instance, split-K grid, the scratch its splits write, its dynamic shared
+    memory and (bf16) heads per warp.  The C entry checks the last two
+    against its own."""
+    b, h, d = q_shape
+    s, kvh = cache_shape[1], cache_shape[2]
+    g = h // kvh
+    nsplit, per = splits_for(b * kvh, s)
+    plan = dict(splits=nsplit, tiles_per_split=per, part_floats=b * kvh * nsplit * g * (d + 2))
+    if dtype == torch.bfloat16:
+        plan.update(instance="ring_bf16", heads_per_warp=-(-g // WARPS),
+                    smem_bytes=ring_stages(d) * 2 * TILE * d * 2)
+    elif dtype == torch.float32:
+        plan.update(instance="cc_f32", heads_per_warp=0,
+                    smem_bytes=4 * (TILE * (d + 1) + TILE * d + 2 * g * d + g * TILE + 3 * g))
+    else:
+        raise ValueError(f"flash_decode: the kernel takes float32 or bfloat16, got {dtype}")
+    return plan
+
+
 def flash_decode(q, k, v, valid_len) -> torch.Tensor:
     """(B, H, D) decode attention.  CUDA tensors launch the kernel (bf16 or
     f32, D in ``HEAD_DIMS``; counted in ``flash_decode.launches``); CPU
@@ -105,17 +141,28 @@ def flash_decode(q, k, v, valid_len) -> torch.Tensor:
         return flash_decode_plain(q, k, v, valid_len)
     if dev.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {dev}")
-    b, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_decode: the kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_decode: no kernel instance for head dim {d} (have {HEAD_DIMS})")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_decode: no kernel instance for head dim {q.shape[-1]} (have {HEAD_DIMS})")
+    return _launch(q, k, v, valid_len, launch_plan(q.shape, k.shape, q.dtype))
+
+
+def _launch(q, k, v, valid_len, plan) -> torch.Tensor:
+    """Launch the partial and merge kernels as ``plan`` says (checked
+    operands on one CUDA device)."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    dev = q.device
+    if plan["smem_bytes"] > SMEM_LIMIT or plan["heads_per_warp"] > 4:
+        raise ValueError(
+            f"flash_decode: no kernel instance for {h // kvh} query heads per KV head at head dim "
+            f"{d} ({plan['smem_bytes']} bytes of shared memory)"
+        )
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    nsplit, per = splits_for(b * kvh, s)
-    part = torch.empty((b * kvh * nsplit * (h // kvh) * (d + 2),), dtype=torch.float32, device=dev)
+    part = torch.empty((plan["part_floats"],), dtype=torch.float32, device=dev)
     if torch.is_tensor(valid_len):
         vl_tensor = valid_len.to(torch.int32)  # stays on the device: no sync
         vl_ptr, vl_host = vl_tensor.data_ptr(), 0
@@ -125,15 +172,16 @@ def flash_decode(q, k, v, valid_len) -> torch.Tensor:
     fn = build.library("flash_decode").flash_decode
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), vl_ptr, vl_host, out.data_ptr(),
-            part.data_ptr(), _DTYPES[q.dtype], b, s, h, kvh, d, nsplit, per,
-            *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], stream,
+            part.data_ptr(), _DTYPES[q.dtype], b, s, h, kvh, d, plan["splits"],
+            plan["tiles_per_split"], *q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
+            plan["smem_bytes"], plan["heads_per_warp"], stream,
         )
     build.check(err, "flash_decode")
     flash_decode.launches += 1

@@ -329,3 +329,120 @@ def test_flash_kernels_reject_a_head_dim_without_an_instance(cuda):
     q, k, v = (t.to(cuda) for t in _decode_inputs(0, 1, 2, 2, 16, 32, torch.float32))
     with pytest.raises(ValueError, match="head dim 32"):
         flash_decode(q, k, v, 16)
+
+
+# --------------------------------------------------------------------------- #
+# K6 / K7: the Hopper designs' tile edges (bf16 on wgmma + TMA for K6, the
+# bf16 cp.async ring for K7), compared on the card with the plain versions
+# --------------------------------------------------------------------------- #
+def _cuda_attn(seed, b, s, h, kv, d, dtype, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=g, device=device).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=g, device=device).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 256, 257, 1000, 4113])
+def test_flash_attention_bf16_tile_edges(cuda, s, causal, d, g):
+    """S on both sides of the 128-row query and key tiles (TMA zero-fills
+    past S; those keys are masked from their indices), D over one or two
+    64-wide swizzled panels, G query heads per KV head at B = 2."""
+    q, k, v = _cuda_attn(s * 7 + d + g, 2, s, 2 * g, 2, d, torch.bfloat16, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [257, 1000])
+def test_flash_attention_bf16_reads_fused_qkv_views(cuda, s, d):
+    """q, k and v as strided views of one (B, S, H + 2 KV, D) projection:
+    the tensor maps walk the fused rows, no copy is made."""
+    b, h, kv = 2, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    x = torch.randn((b, s, h + 2 * kv, d), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = x[:, :, :h], x[:, :, h:h + kv], x[:, :, h + kv:]
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_rescale_when_the_max_is_in_the_last_tile(cuda, causal):
+    """Query rows that find their maximum only in the last key tile they
+    see (the second of two): the running max jumps there, and the
+    accumulator of the first tile must be rescaled by it.  Non-causal: rows
+    of the first query tile against keys 128 later; causal: rows of the
+    second query tile against their own (diagonal) key."""
+    s, d = 256, 128
+    q, k, v = _cuda_attn(5, 1, s, 2, 1, d, torch.bfloat16, cuda)
+    rows = torch.arange(120, 128, device=cuda) + (128 if causal else 0)
+    keys = rows if causal else rows + 128
+    k[0, keys, 0] = (q[0, rows, 0].float() * 0.5).to(torch.bfloat16)
+    got = flash_attention(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+    scores = q[0, rows, 0].float() @ k[0, :, 0].float().T
+    if causal:
+        scores = scores.masked_fill(torch.arange(s, device=cuda)[None, :] > rows[:, None], -1e30)
+    assert bool((scores.argmax(-1) == keys).all())  # the maximum does sit there
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,causal", [(65, True), (257, False), (1000, True)])
+def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
+    """f32 inputs stay on the f32 CUDA-core instance, within 2e-5 of the
+    plain version (tensor cores in TF32 would not be)."""
+    from repro_torch.kernels.flash_attention import launch_plan
+
+    q, k, v = _cuda_attn(s + d, 2, s, 4, 2, d, torch.float32, cuda)
+    assert launch_plan(q.shape, 2, q.dtype)["instance"] == "cc_f32"
+    got = flash_attention(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+_RING = {64: 4 * 64, 128: 3 * 64}  # slots in a full ring of the bf16 kernel
+
+
+@pytest.mark.parametrize("single_split", [True, False])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("valid", ["0", "1", "63", "64", "65", "ring+1", "2ring+1", "S"])
+def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
+    """valid_len at 0, one slot, both sides of a 64-slot tile, one and two
+    ring wraps past a stage boundary and the whole cache; as the wrapper
+    splits it and with B = 1 in one split that walks every tile."""
+    from repro_torch.kernels import flash_decode as fd
+
+    s, kv = 1024, 2
+    n = {"0": 0, "1": 1, "63": 63, "64": 64, "65": 65, "ring+1": _RING[d] + 1,
+         "2ring+1": 2 * _RING[d] + 1, "S": s}[valid]
+    b = 1 if single_split else 2
+    gen = torch.Generator(device=cuda).manual_seed(n + d + g)
+    q = torch.randn((b, g * kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    assert fd.ring_stages(d) * 64 == _RING[d]
+    if single_split:
+        plan = dict(plan, splits=1, tiles_per_split=s // 64, part_floats=b * kv * g * (d + 2))
+    before = fd.flash_decode.launches
+    got = fd._launch(q, k, v, torch.tensor(n, device=cuda), plan)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    want = flash_decode_plain(q, k, v, n)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+    if n == 0:
+        assert not got.any()
+    k2, v2 = k.clone(), v.clone()  # slots at or past valid_len are never read
+    k2[:, n:] = 1e4
+    v2[:, n:] = -1e4
+    torch.testing.assert_close(fd._launch(q, k2, v2, n, plan), got, rtol=0, atol=0)
