@@ -20,6 +20,11 @@ what comes out:
    which must not be zero;
 2. kernels vs their plain versions at the main path's shapes (exact,
    ``lap_bid_fused_batched`` bit for bit also on non-integer costs;
+   ``lap_auction``, the whole auction in one launch, bit for bit against
+   the plain eager loop in every output — the 512x512 node match cold and
+   warm, the 262,144 4x4 pair fan-out plain and fused, and after phase 3 the
+   largest packing rectangle met — with its time per solve and per bid
+   round beside the eager loop's;
    ``flash_attention`` and ``flash_decode`` in bf16 at 3e-2 and within 1e-2
    relative L2 error per 128-query tile / per head, at the serving path's
    shapes and at ``prefill_32k`` / ``decode_32k``'s length), with
@@ -29,15 +34,18 @@ what comes out:
    the previous plan, warm), as the scalability benchmark does, and (b)
    ``Simulator.run(stop_after_rounds=6)`` on a 2048-job shockwave trace
    whose backlog exceeds the cluster, so the packing LAP runs; the launch
-   counters are zeroed just before and read just after, and both slice-1
-   kernels must have launched.  The fused path: (c) the
+   counters are zeroed just before and read just after: ``lap_auction``
+   and ``migration_cost`` must have launched, every auction solve that
+   asked for the kernel launched ``lap_auction`` once with no host sync
+   (``loop_syncs`` 0), and the node match and the pair fan-out were among
+   them.  The fused path: (c) the
    ``fused_decide_scale`` record of ``BENCH_fused_decide.json`` replayed
    (512 jobs, ``fanout_shards=8``, packing off, round 0 then 6 rounds) —
    its per-round bid iterations, dirty pairs, readouts, context host syncs
    and fallbacks must equal the record exactly — and (d) the 2048-job
    simulator run of (b) with ``fused_fanout=True``; counters zeroed before
-   (c) and read after (d), and ``lap_bid_fused_batched`` must have
-   launched;
+   (c) and read after (d), with the same checks of ``lap_auction`` over the
+   fused program's auctions (each pair chunk and the node match);
 4. correctness: (a) re-run with the plain top-2 (``lap_backend="auction"``)
    reproduces every plan and matching cost bit for bit; each migrate step
    re-solved with scipy has the same optimal matching cost, fused steps
@@ -296,6 +304,106 @@ def compare_lap_bid_fused(shape, device, gen, tb="zero", ties=False, non_integer
     )
     log(f"[kernel] {what}: bitwise equal to plain; " + json.dumps(row))
     return row
+
+
+def auction_start(a, *, rect=False, warm=False, tb=None):
+    """The prologue ``core/matching/auction.py`` computes once per solve, as
+    per-instance tensors: ``(eps0, eps_min, thr)``.  ``tb`` (the fused
+    pairs): ``eps_min = (tb or 1) / (n + 1)`` as the fused stage sets it."""
+    import numpy as np
+    import torch
+
+    b, n, m = a.shape
+    one = torch.ones(b, device=a.device)
+    eps_min = (one if tb is None else torch.where(tb > 0, tb, one)) / (n + 1)
+    if rect:
+        return eps_min, eps_min, torch.full_like(eps_min, float("inf"))
+    thr = eps_min * np.float32(1 + 1e-6)
+    span = torch.clamp_min(a.abs().amax(dim=(1, 2)), 1.0)
+    eps0 = eps_min if warm else torch.maximum(span / 4.0, eps_min)
+    return eps0, eps_min, thr
+
+
+def compare_lap_auction(what, a, device, *, p0=None, col0=None, rect=False, warm=False, tb=None,
+                        neg=-1e30, reps=3, one_cta=False):
+    """``lap_auction`` (one launch per solve) against ``lap_auction_plain``
+    (the eager loop) on the same inputs, bit for bit in every output, with
+    the time per solve and per bid round of each.  Returns ``(row, (col_of,
+    prices, iters, eps))``.  ``one_cta``: also time the solve on a plan of
+    one CTA reading the rows from L2 (the design's alternative)."""
+    import torch
+
+    from repro_torch.kernels import lap_auction as la
+
+    b, n, m = a.shape
+    p0 = torch.zeros((b, m), device=device) if p0 is None else p0
+    col0 = torch.full((b, n), -1, dtype=torch.int64, device=device) if col0 is None else col0
+    eps0, eps_min, thr = auction_start(a, rect=rect, warm=warm, tb=tb)
+    args = (a, p0, col0, eps0, eps_min, thr, 20_000)
+    kw = dict(tb=tb, neg=neg)
+    got = la.lap_auction(*args, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = la.lap_auction_plain(*args, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for g, w, out in zip(got, want, ("col_of", "prices", "iters", "eps")):
+        same = (torch.equal(g.view(torch.int32), w.view(torch.int32)) if g.dtype == torch.float32
+                else torch.equal(g, w))
+        check(same, f"lap_auction {what} {tuple(a.shape)}: {out} differs from plain (bitwise)")
+    iters = got[2].long()
+    rounds = int(iters.max())
+    nbytes = 4 * (b * n * m + 2 * b * m + 2 * b * n + 5 * b) + (4 * b if tb is not None else 0)
+    # the least work these inputs need: one row's top-2 over m columns per round
+    bnd, by = bound_ms(nbytes, 3 * m * int(iters.sum()), PEAK_F32_OPS_PER_S)
+    row = dict(
+        case=what, shape=list(a.shape), max_abs_err=0.0, rounds=rounds, rounds_sum=int(iters.sum()),
+        converged=bool(((got[0] >= 0).all(dim=1) & (got[3] <= thr)).all()),
+        plan=la.launch_plan(b, n, m)._asdict(),
+        ms=timed(lambda: la.lap_auction(*args, **kw), device, reps, 1),
+        plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
+    )
+    row["ms_per_round"] = row["ms"] / max(rounds, 1)
+    row["plain_ms_per_round"] = plain_ms / max(rounds, 1)
+    if one_cta:
+        plan = la.AuctionPlan("cluster", 0, 1, n, la.CLUSTER_THREADS, b,
+                              la.cluster_smem(m, n, False), False)
+        alt = la.lap_auction(*args, **kw, plan=plan)
+        check(all(torch.equal(x, y) for x, y in zip(alt, got)),
+              f"lap_auction {what}: the one-CTA plan differs")
+        row["one_cta_ms"] = timed(lambda: la.lap_auction(*args, **kw, plan=plan), device, reps, 1)
+    log(f"[kernel] lap_auction {what} {tuple(a.shape)}: bitwise equal to the plain loop; "
+        + json.dumps(row))
+    return row, got
+
+
+def auction_rows(kn, fanout, device, gen):
+    """Phase 2's ``lap_auction`` cases at the main path's shapes: the node
+    match cold and warm from the cold solve's prices, the pair fan-out on
+    the plain bid (the ``auction_kernel`` backend) and fused (tb mixed), and
+    the fused assembly on non-integer costs."""
+    import torch
+
+    from repro_torch.core.fused import _tb_scale
+
+    a = torch.randint(-64, 1, (1, kn, kn), generator=gen, dtype=torch.int32).float().to(device)
+    rows = {}
+    rows["node_cold"], cold = compare_lap_auction("node cold", a, device, one_cta=True)
+    a2 = a + torch.randint(-2, 3, a.shape, generator=gen, dtype=torch.int32).float().to(device)
+    rows["node_warm"], _ = compare_lap_auction("node warm", a2, device, p0=cold[1], warm=True)
+    fan = torch.randint(-64, 1, (fanout, 4, 4), generator=gen, dtype=torch.int32).float().to(device)
+    rows["fanout"], _ = compare_lap_auction("fan-out", fan, device)
+    cost = torch.randint(0, 65, (fanout, 4, 4), generator=gen, dtype=torch.int32).float().to(device)
+    tb = torch.where(torch.arange(fanout, device=device) % 2 == 1, _tb_scale(4, 4), 0.0).float()
+    rows["fanout_fused"], _ = compare_lap_auction("fused fan-out tb mixed", cost, device, tb=tb)
+    noisy = (torch.randn((4096, 4, 4), generator=gen) * 7.0).to(device)
+    rows["fused_non_integer"], _ = compare_lap_auction(
+        "fused non-integer", noisy, device, tb=torch.full((4096,), _tb_scale(4, 4), device=device))
+    rows["node_plain_sentinel"], _ = compare_lap_auction("node, plain sentinel", a, device,
+                                                         neg=-1e18)
+    return rows
 
 
 def compare_migration_cost(u, device, gen, reps=20):
@@ -753,7 +861,7 @@ class Recorder:
         import repro_torch.core.migration as migration
         import repro_torch.core.scheduler as scheduler
         from repro_torch.core.matching import auction
-        from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_fused_batched
+        from repro_torch.kernels.lap_auction import lap_auction
 
         self.mods = (engine, migration, scheduler, fused)
         self.orig = (
@@ -772,13 +880,14 @@ class Recorder:
             self.solves += 1
             if benefit.shape[-1] == 1:
                 self.single_column += benefit.shape[0]
-            s0, l0, t0 = auction.loop_syncs.count, lap_bid_batched.launches, time.perf_counter()
+            s0, l0, t0 = auction.loop_syncs.count, lap_auction.launches, time.perf_counter()
             out = self.orig[0](benefit, *a, **k)
             self.events.append(dict(
                 what="auction", shape=list(benefit.shape), wall_s=time.perf_counter() - t0,
+                use_kernel=bool(k["use_kernel"] if "use_kernel" in k else a[3]),
                 bid_rounds=int(out[3].max()) if len(out[3]) else 0,
                 loop_syncs=auction.loop_syncs.count - s0,
-                lap_bid_launches=lap_bid_batched.launches - l0,
+                lap_auction_launches=lap_auction.launches - l0,
             ))
             return out
 
@@ -807,7 +916,7 @@ class Recorder:
             # smoke's own, outside the planner's one-readout count
             if cost.is_cuda:
                 torch.cuda.synchronize()
-            s0, l0, t0 = auction.loop_syncs.count, lap_bid_fused_batched.launches, time.perf_counter()
+            s0, l0, t0 = auction.loop_syncs.count, lap_auction.launches, time.perf_counter()
             out = self.orig[4](cost, *a, **k)
             if cost.is_cuda:
                 torch.cuda.synchronize()
@@ -817,8 +926,8 @@ class Recorder:
                 what="fused_auction", shape=list(cost.shape), wall_s=wall,
                 bid_rounds=int(iters.max()), bid_iters=int(iters.sum()),
                 converged=bool(out[3].cpu().all()),
-                loop_syncs=auction.loop_syncs.count - s0,
-                lap_bid_fused_launches=lap_bid_fused_batched.launches - l0,
+                use_kernel=bool(a[5]), loop_syncs=auction.loop_syncs.count - s0,
+                lap_auction_launches=lap_auction.launches - l0,
             ))
             return out
 
@@ -832,6 +941,23 @@ class Recorder:
         engine, migration, scheduler, fused = self.mods
         (engine._run_auction, migration._gpu_pair_costs, scheduler.plan_migration,
          fused.FusedMigrationPlanner.plan, fused._pair_auction) = self.orig
+
+
+def check_kernel_solves(events, what, kn, path):
+    """Every auction solve of a path that asked for the kernel launched
+    ``lap_auction`` once and read nothing back (``loop_syncs`` 0), and the
+    path's node match (kn x kn) and 4x4 pair fan-out were among them."""
+    solves = [e for e in events if e["what"] == what and e["use_kernel"]]
+    check(solves, f"{path}: no auction solve asked for the kernel")
+    for e in solves:
+        check(e["lap_auction_launches"] == 1 and e["loop_syncs"] == 0,
+              f"{path}: a kernel solve of {e['shape']} launched lap_auction "
+              f"{e['lap_auction_launches']} times with {e['loop_syncs']} host syncs")
+    shapes = {tuple(e["shape"][-2:]) for e in solves}
+    check((kn, kn) in shapes and (4, 4) in shapes,
+          f"{path}: the node match or the pair fan-out did not run on lap_auction ({shapes})")
+    log(f"[check] {path}: {len(solves)} auction solves, each one lap_auction launch and no host "
+        f"sync; shapes {sorted(shapes)}")
 
 
 def check_feasible(plan, gmap, what):
@@ -864,7 +990,7 @@ def decide_three(cluster, backend, device, num_jobs):
 
     from repro_torch.core.matching import auction
     from repro_torch.core.traces import synthetic_active_jobs
-    from repro_torch.kernels.lap_bid import lap_bid_batched
+    from repro_torch.kernels.lap_auction import lap_auction
     from repro_torch.kernels.migration_cost import migration_cost
 
     sched, prof = make_scheduler(cluster, backend, device)
@@ -875,7 +1001,7 @@ def decide_three(cluster, backend, device, num_jobs):
     try:
         prev = None
         for i, now in enumerate((0.0, 360.0, 720.0)):
-            counts = (lap_bid_batched.launches, migration_cost.launches, auction.loop_syncs.count, rec.solves)
+            counts = (lap_auction.launches, migration_cost.launches, auction.loop_syncs.count, rec.solves)
             ev0 = len(rec.events)
             t0 = time.perf_counter()
             d = sched.decide(jobs, now=now, prev_plan=prev)
@@ -887,7 +1013,7 @@ def decide_three(cluster, backend, device, num_jobs):
             check_feasible(d.plan, gmap, f"{backend} decide {i}")
             row = dict(
                 round=i, wall_s=wall, timings=d.timings, match_stats=d.match_stats,
-                lap_bid_launches=lap_bid_batched.launches - counts[0],
+                lap_auction_launches=lap_auction.launches - counts[0],
                 migration_cost_launches=migration_cost.launches - counts[1],
                 auction_solves=rec.solves - counts[3],
                 loop_syncs=auction.loop_syncs.count - counts[2],
@@ -908,7 +1034,7 @@ def run_sim(cluster, device, num_jobs, stop_after, fused=False):
 
     from repro_torch.core.simulator import SimConfig, Simulator
     from repro_torch.core.traces import shockwave_trace
-    from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_fused_batched
+    from repro_torch.kernels.lap_auction import lap_auction
     from repro_torch.kernels.migration_cost import migration_cost
 
     tag = "sim fused" if fused else "sim"
@@ -925,9 +1051,8 @@ def run_sim(cluster, device, num_jobs, stop_after, fused=False):
             packing_edges=decision.packing.num_edges,
             packed=len(decision.packing.matches), timings=decision.timings,
             match_stats=decision.match_stats, steps=rec.events[hook.seen:],
-            launches_so_far={"lap_bid_batched": lap_bid_batched.launches,
-                             "migration_cost": migration_cost.launches,
-                             "lap_bid_fused_batched": lap_bid_fused_batched.launches},
+            launches_so_far={"lap_auction": lap_auction.launches,
+                             "migration_cost": migration_cost.launches},
             degrade=decision.degrade_reason,
         ))
         hook.seen = len(rec.events)
@@ -959,7 +1084,7 @@ def fused_replay(cluster, device, num_jobs, rounds, shards, expect=None):
 
     from repro_torch.core.matching import auction
     from repro_torch.core.traces import synthetic_active_jobs
-    from repro_torch.kernels.lap_bid import lap_bid_fused_batched
+    from repro_torch.kernels.lap_auction import lap_auction
 
     sched, prof = make_scheduler(
         cluster, "auto", device, enable_packing=False, fused_fanout=True, fanout_shards=shards
@@ -973,7 +1098,7 @@ def fused_replay(cluster, device, num_jobs, rounds, shards, expect=None):
         for r in range(1, rounds + 1):
             st0 = dict(sched._fused_planner.stats) if sched._fused_planner else {}
             sync0, ev0 = sched.match_context.stats["host_syncs"], len(rec.events)
-            loop0, l0 = auction.loop_syncs.count, lap_bid_fused_batched.launches
+            loop0, l0 = auction.loop_syncs.count, lap_auction.launches
             t0 = time.perf_counter()
             d = sched.decide(jobs, now=360.0 * r, prev_plan=prev)
             if device.type == "cuda":
@@ -995,7 +1120,7 @@ def fused_replay(cluster, device, num_jobs, rounds, shards, expect=None):
                 pair_instances=delta("fused_pair_instances"),
                 bid_iters=delta("fused_bid_iters"),
                 host_fallbacks=delta("fused_host_fallbacks"),
-                lap_bid_fused_launches=lap_bid_fused_batched.launches - l0,
+                lap_auction_launches=lap_auction.launches - l0,
                 migrations=d.migration.num_migrations,
                 matching_cost=d.migration.matching_cost,
                 algorithm=d.migration.algorithm,
@@ -1124,10 +1249,12 @@ def run(device, scale):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.lap_auction import lap_auction
     from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_fused_batched
     from repro_torch.kernels.migration_cost import migration_cost
 
     counted = {
+        "lap_auction": lap_auction,
         "lap_bid_batched": lap_bid_batched,
         "migration_cost": migration_cost,
         "lap_bid_fused_batched": lap_bid_fused_batched,
@@ -1166,6 +1293,7 @@ def run(device, scale):
         "node": compare_lap_bid((1, kn, kn), device, gen),
         "ties": compare_lap_bid((4, 8, 600), device, gen, ties=True, reps=5),
     }
+    auction = auction_rows(kn, scale["fanout"], device, gen)
     mig_row = compare_migration_cost(kn * 4, device, gen)
     fused_rows = {
         "fanout": compare_lap_bid_fused((scale["fanout"], 4, 4), device, gen, tb="mixed"),
@@ -1191,8 +1319,9 @@ def run(device, scale):
     launches = read_counts()
     log(f"[main path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(launches)}")
     if device.type == "cuda":  # CPU tensors take the plain versions, uncounted
-        check(launches["lap_bid_batched"] > 0, "the main path never launched lap_bid_batched")
+        check(launches["lap_auction"] > 0, "the main path never launched lap_auction")
         check(launches["migration_cost"] > 0, "the main path never launched migration_cost")
+        check_kernel_solves(kernel_rec.events + sim_rec.events, "auction", kn, "(a)/(b)")
 
     # ---- phase 3 (c, d): the fused path ------------------------------------ #
     zero_counts()
@@ -1206,8 +1335,8 @@ def run(device, scale):
     log(f"[fused path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(fused_launches)}")
     check(fsim_rec.fused, "the fused simulator run never took the fused migrate stage")
     if device.type == "cuda":
-        check(fused_launches["lap_bid_fused_batched"] > 0,
-              "the fused path never launched lap_bid_fused_batched")
+        check(fused_launches["lap_auction"] > 0, "the fused path never launched lap_auction")
+        check_kernel_solves(replay_rec.events + fsim_rec.events, "fused_auction", kn, "(c)/(d)")
 
     # the rectangular packing shape a real round solved, kernel vs plain
     packing = [r for r in sim_rows if r["packing_edges"] > 0]
@@ -1215,6 +1344,8 @@ def run(device, scale):
     big = max(packing, key=lambda r: r["placed"] * r["pending"])
     rect = (1, min(big["placed"], big["pending"]), max(big["placed"], big["pending"]))
     lap_rows["packing"] = compare_lap_bid(rect, device, gen, reps=10)
+    pack = torch.randint(-64, 1, rect, generator=gen, dtype=torch.int32).float().to(device)
+    auction["packing"], _ = compare_lap_auction("packing", pack, device, rect=True, one_cta=True)
 
     # ---- phase 4: correctness on the card ---------------------------------- #
     plain_rounds, plain_rec = decide_three(cluster, "auction", device, scale["jobs_decide"])
@@ -1273,7 +1404,22 @@ def run(device, scale):
               f"times, wanted {want}")
         check(serve_launches["flash_decode"] == 1, "flash_decode was not launched on the served cache")
 
-    kernels = []
+    node = auction["node_cold"]
+    kernels = [dict(
+        name="lap_auction", route="cuda", source="src/repro_torch/kernels/csrc/lap_auction.cu",
+        replaces="src/repro/kernels/lap_bid.py:149",
+        also_replaces=["src/repro/kernels/lap_bid.py:398", "src/repro/kernels/lap_bid.py:343",
+                       "src/repro/kernels/lap_bid.py:283", "src/repro/core/matching/auction.py:173"],
+        launches=launches["lap_auction"] + fused_launches["lap_auction"],
+        launches_by_path={"round": launches["lap_auction"], "fused": fused_launches["lap_auction"]},
+        max_abs_err=max(r["max_abs_err"] for r in auction.values()), ms=node["ms"],
+        plain_ms=node["plain_ms"], bound_ms=node["bound_ms"], bound_by=node["bound_by"],
+        library_ms=None, shape=node["shape"], rounds=node["rounds"],
+        ms_per_round=node["ms_per_round"], plain_ms_per_round=node["plain_ms_per_round"],
+        other_shapes=[{key: r.get(key) for key in (
+            "case", "shape", "rounds", "ms", "ms_per_round", "plain_ms", "plain_ms_per_round",
+            "bound_ms", "bound_by", "one_cta_ms")} for k, r in auction.items() if k != "node_cold"],
+    )]
     for name, row, source, replaces in (
         ("lap_bid_batched", lap_rows["fanout"], "src/repro_torch/kernels/csrc/lap_bid.cu",
          "src/repro/kernels/lap_bid.py:149"),
@@ -1291,6 +1437,9 @@ def run(device, scale):
             library_ms=row["library_ms"], shape=row["shape"],
         ))
     kernels[-1]["also_replaces"] = ["src/repro/kernels/lap_bid.py:283"]
+    for k in kernels:  # the bid-only kernels: the loop that called them is lap_auction now
+        if k["name"].startswith("lap_bid"):
+            k["main_path_route"] = "lap_auction"
     for name, rows, source, replaces in (
         ("flash_attention", k6_rows, "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:89"),

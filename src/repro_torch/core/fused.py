@@ -15,10 +15,11 @@ fan-out and node match; here every step stays on the device:
 * **in-program benefit assembly** — pair costs are assembled from the slot
   matrices and the scaled ``1/(2g)`` weight table (exact integers in f32);
   with ``tie_break`` the positional ramp ``tb * (i+1)^2 * (j+1)`` is added
-  inside the bid.  With ``use_kernel`` the pair bid's top-2 is the
-  hand-written ``lap_bid_fused_batched`` CUDA kernel, which assembles
-  ``(ramp - cost) - price`` per element, so the benefit never exists as a
-  tensor.
+  inside the bid.  With ``use_kernel`` every auction of the round (each
+  chunk of the pair fan-out, then the node match) is ONE launch of the
+  hand-written ``lap_auction`` CUDA kernel, which runs the whole loop on
+  the card; for the pairs it assembles ``(ramp - cost) - price`` per
+  element, so their benefit never exists as a tensor.
 * **the pair-axis split** — JAX shards the pair axis over a device mesh
   with ``shard_map``; the port has one device, so ``shards`` splits the
   pair axis into that many chunks (padded with dummy clean pairs exactly
@@ -26,8 +27,9 @@ fan-out and node match; here every step stays on the device:
   do not depend on ``shards``.
 * **one readout** — the plan, node assignment, matching cost, convergence
   flag and counters cross to the host in ONE ``.cpu()`` of a packed f64
-  buffer (every value is an integer or an f32, exact in f64).  The batched
-  auction's own ``any(active)`` flag reads (every
+  buffer (every value is an integer or an f32, exact in f64).  Kernel
+  solves read nothing back; the plain loop's own ``any(active)`` flag reads
+  (``use_kernel=False``, every
   :data:`~repro_torch.core.matching.auction.SYNC_EVERY` bid rounds) are
   counted apart, in ``auction.loop_syncs``.
 
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cluster import EMPTY, PlacementPlan, count_migrations
-from repro_torch.core.matching.auction import _auction_square, _inverse_assignment, _top2
+from repro_torch.core.matching.auction import _NEG, _auction_square, _inverse_assignment
 from repro_torch.core.migration import (
     MigrationResult,
     _cost_scale,
@@ -53,7 +55,6 @@ from repro_torch.core.migration import (
     plan_migration,
 )
 from repro_torch.device import resolve_device
-from repro_torch.kernels.lap_bid import lap_bid_fused_batched
 from repro_torch.obs.tracer import tracer_of
 
 #: f32 mantissa budget: the largest scaled cost plus the finest tie-break
@@ -95,45 +96,35 @@ def _pair_costs(pi_slots, pj_slots, weights_scaled):
     return cost_out + cost_in
 
 
-def _pair_top2(use_kernel: bool, tb: float):
-    """Bid top-2 over a raw (B, n, m) COST batch: the hand-written fused
-    kernel (``lap_bid_fused_batched``; its plain version for CPU tensors)
-    or the plain top-2 on the assembled benefit.  Both assemble
-    ``(tb * ramp - cost) - p`` and agree bit for bit, except on
-    single-column instances (``-1e30`` vs ``-1e18``, as in JAX)."""
-    held = {}
-
-    def top2(cost, prices):
-        # the auction hands the same cost every bid round: what is built
-        # from it alone is built once (the same operations, the same bits)
-        if held.get("cost") is not cost:
-            held["cost"] = cost
-            if use_kernel:
-                held["tb"] = torch.full(
-                    (cost.shape[0],), tb, dtype=torch.float32, device=cost.device
-                )
-            else:
-                ramp = _ramp(cost.shape[-2], cost.shape[-1], cost.device, cost.dtype)
-                held["benefit"] = tb * ramp - cost
-        if use_kernel:
-            best_v, best_j, second_v = lap_bid_fused_batched(cost, prices, held["tb"])
-            return best_v, best_j.long(), second_v
-        return _top2(held["benefit"] - prices[:, None, :])
-
-    return top2
-
-
-def _pair_auction(cost, eps_min, init_prices, init_col_of, warm, max_iters, use_kernel, tb):
+def _pair_auction(
+    cost, eps_min, init_prices, init_col_of, warm, max_iters, use_kernel, tb, fused=True
+):
     """Square Jacobi auctions with explicit initial state over a (B, n, n)
-    raw scaled COST batch (benefit assembled in the bid's top-2, see
-    :func:`_pair_top2`).  A warm instance whose initial assignment is
+    raw scaled COST batch.  A warm instance whose initial assignment is
     already complete stops with ZERO bid rounds (the clean-pair fast path).
-    Returns ``(col_of, prices, iters, converged)``, each with the batch
-    axis."""
-    res = _auction_square(
-        cost, eps_min, max_iters, use_kernel, init_prices, warm,
-        init_col_of=init_col_of, top2=_pair_top2(use_kernel, tb),
-    )
+
+    ``use_kernel`` runs the whole auction as the ``lap_auction`` CUDA kernel
+    (its plain version for CPU tensors).  With ``fused`` (the pair fan-out)
+    the kernel assembles ``(tb * (i+1)^2) * (j+1) - cost`` per element as
+    the fused bid kernel does, with its ``-1e30`` "no second column" value;
+    otherwise (the node match, and every ``use_kernel=False`` solve) the
+    benefit ``tb * ramp - cost`` is built once here, with the plain top-2's
+    ``-1e18``.  The two assemblies agree bit for bit while ``(i+1)^2 (j+1)``
+    is exact in f32, which the node match's (kc = 512) is not.  The
+    starting epsilon scales with the cost's span, as in JAX.  Returns
+    ``(col_of, prices, iters, converged)``, each with the batch axis."""
+    span = torch.clamp_min(cost.abs().amax(dim=(1, 2)), 1.0)
+    if use_kernel and fused:
+        tbv = torch.full((cost.shape[0],), tb, dtype=torch.float32, device=cost.device)
+        res = _auction_square(
+            cost, eps_min, max_iters, True, init_prices, warm, init_col_of, span=span, tb=tbv
+        )
+    else:
+        benefit = tb * _ramp(cost.shape[-2], cost.shape[-1], cost.device, cost.dtype) - cost
+        res = _auction_square(
+            benefit, eps_min, max_iters, use_kernel, init_prices, warm, init_col_of,
+            span=span, neg=_NEG,
+        )
     return res.col_of, res.prices, res.iters, res.converged
 
 
@@ -214,8 +205,9 @@ def _fused_round(
         None,
         torch.tensor([cache_valid], device=dev),
         max_iters,
-        False,  # node instance: plain assembly (one LAP, no fan-out win)
+        use_kernel,
         tb_node,
+        fused=False,  # the plain assembly: tb * ramp is not exact at kc = 512
     )
     node_col, node_prices = node_col[0], node_prices[0]
 
@@ -257,8 +249,8 @@ class FusedMigrationPlanner:
     fused program cannot serve exactly — f32 mantissa budget exceeded, or an
     auction hitting ``max_iters`` — fall back to the host planner and
     invalidate the device cache; both are counted in :attr:`stats`.
-    ``use_kernel=None`` runs the pair bid on the ``lap_bid_fused`` CUDA
-    kernel when ``device`` is CUDA and on its plain version otherwise;
+    ``use_kernel=None`` runs the round's auctions on the ``lap_auction``
+    CUDA kernel when ``device`` is CUDA and on its plain version otherwise;
     ``device=None`` is CUDA.
     """
 

@@ -7,25 +7,24 @@ exact for integer benefits with a final ``eps < 1/n``, with warm starts
 auction for ``n <= m`` instances.  See that module for the algorithm and
 its optimality arguments; this one states only what differs in the port.
 
-**The batch is written out.**  JAX runs ``jax.vmap`` over a
-``lax.while_loop`` whose phase change is a ``lax.cond``.  Here the batch is
-the leading dimension of every state tensor, the loop runs while ANY
-instance is active, and each instance's ``(prices, col_of, eps, it)`` is
-updated only while its own condition holds — ``torch.where`` against the
-per-instance ``active`` mask — so an instance freezes exactly when the
-vmapped ``while_loop`` would freeze it, and ``iters`` / ``prices`` agree bit
-for bit.  The phase ``cond`` is a per-instance ``torch.where`` between the
-two branches (vmap turns it into the same select).
+**The loop.**  This module computes the prologue once (``span``, the
+starting ``eps``, the ``warm`` override, the phase threshold, the start
+prices and assignment) and hands the whole loop to
+:mod:`repro_torch.kernels.lap_auction`.  ``use_kernel=True`` runs it as the
+hand-written ``lap_auction`` CUDA kernel, one launch per solve with no host
+read inside (its plain version for CPU tensors, which keeps the bid
+kernel's ``-1e30`` "no second column" value); ``use_kernel=False`` runs the
+plain loop on any device, with ``_NEG = -1e18`` as the plain top-2 in JAX.
+The two differ only on single-column instances, exactly as the JAX backends
+do.  A rectangular instance is the square loop with an infinite phase
+threshold: one phase at ``eps_min``.
 
-**Host syncs.**  Reading ``active.any()`` is a device->host sync, so the
-loop checks it once every :data:`SYNC_EVERY` bid rounds; the masking makes
-the extra rounds no-ops.  :data:`loop_syncs` counts these reads.
-
-**The bid top-2.**  ``use_kernel=True`` routes it to the hand-written
-``lap_bid`` CUDA kernel (its plain version for CPU tensors, which keeps the
-kernel's ``-1e30`` "no second column" value); otherwise the plain
-:func:`_top2` below, with ``_NEG = -1e18`` as in JAX.  The two differ only
-on single-column instances, exactly as the JAX backends do.
+**The plain loop writes the batch out.**  JAX runs ``jax.vmap`` over a
+``lax.while_loop``; the plain loop runs while ANY instance is active and
+freezes each instance exactly when the vmapped ``while_loop`` would, so
+``iters`` / ``prices`` agree bit for bit.  Reading ``active.any()`` is a
+device->host sync, so it checks once every :data:`SYNC_EVERY` bid rounds;
+:data:`loop_syncs` counts these reads (kernel solves add none).
 """
 
 from __future__ import annotations
@@ -36,32 +35,19 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import lap_bid
+from repro_torch.kernels.lap_auction import (  # noqa: F401  (SYNC_EVERY, loop_syncs: re-exported)
+    NEG_INF,
+    SYNC_EVERY,
+    inverse_assignment as _inverse_assignment,
+    lap_auction,
+    lap_auction_plain,
+    loop_syncs,
+)
 
 _NEG = -1e18
 
-#: Bid rounds between two reads of the host-side "any instance active" flag.
-SYNC_EVERY = 8
-
 #: Instance size from which ``use_kernel=None`` picks the kernel on CUDA.
 KERNEL_MIN_N = 256
-
-#: XLA compiles ``eps / 5.0`` (JAX ``auction.py``'s phase step) to
-#: ``eps * 0.2f``, which differs from a true f32 division by one ulp on ~20%
-#: of inputs; the port multiplies by the same f32 constant so phase
-#: boundaries, ``iters`` and ``prices`` match the reference bit for bit.
-_EPS_STEP = np.float32(0.2)
-
-
-class _SyncCount:
-    """Device->host reads of the loop's ``active.any()`` flag."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-
-#: process-wide tally of the auction loop's host syncs (chip_smoke reads it)
-loop_syncs = _SyncCount()
 
 
 class AuctionResult(NamedTuple):
@@ -72,89 +58,6 @@ class AuctionResult(NamedTuple):
     prices: torch.Tensor
     iters: torch.Tensor
     converged: torch.Tensor
-
-
-def _top2(vals: torch.Tensor):
-    """Row-wise (best value, best index, second-best value)."""
-    best_j = torch.argmax(vals, dim=-1)
-    best_v = torch.gather(vals, -1, best_j[..., None])[..., 0]
-    second_v = vals.scatter(-1, best_j[..., None], _NEG).max(dim=-1).values
-    return best_v, best_j, second_v
-
-
-def _inverse_assignment(assign: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Invert partial injective maps: ``assign`` (..., k) holds values in
-    ``[0, out_size)`` or -1; returns (..., out_size) with
-    ``inv[..., assign[..., i]] = i`` and -1 elsewhere."""
-    k = assign.shape[-1]
-    safe = torch.where(assign >= 0, assign, out_size)
-    inv = torch.full(
-        (*assign.shape[:-1], out_size + 1), -1, dtype=assign.dtype, device=assign.device
-    )
-    src = torch.arange(k, dtype=assign.dtype, device=assign.device).expand_as(safe)
-    return inv.scatter(-1, safe, src)[..., :out_size]
-
-
-def _pick_top2(use_kernel: bool):
-    """Bid top-2 as ``(benefit (B,n,m), prices (B,m)) -> (best, arg, second)``."""
-    if use_kernel:
-        def kernel_top2(benefit, prices):
-            best_v, best_j, second_v = lap_bid(benefit, prices)
-            return best_v, best_j.long(), second_v
-
-        return kernel_top2
-    return lambda benefit, prices: _top2(benefit - prices[:, None, :])
-
-
-def _make_bid_round(benefit: torch.Tensor, top2):
-    """Jacobi bid round over a (B, n, m) benefit batch (square or rect):
-    every unassigned person bids for its best object; objects take the
-    highest bid (lowest row on a tie).  Returns
-    ``(prices (B,m), col_of (B,n), eps (B,)) -> (prices, col_of)``."""
-    n, m = benefit.shape[-2:]
-    cols = torch.arange(m, device=benefit.device)
-
-    def bid_round(prices, col_of, eps):
-        unassigned = col_of < 0
-        best_v, best_j, second_v = top2(benefit, prices)
-        incr = best_v - second_v + eps[:, None]
-        offer = torch.gather(prices, 1, best_j) + incr
-        # one-hot by comparison: F.one_hot validates its input with a sync
-        bidding = unassigned[:, :, None] & (best_j[:, :, None] == cols)
-        bids = torch.where(bidding, offer[:, :, None], _NEG)  # (B, n, m)
-        has_bid = (bids > _NEG / 2).any(dim=1)
-        winner = torch.argmax(bids, dim=1)
-        new_price = bids.max(dim=1).values
-        prices = torch.where(has_bid, new_price, prices)
-        row_of_prev = _inverse_assignment(col_of, m)
-        row_of = torch.where(has_bid, winner, row_of_prev)
-        return prices, _inverse_assignment(row_of, n)
-
-    return bid_round
-
-
-def _run_loop(state, active_fn, body_fn, max_iters: int):
-    """Run ``body_fn`` on the whole batch while any instance is active,
-    committing each instance's new state only while ``active_fn`` holds for
-    it — the per-instance freeze of a vmapped ``while_loop``.  ``state`` is
-    a tuple of tensors with a leading batch axis; its last entry is the
-    per-instance iteration count.  Checks the host flag every
-    :data:`SYNC_EVERY` rounds."""
-    done_rounds = 0
-    while True:
-        if done_rounds % SYNC_EVERY == 0:
-            loop_syncs.count += 1
-            if not bool(active_fn(state).any()):
-                return state
-        if done_rounds >= max_iters:
-            return state
-        active = active_fn(state)
-        new = body_fn(state)
-        state = tuple(
-            torch.where(active.view(-1, *([1] * (o.ndim - 1))), nw, o)
-            for nw, o in zip(new, state)
-        )
-        done_rounds += 1
 
 
 def _as_f32(x, device) -> torch.Tensor:
@@ -169,6 +72,23 @@ def _eps_min_tensor(eps_min, n: int, device) -> torch.Tensor:
     return _as_f32(eps_min, device)
 
 
+def _solve(benefit, p0, col0, eps0, eps_min_t, thr, max_iters, use_kernel, tb=None, neg=None):
+    """Run the loop on (B, ...) per-instance start state: the kernel
+    (``use_kernel``) or the plain loop.  Returns ``(col_of, prices, iters,
+    eps)``."""
+    b = benefit.shape[0]
+
+    def per_instance(x):
+        return x.expand(b).contiguous()
+
+    solve = lap_auction if use_kernel else lap_auction_plain
+    return solve(
+        benefit, p0.contiguous(), col0, per_instance(eps0), per_instance(eps_min_t),
+        per_instance(thr), max_iters, tb=tb,
+        neg=(NEG_INF if use_kernel else _NEG) if neg is None else neg,
+    )
+
+
 def _auction_square(
     benefit: torch.Tensor,
     eps_min,
@@ -177,55 +97,41 @@ def _auction_square(
     init_prices: Optional[torch.Tensor],
     warm: Optional[torch.Tensor],
     init_col_of: Optional[torch.Tensor] = None,
-    top2=None,
+    *,
+    span: Optional[torch.Tensor] = None,
+    tb: Optional[torch.Tensor] = None,
+    neg: Optional[float] = None,
 ) -> AuctionResult:
     """The square auction on a (B, n, n) batch.  ``init_col_of`` (B, n)
     starts each instance from an explicit assignment (default: all -1); a
     warm instance whose initial assignment is complete stops with zero bid
-    rounds.  ``top2`` replaces the bid top-2 of ``use_kernel``: the fused
-    migrate stage passes a raw COST matrix as ``benefit`` and a top-2 that
-    assembles the benefit from it (the starting epsilon then scales with
-    the cost's span, as in the JAX ``fused._pair_auction``)."""
+    rounds.  The fused migrate stage passes ``span`` (B,) (the starting
+    epsilon scales with its COST matrix's span, as in the JAX
+    ``fused._pair_auction``), ``tb`` (B,) with a raw cost matrix as
+    ``benefit`` (the fused bid assembles the benefit) and ``neg`` (the
+    "no second column" value of its bid path)."""
     b, n, _ = benefit.shape
     dev = benefit.device
     eps_min_t = _eps_min_tensor(eps_min, n, dev)
     thr = eps_min_t * np.float32(1 + 1e-6)
-    span = torch.clamp_min(benefit.abs().amax(dim=(1, 2)), 1.0)
+    if span is None:
+        span = torch.clamp_min(benefit.abs().amax(dim=(1, 2)), 1.0)
     eps0 = torch.maximum(span / 4.0, eps_min_t)
     if warm is not None:
         eps0 = torch.where(warm, eps_min_t, eps0)
-    bid_round = _make_bid_round(benefit, top2 or _pick_top2(use_kernel))
-
-    def active_fn(state):
-        _, col_of, eps, it = state
-        done = (col_of >= 0).all(dim=1) & (eps <= thr)
-        return ~done & (it < max_iters)
-
-    def body_fn(state):
-        prices, col_of, eps, it = state
-        all_assigned = (col_of >= 0).all(dim=1)
-        phase = all_assigned & (eps > thr)
-        # both branches run on the whole batch, as under vmap's cond->select
-        bid_p, bid_c = bid_round(prices, col_of, eps)
-        col_of = torch.where(phase[:, None], -1, bid_c)
-        prices = torch.where(phase[:, None], prices, bid_p)
-        eps = torch.where(phase, torch.maximum(eps * _EPS_STEP, eps_min_t), eps)
-        return prices, col_of, eps, it + 1
-
     p0 = (
         torch.zeros((b, n), dtype=torch.float32, device=dev)
         if init_prices is None
         else _as_f32(init_prices, dev)
     )
-    state = (
-        p0,
+    col0 = (
         torch.full((b, n), -1, dtype=torch.int64, device=dev)
         if init_col_of is None
-        else init_col_of.to(device=dev, dtype=torch.int64),
-        eps0.expand(b).clone(),
-        torch.zeros(b, dtype=torch.int32, device=dev),
+        else init_col_of.to(device=dev, dtype=torch.int64)
     )
-    prices, col_of, eps, iters = _run_loop(state, active_fn, body_fn, max_iters)
+    col_of, prices, iters, eps = _solve(
+        benefit, p0, col0, eps0, eps_min_t, thr, max_iters, use_kernel, tb, neg
+    )
     # converged = the FULL epsilon schedule completed with everyone assigned
     converged = (col_of >= 0).all(dim=1) & (eps <= thr)
     return AuctionResult(col_of, _inverse_assignment(col_of, n), prices, iters, converged)
@@ -237,36 +143,27 @@ def _auction_rect(
     max_iters: int,
     use_kernel: bool,
     init_prices: Optional[torch.Tensor],
+    neg: Optional[float] = None,
 ) -> AuctionResult:
     """Native rectangular forward auction, (B, n, m) with n <= m: a single
-    phase at ``eps_min`` (see the JAX module for why no scaling)."""
+    phase at ``eps_min`` (see the JAX module for why no scaling) — the
+    square loop with an infinite phase threshold.  ``neg`` overrides the
+    bid path's "no second column" value."""
     b, n, m = benefit.shape
     if n > m:
         raise ValueError(f"rect auction requires n <= m, got {tuple(benefit.shape)}")
     dev = benefit.device
-    eps = _eps_min_tensor(eps_min, n, dev).expand(b)
-    bid_round = _make_bid_round(benefit, _pick_top2(use_kernel))
-
-    def active_fn(state):
-        _, col_of, it = state
-        return ~(col_of >= 0).all(dim=1) & (it < max_iters)
-
-    def body_fn(state):
-        prices, col_of, it = state
-        prices, col_of = bid_round(prices, col_of, eps)
-        return prices, col_of, it + 1
-
+    eps = _eps_min_tensor(eps_min, n, dev)
     p0 = (
         torch.zeros((b, m), dtype=torch.float32, device=dev)
         if init_prices is None
         else _as_f32(init_prices, dev)
     )
-    state = (
-        p0,
-        torch.full((b, n), -1, dtype=torch.int64, device=dev),
-        torch.zeros(b, dtype=torch.int32, device=dev),
+    col0 = torch.full((b, n), -1, dtype=torch.int64, device=dev)
+    thr = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    col_of, prices, iters, _ = _solve(
+        benefit, p0, col0, eps, eps, thr, max_iters, use_kernel, neg=neg
     )
-    prices, col_of, iters = _run_loop(state, active_fn, body_fn, max_iters)
     converged = (col_of >= 0).all(dim=1)
     return AuctionResult(col_of, _inverse_assignment(col_of, m), prices, iters, converged)
 

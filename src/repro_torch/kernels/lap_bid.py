@@ -47,14 +47,20 @@ def lap_bid_top2_plain(a: torch.Tensor, prices: torch.Tensor):
     return best_v, best_j.to(torch.int32), second
 
 
-def lap_bid_fused_top2_plain(cost: torch.Tensor, prices: torch.Tensor, tb: torch.Tensor):
-    """Plain PyTorch version of the fused bid: ``cost`` (B, n, m) f32,
-    ``prices`` (B, m) f32, ``tb`` (B,) f32; the benefit
-    ``(tb * (i+1)^2) * (j+1) - cost`` is assembled in the kernel's order."""
+def fused_benefit(cost: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
+    """``(tb * (i+1)^2) * (j+1) - cost`` over a (B, n, m) cost batch with
+    ``tb`` (B,), in the fused kernels' operation order."""
     b, n, m = cost.shape
     gi = (torch.arange(n, dtype=torch.float32, device=cost.device) + 1.0).view(1, n, 1)
     gj = (torch.arange(m, dtype=torch.float32, device=cost.device) + 1.0).view(1, 1, m)
-    return lap_bid_top2_plain(tb.view(b, 1, 1) * (gi * gi) * gj - cost, prices)
+    return tb.view(b, 1, 1) * (gi * gi) * gj - cost
+
+
+def lap_bid_fused_top2_plain(cost: torch.Tensor, prices: torch.Tensor, tb: torch.Tensor):
+    """Plain PyTorch version of the fused bid: ``cost`` (B, n, m) f32,
+    ``prices`` (B, m) f32, ``tb`` (B,) f32; the benefit is
+    :func:`fused_benefit`, assembled in the kernel's order."""
+    return lap_bid_top2_plain(fused_benefit(cost, tb), prices)
 
 
 def _check(what: str, a: torch.Tensor, prices: torch.Tensor, tb=None) -> None:

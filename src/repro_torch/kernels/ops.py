@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import lap_auction as _la
 from repro_torch.kernels.lap_bid import lap_bid_batched, lap_bid_fused_batched
 from repro_torch.kernels.migration_cost import migration_cost
 
@@ -57,6 +58,30 @@ def lap_bid_fused(cost: torch.Tensor, prices: torch.Tensor, tb_scale=0.0):
     tb = torch.as_tensor(tb_scale, dtype=torch.float32, device=cost.device)
     tb = tb.reshape(-1).expand(cost.shape[0]).contiguous()
     return lap_bid_fused_batched(cost.contiguous(), prices.contiguous(), tb)
+
+
+def lap_auction(a, prices, col_of, eps, eps_min, thr, max_iters: int, tb=None, neg=_la.NEG_INF):
+    """The whole Jacobi auction (``kernels/lap_auction.py`` states the loop):
+    ``a`` (n, m) or (B, n, m) f32 benefit (a raw COST matrix with ``tb``),
+    n <= m; start ``prices`` (m,) / (B, m), ``col_of`` (n,) / (B, n) (-1 =
+    unassigned); ``eps``, ``eps_min``, ``thr`` and ``tb`` scalars or (B,).
+    ``thr = inf`` is the rectangular auction's single phase.  Returns
+    ``(col_of, prices, iters, eps)`` with the input's batch shape,
+    ``col_of`` int64, ``iters`` int32."""
+    single = a.ndim == 2
+    if single:
+        a, prices, col_of = a[None], prices[None], col_of[None]
+    b = a.shape[0]
+
+    def per_instance(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=a.device)
+        return x.reshape(-1).expand(b).contiguous()
+
+    out = _la.lap_auction(
+        a.contiguous(), prices.contiguous(), col_of, per_instance(eps), per_instance(eps_min),
+        per_instance(thr), max_iters, None if tb is None else per_instance(tb), neg,
+    )
+    return tuple(t[0] for t in out) if single else out
 
 
 def slot_weights(slots: np.ndarray, weights: np.ndarray) -> np.ndarray:

@@ -4,7 +4,7 @@
 These state the semantics the kernels must reproduce, written as directly
 as the JAX oracles are; the kernels' own plain versions
 (``lap_bid.lap_bid_top2_plain``, ``lap_bid.lap_bid_fused_top2_plain``,
-``migration_cost.migration_cost_plain``,
+``lap_auction.lap_auction_plain``, ``migration_cost.migration_cost_plain``,
 ``flash_attention.flash_attention_plain``, ``flash_decode.flash_decode_plain``)
 are held against them in the tests.  Only the oracles of ported kernels
 live here.
@@ -44,6 +44,46 @@ def lap_bid_fused_top2(cost: torch.Tensor, prices=None, tb_scale=0.0):
     tb = tb.reshape(tb.shape + (1, 1))
     vals = (tb * (gi * gi) * gj - cost) - prices[..., None, :]
     return lap_bid_top2(vals)
+
+
+def lap_auction(a, prices, col_of, eps, eps_min, thr, max_iters: int, neg=NEG_INF):
+    """Oracle for the whole Jacobi auction (``lap_auction``): each instance of
+    the (B, n, m) benefit ``a`` on its own, one step at a time, as the JAX
+    ``while_loop``'s ``cond`` / ``body`` state it (``eps`` etc. (B,) f32).
+    Returns ``(col_of (B, n) int64, prices (B, m) f32, iters (B,) int32,
+    eps (B,) f32)``."""
+    b, n, m = a.shape
+    col_out = col_of.clone().long()
+    p_out = prices.clone()
+    it_out = torch.zeros(b, dtype=torch.int32)
+    eps_out = eps.clone()
+    step = torch.tensor(0.2, dtype=torch.float32)
+    for k in range(b):
+        p, c, e, it = p_out[k], col_out[k], eps_out[k].clone(), 0
+        while not ((c >= 0).all() and e <= thr[k]) and it < max_iters:
+            if (c >= 0).all():  # phase change: keep the prices
+                c[:] = -1
+                e = torch.maximum(e * step, eps_min[k])
+            else:
+                vals = a[k] - p
+                best_j = torch.argmax(vals, dim=-1)
+                best_v = vals[torch.arange(n), best_j]
+                others = vals.clone()
+                others[torch.arange(n), best_j] = -float("inf")
+                second = torch.clamp_min(others.max(dim=-1).values, neg)
+                offer = p[best_j] + ((best_v - second) + e)
+                new_p, new_c = p.clone(), c.clone()
+                for j in range(m):
+                    rows = [i for i in range(n) if c[i] < 0 and best_j[i] == j and offer[i] > -5e17]
+                    if rows:
+                        w = max(rows, key=lambda i: (offer[i].item(), -i))
+                        new_c[new_c == j] = -1
+                        new_c[w] = j
+                        new_p[j] = offer[w]
+                p, c = new_p, new_c
+            it += 1
+        p_out[k], col_out[k], eps_out[k], it_out[k] = p, c, e, it
+    return col_out, p_out, it_out, eps_out
 
 
 def migration_cost(slots_u, slots_v, w_u, w_v) -> torch.Tensor:

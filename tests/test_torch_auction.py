@@ -172,3 +172,122 @@ def test_eps_schedule_matches_xla_multiply():
         res_j = jx.auction_lap_batched(jnp.asarray(ben, jnp.float32), use_kernel=False)
         res_t = tx.auction_lap_batched(_t(ben), use_kernel=False)
         _assert_same(res_j, res_t)
+
+
+# --------------------------------------------------------------------------- #
+# the plain loop (kernels/lap_auction.py) against JAX, case by case
+# --------------------------------------------------------------------------- #
+import jax  # noqa: E402
+
+import repro.core.fused as jfu  # noqa: E402
+import repro_torch.core.fused as tfu  # noqa: E402
+from repro_torch.kernels import lap_auction as tla  # noqa: E402
+
+
+def _jax_pair_auction(cost, eps_min, p0, c0, warm, max_iters, use_kernel, tb):
+    """JAX ``fused._pair_auction`` over a batch, as the fused program
+    vmaps it."""
+    solve = jax.vmap(lambda c, p, i, w: jfu._pair_auction(
+        c, eps_min, p, i, w, max_iters, use_kernel, tb))
+    return solve(jnp.asarray(cost, jnp.float32), jnp.asarray(p0, jnp.float32),
+                 jnp.asarray(c0, jnp.int32), jnp.asarray(warm))
+
+
+def _pair_case(case, rng, b=4, n=5):
+    """(cost, init prices, init col_of, warm, max_iters) of one start case."""
+    hi = 3 if case == "duplicates" else 30
+    cost = rng.integers(0, hi, size=(b, n, n)).astype(np.float32)
+    p0 = np.zeros((b, n), np.float32)
+    c0 = np.full((b, n), -1, np.int64)
+    warm = np.zeros(b, bool)
+    max_iters = 7 if case == "max_iters" else 20_000
+    if case in ("warm", "complete"):
+        p0 = rng.integers(0, 6, size=(b, n)).astype(np.float32)
+        warm[::2] = True
+    if case == "complete":
+        c0 = np.stack([rng.permutation(n) for _ in range(b)])
+    return cost, p0, c0, warm, max_iters
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "complete", "max_iters", "duplicates"])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_lap_auction_plain_matches_jax_pair_auction(case, use_kernel):
+    """The fused stage's auctions: ``tfu._pair_auction`` runs the whole loop
+    in ``lap_auction_plain`` (kernel semantics with ``use_kernel``: the fused
+    assembly and ``-1e30``); every output equals JAX's, bit for bit.  A warm
+    instance whose start is complete stops at zero rounds; a cold one from
+    the same start changes phase first."""
+    rng = np.random.default_rng(len(case) + 10 * use_kernel)
+    cost, p0, c0, warm, max_iters = _pair_case(case, rng)
+    n = cost.shape[-1]
+    tb = tfu._tb_scale(n, n) if case != "duplicates" else 0.0
+    eps_min = tb / (n + 1) if tb else 1.0 / (n + 1)
+    col_j, p_j, it_j, conv_j = _jax_pair_auction(cost, eps_min, p0, c0, warm, max_iters,
+                                                 use_kernel, tb)
+    col_t, p_t, it_t, conv_t = tfu._pair_auction(
+        torch.from_numpy(cost), eps_min, torch.from_numpy(p0), torch.from_numpy(c0),
+        torch.from_numpy(warm), max_iters, use_kernel, tb,
+    )
+    np.testing.assert_array_equal(np.asarray(col_j), col_t.numpy())
+    np.testing.assert_array_equal(np.asarray(p_j).view(np.uint32), p_t.numpy().view(np.uint32))
+    np.testing.assert_array_equal(np.asarray(it_j), it_t.numpy())
+    np.testing.assert_array_equal(np.asarray(conv_j), conv_t.numpy())
+    if case == "complete":
+        assert (it_t.numpy()[warm] == 0).all() and (it_t.numpy()[~warm] > 0).all()
+    if case == "max_iters":
+        assert (it_t.numpy() <= max_iters).all() and not conv_t.all()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_lap_auction_plain_max_iters_cuts_a_phase_like_jax(use_kernel):
+    """``max_iters`` stops each instance mid-phase at its own count; the
+    frozen state (prices, partial assignment, not converged) equals
+    JAX's."""
+    ben = _int_benefits(np.random.default_rng(6), 3, 7, 7, -40, 40)
+    for max_iters in (1, 2, 9):
+        res_j = jx.auction_lap_batched(jnp.asarray(ben, jnp.float32), max_iters=max_iters,
+                                       use_kernel=use_kernel)
+        res_t = tx.auction_lap_batched(_t(ben), max_iters=max_iters, use_kernel=use_kernel)
+        _assert_same(res_j, res_t)
+        assert not res_t.converged.any()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_lap_auction_plain_rect_max_iters_and_duplicates_like_jax(use_kernel):
+    rng = np.random.default_rng(7)
+    ben = rng.integers(0, 2, size=(3, 4, 9)).astype(np.float64)  # many equal offers
+    for max_iters in (2, 20_000):
+        res_j = jx.auction_lap_rect_batched(jnp.asarray(ben, jnp.float32), max_iters=max_iters,
+                                            use_kernel=use_kernel)
+        res_t = tx.auction_lap_rect_batched(_t(ben), max_iters=max_iters, use_kernel=use_kernel)
+        _assert_same(res_j, res_t)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_single_column_square_and_pair_sentinels_like_jax(use_kernel):
+    """m = 1 under both sentinels: the square auction (a phase change
+    between bids) and the fused pair auction agree with JAX."""
+    ben = np.array([[[3.0]], [[-2.0]]])
+    res_j = jx.auction_lap_batched(jnp.asarray(ben, jnp.float32), use_kernel=use_kernel)
+    res_t = tx.auction_lap_batched(_t(ben), use_kernel=use_kernel)
+    _assert_same(res_j, res_t)
+    neg = tla.NEG_INF if use_kernel else tx._NEG
+    assert (res_t.prices.numpy() > -np.float32(neg) / 2).all()
+    cost = ben.astype(np.float32)
+    zeros, unassigned, cold = np.zeros((2, 1), np.float32), np.full((2, 1), -1), np.zeros(2, bool)
+    want = _jax_pair_auction(cost, 0.5, zeros, unassigned, cold, 20_000, use_kernel, 0.0)
+    got = tfu._pair_auction(torch.from_numpy(cost), 0.5, torch.from_numpy(zeros),
+                            torch.from_numpy(unassigned), torch.from_numpy(cold), 20_000,
+                            use_kernel, 0.0)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+def test_use_kernel_on_cpu_runs_the_plain_loop_and_launches_nothing():
+    """``use_kernel=True`` on CPU tensors runs the kernel's plain version,
+    which reads the host flag as the plain loop does; the launch counter
+    does not move (CPU tensors launch nothing)."""
+    before, launches = tx.loop_syncs.count, tla.lap_auction.launches
+    tx.auction_lap_batched(_t(_int_benefits(np.random.default_rng(8), 2, 4, 4)),
+                           use_kernel=True)
+    assert tx.loop_syncs.count > before and tla.lap_auction.launches == launches

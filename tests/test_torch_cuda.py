@@ -23,6 +23,7 @@ from repro_torch.core.profiler import ThroughputProfile
 from repro_torch.core.scheduler import TesseraeScheduler
 from repro_torch.core.traces import synthetic_active_jobs
 from repro_torch.core.fused import FusedMigrationPlanner, _tb_scale
+from repro_torch.core.matching import auction as tauction
 from repro_torch.core.placement import place_without_packing
 from repro_torch.kernels.lap_bid import (
     lap_bid_batched,
@@ -30,6 +31,8 @@ from repro_torch.kernels.lap_bid import (
     lap_bid_fused_top2_plain,
     lap_bid_top2_plain,
 )
+from repro_torch.kernels import lap_auction as la
+from repro_torch.kernels.lap_auction import lap_auction, launch_plan
 from repro_torch.kernels.migration_cost import migration_cost, migration_cost_plain
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -125,9 +128,174 @@ def test_lap_bid_fused_kernel_ties_across_warp_stride(cuda):
     assert torch.equal(second.cpu(), best_v.cpu())
 
 
+# --------------------------------------------------------------------------- #
+# lap_auction: the whole auction on the card against the plain loop
+# --------------------------------------------------------------------------- #
+def _same_auction(got, want):
+    """All five outputs, bit for bit (prices as their int32 bits)."""
+    for name, g, w in zip(tauction.AuctionResult._fields, got, want):
+        assert g.dtype == w.dtype, name
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), name
+
+
+def _hold_auction(solve):
+    """``solve(use_kernel)`` once on the kernel (one launch), once on the
+    plain loop on the same device; the results must be identical."""
+    before = lap_auction.launches
+    got = solve(True)
+    torch.cuda.synchronize()
+    assert lap_auction.launches == before + 1
+    want = solve(False)
+    _same_auction(got, want)
+    return got
+
+
+def _ints(seed, shape, lo=-20, hi=20):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g).float()
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 31, 32, 33, 64, 255, 256, 512])
+@pytest.mark.parametrize("neg", [-1e30, -1e18])
+def test_lap_auction_square_cold_and_warm(cuda, n, neg):
+    b = 1 if n >= 255 else 3
+    ben = _ints(n, (b, n, n)).to(cuda)
+    ben[0, :, 0] += 7.0  # duplicate benefits down a column
+    cold = _hold_auction(lambda uk: tauction._auction_square(
+        ben, None, 20_000, uk, None, None, neg=neg))
+    assert bool(cold.converged.all())
+    ben2 = ben + _ints(n + 1, (b, n, n), -2, 3).to(cuda)
+    warm = torch.ones(b, dtype=torch.bool, device=cuda)
+    warm[-1] = b == 1
+    _hold_auction(lambda uk: tauction._auction_square(
+        ben2, None, 20_000, uk, cold.prices, warm, neg=neg))
+    # a complete start: zero rounds when warm, a phase change first when cold
+    res = _hold_auction(lambda uk: tauction._auction_square(
+        ben2, None, 20_000, uk, cold.prices, warm, cold.col_of, neg=neg))
+    assert res.iters[warm].eq(0).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 600), (1, 640, 1320), (4, 3, 40), (5, 3, 7)])
+@pytest.mark.parametrize("neg", [-1e30, -1e18])
+def test_lap_auction_rect(cuda, shape, neg):
+    b, n, m = shape
+    ben = _ints(n * m, shape).to(cuda)
+    res = _hold_auction(lambda uk: tauction._auction_rect(ben, None, 20_000, uk, None, neg))
+    assert bool(res.converged.all())
+    ben2 = ben + _ints(n + m, shape, -2, 3).to(cuda)
+    _hold_auction(lambda uk: tauction._auction_rect(ben2, None, 20_000, uk, res.prices, neg))
+
+
+@pytest.mark.parametrize("shape", [(64, 4, 4), (2, 64, 64), (1, 512, 512), (1, 8, 600)])
+@pytest.mark.parametrize("max_iters", [0, 1, 7])
+def test_lap_auction_max_iters_cuts_mid_phase(cuda, shape, max_iters):
+    ben = _ints(sum(shape), shape, -50, 50).to(cuda)
+    if shape[1] == shape[2]:
+        res = _hold_auction(lambda uk: tauction._auction_square(
+            ben, None, max_iters, uk, None, None, neg=-1e30))
+    else:
+        res = _hold_auction(lambda uk: tauction._auction_rect(
+            ben, None, max_iters, uk, None, -1e30))
+    assert res.iters.le(max_iters).all() and (max_iters > 0 or not bool(res.converged.any()))
+
+
+@pytest.mark.parametrize("shape", [(262144, 4, 4), (4096, 8, 8), (3, 5, 5), (2, 64, 64)])
+@pytest.mark.parametrize("tb", ["zero", "mixed", "non-integer"])
+def test_lap_auction_fused_assembly(cuda, shape, tb):
+    """kFused: the kernel assembles ``(tb * (i+1)^2) * (j+1) - cost``;
+    non-integer costs with a non-zero ``tb`` catch a contracted fma."""
+    b, n, m = shape
+    g = torch.Generator().manual_seed(b + n)
+    if tb == "non-integer":
+        cost = torch.randn(shape, generator=g) * 3.0
+    else:
+        cost = torch.randint(0, 40, shape, generator=g).float()
+    scale = _tb_scale(n, m)
+    tbv = torch.where(torch.arange(b) % 2 == 1, scale, 0.0).float()
+    if tb == "zero":
+        tbv.zero_()
+    cost, tbv = cost.to(cuda), tbv.to(cuda)
+    span = torch.clamp_min(cost.abs().amax(dim=(1, 2)), 1.0)
+    res = _hold_auction(lambda uk: tauction._auction_square(
+        cost, 1.0 / (n + 1), 20_000, uk, None, None, tb=tbv, span=span, neg=-1e30))
+    if tb != "non-integer":
+        assert bool(res.converged.all())
+
+
+@pytest.mark.parametrize("neg", [-1e30, -1e18])
+def test_lap_auction_single_column_sentinels(cuda, neg):
+    """m = 1: the only bid's increment is ``best - neg``, so the price
+    lands near ``-neg`` on each path (D2)."""
+    ben = _ints(1, (4, 1, 1)).to(cuda)
+    sq = _hold_auction(lambda uk: tauction._auction_square(
+        ben, None, 20_000, uk, None, None, neg=neg))
+    rect = _hold_auction(lambda uk: tauction._auction_rect(ben, None, 20_000, uk, None, neg))
+    for res in (sq, rect):
+        assert bool(res.converged.all()) and (res.prices > -neg / 2).all()
+
+
+@pytest.mark.parametrize("n", [64, 100, 512])
+def test_lap_auction_equal_offers_across_cluster_ctas(cuda, n):
+    """Every row the same: in the first round all rows bid the same offer
+    for the same column, from every CTA of the cluster; the lowest row
+    must win, as the plain loop's argmax over rows gives."""
+    assert launch_plan(1, n, n).cluster > 1
+    row = _ints(n, (1, 1, n))
+    ben = row.expand(2, n, n).contiguous().to(cuda)
+    res = _hold_auction(lambda uk: tauction._auction_square(
+        ben, None, 3, uk, None, None, neg=-1e30))
+    first = tauction._auction_square(ben, None, 1, True, None, None)
+    col = int(torch.argmax(row[0, 0]))
+    assert first.row_of[0, col].item() == 0 and (first.col_of[0] >= 0).sum().item() == 1
+    assert res.iters.eq(3).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64), (1, 512, 512), (1, 40, 1320)])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 16])
+@pytest.mark.parametrize("smem_rows", [True, False])
+def test_lap_auction_every_cluster_layout(cuda, shape, cluster, smem_rows):
+    """The cluster regime at each cluster size, with the rows in shared
+    memory or read from L2, whatever the default plan picks: the same bits."""
+    b, n, m = shape
+    rows = -(-n // cluster)
+    smem = la.cluster_smem(m, rows, smem_rows)
+    if smem > la.SMEM_BUDGET:
+        pytest.skip(f"{rows} rows of {m} columns do not fit one CTA's shared memory")
+    plan = la.AuctionPlan("cluster", 0, cluster, rows, la.CLUSTER_THREADS, b * cluster, smem,
+                          smem_rows)
+    ben = _ints(n + cluster, shape).to(cuda)
+    span = torch.clamp_min(ben.abs().amax(dim=(1, 2)), 1.0)
+    em = torch.full((b,), 1.0 / (n + 1), device=cuda)
+    thr = em * np.float32(1 + 1e-6) if n == m else torch.full((b,), float("inf"), device=cuda)
+    eps0 = torch.maximum(span / 4.0, em) if n == m else em
+    args = (ben, torch.zeros(b, m, device=cuda), torch.full((b, n), -1, device=cuda), eps0, em,
+            thr, 20_000)
+    got = la.lap_auction(*args, plan=plan)
+    torch.cuda.synchronize()
+    want = la.lap_auction_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+def test_lap_auction_regimes_meet_at_the_split(cuda):
+    """Both sides of the warp/cluster split (m = 32 | 33), square and
+    rectangular, in one batch each."""
+    for shape in ((8, 32, 32), (8, 33, 33), (8, 20, 32), (8, 20, 33)):
+        assert launch_plan(*shape).regime == ("warp" if shape[2] <= 32 else "cluster")
+        ben = _ints(sum(shape), shape).to(cuda)
+        if shape[1] == shape[2]:
+            _hold_auction(lambda uk: tauction._auction_square(
+                ben, None, 20_000, uk, None, None, neg=-1e30))
+        else:
+            _hold_auction(lambda uk: tauction._auction_rect(ben, None, 20_000, uk, None, -1e30))
+
+
 @pytest.mark.parametrize("tie_break,shards", [(False, 1), (True, 3)])
 def test_fused_planner_on_card_equals_cpu(cuda, tie_break, shards):
-    """The fused planner on CUDA (pair bid on the fused kernel) against the
+    """The fused planner on CUDA (its auctions on lap_auction) against the
     CPU port (plain top-2): the same plans, costs and stats every step."""
     prof = ThroughputProfile()
     cluster = ClusterSpec(8, 4)
@@ -179,7 +347,10 @@ def _decide_rounds(device, backend):
 
 
 def test_fused_decide_launches_the_fused_kernel(cuda):
-    before = lap_bid_fused_batched.launches
+    """The fused round's auctions (each pair chunk with the fused benefit
+    assembly, then the node match) are launches of ``lap_auction``, which
+    read nothing back: the round keeps its one readout."""
+    before, syncs = lap_auction.launches, tauction.loop_syncs.count
     prof = ThroughputProfile()
     sched = TesseraeScheduler(
         ClusterSpec(8, 4), TiresiasPolicy(prof), prof, fused_fanout=True, device=cuda
@@ -187,17 +358,17 @@ def test_fused_decide_launches_the_fused_kernel(cuda):
     jobs = synthetic_active_jobs(40, seed=2, profile=prof)
     d1 = sched.decide(jobs, now=0.0)
     d2 = sched.decide(jobs[::2], now=360.0, prev_plan=d1.plan)
-    assert lap_bid_fused_batched.launches > before
+    assert lap_auction.launches > before and tauction.loop_syncs.count == syncs
     assert d2.match_stats["fused_readouts"] == 1
     assert d2.migration.algorithm == "node-fused"
 
 
 @pytest.mark.parametrize("backend", ["auction_kernel", "auction"])
 def test_decide_on_card_equals_cpu(cuda, backend):
-    before = (lap_bid_batched.launches, migration_cost.launches)
+    before = (lap_auction.launches, migration_cost.launches)
     on_card = _decide_rounds(cuda, backend)
     if backend == "auction_kernel":
-        assert lap_bid_batched.launches > before[0]
+        assert lap_auction.launches > before[0]
     assert migration_cost.launches > before[1]
     on_cpu = _decide_rounds("cpu", backend)
     for dg, dc in zip(on_card, on_cpu):
