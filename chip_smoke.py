@@ -9,9 +9,10 @@ holds each against its plain PyTorch version on the card, then drives the
 Tesserae round at 2048 GPUs (512 nodes x 4) through the entry points a
 user calls — ``TesseraeScheduler.decide`` and ``Simulator.run`` with
 ``lap_backend="auction_kernel"``, then the same with the fused migrate
-stage (``fused_fanout=True``) — and serves Llama-3-8B at full width and
-depth (``transformer.forward`` prefill, ``greedy_generate``), and checks
-what comes out:
+stage (``fused_fanout=True``) — serves Llama-3-8B at full width and
+depth (``transformer.forward`` prefill, ``greedy_generate``), runs the
+paper's evaluation harness (``repro_torch.benchmarks.evaluate`` and
+``.scalability``), and checks what comes out:
 
 1. environment: the card, torch/CUDA versions, the kernels' build time;
    what ``ptxas`` gave each attention kernel instance (registers, static
@@ -24,12 +25,17 @@ what comes out:
    the plain eager loop in every output — the 512x512 node match cold and
    warm, the 262,144 4x4 pair fan-out plain and fused, and after phase 3 the
    largest packing rectangle met — with its time per solve and per bid
-   round beside the eager loop's;
+   round beside the eager loop's; and past what a CTA's shared memory
+   holds, the wide plan (one CTA per instance): 1x8x6000 and 1x64x6000,
+   a 6000x6000 warm start, and one ``solve_lap_batched(backend=
+   "auction_kernel")`` at 64x6000 with scipy's cost;
    ``flash_attention`` and ``flash_decode`` in bf16 at 3e-2 and within 1e-2
    relative L2 error per 128-query tile / per head, at the serving path's
    shapes and at ``prefill_32k`` / ``decode_32k``'s length), with
    kernel / plain / bound / library times (and, for the attention kernels,
-   the share of the bound and the ratio to the library call);
+   the share of the bound and the ratio to the library call); a causal
+   ``sdpa`` at head dim 192 (no flash instance) runs the einsum path on the
+   card, equal to the CPU's at 2e-5, and raises under ``REPRO_USE_FLASH=1``;
 3. the round's path: (a) ``decide()`` x3 on 512 synthetic jobs (cold, with
    the previous plan, warm), as the scalability benchmark does, and (b)
    ``Simulator.run(stop_after_rounds=6)`` on a 2048-job shockwave trace
@@ -69,7 +75,23 @@ what comes out:
    distance from the f32 forward (at depth 32 bf16 rounding alone moves
    logits by up to ~0.08, the einsum path's as much as the flash path's).
    Counters zeroed before (e) and read after: K6 must have launched once
-   per layer of every flash forward, K7 once.
+   per layer of every flash forward, K7 once;
+6. the evaluation harness on the card: (g) ``BENCH_endtoend.json``'s
+   sweep (5 policies x 8 scenarios, 48 GPUs, 100 jobs, seed 0, ``auto``):
+   every arm's metrics, faults and matching telemetry, and the derived
+   speedups, equal to the record exactly (wall times excluded), K5
+   launched — except that a Gavel arm may follow this host's scipy to
+   another optimal vertex of its degenerate LP, and must then equal the
+   same arm on this host's CPU exactly (printed, with the fields); the 8 ``tesserae-t`` arms again under ``auction_kernel``
+   (every kernel solve one ``lap_auction`` launch, no host sync), each
+   printed beside its ``auto`` arm, and two of them on the CPU as twins that
+   must equal the card's arms in every decision field; (h) the scalability
+   benchmark's Part 1 (128 to 2048 active jobs on 256 GPUs, ``auto`` and
+   ``auction_kernel``; the 2048-job cold and warm ``decide()`` printed
+   beside the paper's 1.6 s, not gated) and Part 2 (256 to 2048 GPUs, scipy
+   and ``auction_kernel``): every plan feasible, every migrate step not
+   solved by scipy at scipy's optimal cost.  Counters zeroed before (g) and
+   before (h) and read after each.
 
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's ``name, power.limit`` and ``{"ok": true, "device": ...}``.
@@ -111,7 +133,17 @@ FULL = dict(
         k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128)],
         k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768)],
     ),
+    # phase 6: BENCH_endtoend.json's whole sweep, and the scalability
+    # benchmark's Part 1 (256 GPUs) and Part 2 (up to 2048 GPUs)
+    wide_square=True,
+    evaluate=dict(twins=("poisson-steady", "philly-failures")),
+    scalability=dict(job_counts=[128, 512, 1024, 2048], clusters=[(64, 4), (256, 4), (512, 4)]),
 )
+
+#: the CPU rehearsal's phase 6: four arms of the record, a 64-GPU Part 2
+EVAL_REHEARSAL = dict(policies=("tesserae-t", "tiresias"),
+                      scenarios=("poisson-steady", "philly-failures"), twins=("philly-failures",))
+SCALABILITY_REHEARSAL = dict(job_counts=[128], clusters=[(16, 4)])
 
 #: the CPU rehearsal's serve scale (reduced llama3-8b, S = 64)
 SERVE_REHEARSAL = dict(
@@ -325,7 +357,7 @@ def auction_start(a, *, rect=False, warm=False, tb=None):
 
 
 def compare_lap_auction(what, a, device, *, p0=None, col0=None, rect=False, warm=False, tb=None,
-                        neg=-1e30, reps=3, one_cta=False):
+                        neg=-1e30, reps=3, warmup=1, max_iters=20_000, one_cta=False):
     """``lap_auction`` (one launch per solve) against ``lap_auction_plain``
     (the eager loop) on the same inputs, bit for bit in every output, with
     the time per solve and per bid round of each.  Returns ``(row, (col_of,
@@ -339,7 +371,7 @@ def compare_lap_auction(what, a, device, *, p0=None, col0=None, rect=False, warm
     p0 = torch.zeros((b, m), device=device) if p0 is None else p0
     col0 = torch.full((b, n), -1, dtype=torch.int64, device=device) if col0 is None else col0
     eps0, eps_min, thr = auction_start(a, rect=rect, warm=warm, tb=tb)
-    args = (a, p0, col0, eps0, eps_min, thr, 20_000)
+    args = (a, p0, col0, eps0, eps_min, thr, max_iters)
     kw = dict(tb=tb, neg=neg)
     got = la.lap_auction(*args, **kw)
     if device.type == "cuda":
@@ -362,7 +394,7 @@ def compare_lap_auction(what, a, device, *, p0=None, col0=None, rect=False, warm
         case=what, shape=list(a.shape), max_abs_err=0.0, rounds=rounds, rounds_sum=int(iters.sum()),
         converged=bool(((got[0] >= 0).all(dim=1) & (got[3] <= thr)).all()),
         plan=la.launch_plan(b, n, m)._asdict(),
-        ms=timed(lambda: la.lap_auction(*args, **kw), device, reps, 1),
+        ms=timed(lambda: la.lap_auction(*args, **kw), device, reps, warmup),
         plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
     )
     row["ms_per_round"] = row["ms"] / max(rounds, 1)
@@ -404,6 +436,106 @@ def auction_rows(kn, fanout, device, gen):
     rows["node_plain_sentinel"], _ = compare_lap_auction("node, plain sentinel", a, device,
                                                          neg=-1e18)
     return rows
+
+
+def wide_rows(device, gen, square=True):
+    """P1: ``lap_auction`` past what a CTA's shared memory holds (the wide
+    plan, one CTA per instance with its column state in global memory), bit
+    for bit against the plain loop: two rectangles whose rows compete for
+    one column preference, a square warm start with 256 rows free, and the
+    first round of a square cold start, where every row bids (``square=
+    False`` leaves the squares out, as the CPU rehearsal does).  Then one ``solve_lap_batched(backend=
+    "auction_kernel")`` at that width, whose cost must be scipy's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matching import solve_lap_batched
+    from repro_torch.kernels import lap_auction as la
+
+    m = 6000  # past the 5,784 columns a CTA's shared memory holds the state of
+    rows = {}
+    for n in (8, 64):
+        a = (torch.randint(0, 50, (1, 1, m), generator=gen, dtype=torch.int32)
+             + torch.randint(-3, 4, (1, n, m), generator=gen, dtype=torch.int32)).float().to(device)
+        check(la.launch_plan(1, n, m).regime == "wide", f"1x{n}x{m} does not take the wide plan")
+        rows[f"wide_rect_{n}"], _ = compare_lap_auction(f"wide rect {n}x{m}", a, device, rect=True,
+                                                        neg=-1e18)
+    if square:
+        a = torch.randint(-64, 1, (1, m, m), generator=gen, dtype=torch.int32).float()
+        perm = torch.randperm(m, generator=gen)
+        a[0, torch.arange(m), perm] += 8.0
+        col0 = perm.view(1, m).clone()
+        col0[0, torch.randperm(m, generator=gen)[:256]] = -1
+        check(la.launch_plan(1, m, m).regime == "wide", f"1x{m}x{m} does not take the wide plan")
+        a = a.to(device)
+        rows["wide_square_warm"], _ = compare_lap_auction(
+            "wide square warm, 256 rows free", a, device, col0=col0.to(device), warm=True,
+            neg=-1e18, reps=1, warmup=0)
+        # the round a cold phase starts with: every row bids
+        rows["wide_square_cold_round"], _ = compare_lap_auction(
+            "wide square cold, its first round", a, device, neg=-1e18, reps=1, warmup=0,
+            max_iters=1)
+        del a
+    costs = -(torch.randint(0, 50, (1, 1, m), generator=gen, dtype=torch.int32)
+              + torch.randint(-3, 4, (1, 64, m), generator=gen, dtype=torch.int32)).double().numpy()
+    before = la.lap_auction.launches
+    t0 = time.perf_counter()
+    got = solve_lap_batched(costs, backend="auction_kernel", device=device)
+    wall = time.perf_counter() - t0
+    want = solve_lap_batched(costs, backend="scipy", device=device)
+    launched = la.lap_auction.launches - before
+    check(not got.used_fallback.any() and np.array_equal(got.total_cost, want.total_cost),
+          f"solve_lap_batched(auction_kernel) at 64x{m}: cost {got.total_cost} vs scipy's "
+          f"{want.total_cost} (fallback {got.used_fallback})")
+    if device.type == "cuda":
+        check(launched == 1, f"solve_lap_batched at 64x{m} launched lap_auction {launched} times")
+    rows["wide_engine"] = dict(case=f"solve_lap_batched auction_kernel 64x{m}", shape=[1, 64, m],
+                               cost=float(got.total_cost[0]), scipy_cost=float(want.total_cost[0]),
+                               bid_rounds=int(got.bid_iters[0]), wall_ms=wall * 1e3)
+    log(f"[kernel] {rows['wide_engine']['case']}: cost {got.total_cost[0]} equals scipy's; "
+        + json.dumps(rows["wide_engine"]))
+    return rows
+
+
+def check_flash_routing(device):
+    """P2: unset ``REPRO_USE_FLASH``, a causal ``sdpa`` at a head dim the
+    flash kernel has no instance for runs the einsum path on the card and
+    matches the CPU's einsum path (2e-5, f32); ``REPRO_USE_FLASH=1`` asks for
+    the kernel there and raises."""
+    import torch
+
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.models.attention import sdpa
+
+    d = 192  # nemotron-4-340b's head dim
+    saved = os.environ.pop("REPRO_USE_FLASH", None)
+    try:
+        gen = torch.Generator().manual_seed(5)
+        q, k, v = (torch.randn((1, 512, h, d), generator=gen) for h in (8, 2, 2))
+        want = sdpa(q, k, v, causal=True)
+        before = fa.flash_attention.launches
+        got = sdpa(q.to(device), k.to(device), v.to(device), causal=True).cpu()
+        check(fa.flash_attention.launches == before, f"sdpa at head dim {d} launched the flash kernel")
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
+              f"sdpa at head dim {d} on {device} differs from the CPU's einsum path ({err})")
+        raised = None
+        if device.type == "cuda":
+            os.environ["REPRO_USE_FLASH"] = "1"
+            try:
+                sdpa(q.to(device), k.to(device), v.to(device), causal=True)
+            except ValueError as exc:
+                raised = str(exc)
+            check(raised is not None and f"head dim {d}" in raised,
+                  f"REPRO_USE_FLASH=1 at head dim {d} did not raise")
+    finally:
+        os.environ.pop("REPRO_USE_FLASH", None)
+        if saved is not None:
+            os.environ["REPRO_USE_FLASH"] = saved
+    row = dict(head_dim=d, shape=[1, 512, 8, 2, d], max_abs_err=err, forced_raises=raised)
+    log(f"[check] sdpa at head dim {d}, env unset: the einsum path on {device}, max err {err:.3g} "
+        f"vs the CPU's; REPRO_USE_FLASH=1 raises: {raised}")
+    return row
 
 
 def compare_migration_cost(u, device, gen, reps=20):
@@ -946,7 +1078,8 @@ class Recorder:
 def check_kernel_solves(events, what, kn, path):
     """Every auction solve of a path that asked for the kernel launched
     ``lap_auction`` once and read nothing back (``loop_syncs`` 0), and the
-    path's node match (kn x kn) and 4x4 pair fan-out were among them."""
+    path's node match (kn x kn, for each kn given) and 4x4 pair fan-out
+    were among them."""
     solves = [e for e in events if e["what"] == what and e["use_kernel"]]
     check(solves, f"{path}: no auction solve asked for the kernel")
     for e in solves:
@@ -954,8 +1087,10 @@ def check_kernel_solves(events, what, kn, path):
               f"{path}: a kernel solve of {e['shape']} launched lap_auction "
               f"{e['lap_auction_launches']} times with {e['loop_syncs']} host syncs")
     shapes = {tuple(e["shape"][-2:]) for e in solves}
-    check((kn, kn) in shapes and (4, 4) in shapes,
-          f"{path}: the node match or the pair fan-out did not run on lap_auction ({shapes})")
+    need = {(k, k) for k in (kn if isinstance(kn, (list, tuple)) else [kn])} | {(4, 4)}
+    check(need <= shapes,
+          f"{path}: the node match or the pair fan-out did not run on lap_auction "
+          f"({sorted(need - shapes)} missing from {sorted(shapes)})")
     log(f"[check] {path}: {len(solves)} auction solves, each one lap_auction launch and no host "
         f"sync; shapes {sorted(shapes)}")
 
@@ -1202,6 +1337,205 @@ def fused_tie_break_check(device, nodes=8):
         f"to the host scipy planner, 0 fallbacks")
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: the paper's evaluation harness on the card
+# --------------------------------------------------------------------------- #
+#: wall-clock fields of an arm, not decisions (``decide_p50_s`` /
+#: ``decide_p99_s`` are newer than BENCH_endtoend.json)
+ARM_WALL = ("wall_s",)
+ARM_WALL_METRICS = ("overhead_total_s", "decide_p50_s", "decide_p99_s")
+#: policies whose priorities come from a linear program (scipy's HiGHS)
+LP_POLICIES = ("gavel", "gavel-ftf")
+
+
+def arm_decisions(arm):
+    """An evaluation arm without its wall-clock fields."""
+    out = {k: v for k, v in arm.items() if k not in ARM_WALL}
+    out["metrics"] = {k: v for k, v in arm["metrics"].items() if k not in ARM_WALL_METRICS}
+    return out
+
+
+def evaluation_phase(device, scale):
+    """(g) ``BENCH_endtoend.json``'s sweep through
+    ``repro_torch.benchmarks.evaluate`` on ``device``: every ``auto`` arm
+    (Algorithm 3's costs on K5) must equal the record exactly, as must the
+    derived speedups.  One exception, printed with its fields: an arm of a
+    policy whose priorities come from an LP (Gavel) may differ where this
+    host's scipy returns another optimal vertex of a degenerate LP than the
+    record's did; it must then equal, in every decision field, the same arm
+    run on this host's CPU (a labelled twin), and the speedups must equal
+    those of the arms so expected.  The ``tesserae-t`` arms again under ``auction_kernel``
+    (every auction solve one ``lap_auction`` launch, no host sync), each
+    beside its ``auto`` arm; ``scale["twins"]`` of them once more on the
+    CPU, where ``auction_kernel`` is the plain loop, equal in every decision
+    field (they launch nothing: CPU tensors take the plain versions)."""
+    import scipy
+
+    from repro_torch.benchmarks import evaluate
+    from repro_torch.kernels.lap_auction import lap_auction
+    from repro_torch.kernels.migration_cost import migration_cost
+
+    record = json.loads((ROOT / "BENCH_endtoend.json").read_text())
+    cfg = record["config"]
+    want = {(a["policy"], a["scenario"]): a for a in record["arms"]}
+    policies = scale.get("policies", cfg["policies"])
+    scenarios = scale.get("scenarios", cfg["scenarios"])
+    run = dict(num_gpus=cfg["num_gpus"], num_jobs=cfg["num_jobs"], seed=cfg["seed"])
+    row = dict(arms=len(policies) * len(scenarios), **run)
+
+    k5_0, t0 = migration_cost.launches, time.perf_counter()
+    doc = evaluate.run_sweep(policies, scenarios, backend=cfg["backend"], verbose=False,
+                             device=device, **run)
+    row["auto_s"] = time.perf_counter() - t0
+    row["auto_migration_cost_launches"] = migration_cost.launches - k5_0
+    row["auto_wall_s_sum"] = sum(a["wall_s"] for a in doc["arms"])
+    expected, row["lp_vertex_arms"] = [], {}
+    for arm in doc["arms"]:
+        tag = f"{arm['policy']} x {arm['scenario']}"
+        ref = want[(arm["policy"], arm["scenario"])]
+        check(set(arm) == set(ref), f"(g) {tag}: keys {sorted(set(arm) ^ set(ref))} differ")
+        got_d, want_d = arm_decisions(arm), arm_decisions(ref)
+        diff = [key for key in got_d if got_d[key] != want_d[key]]
+        if diff and arm["policy"] in LP_POLICIES:
+            # the policy's LP is degenerate: another scipy may return another
+            # optimal vertex, on this host's CPU as much as with the card.
+            # The card's arm must then equal this host's CPU run exactly.
+            twin = evaluate.run_arm(arm["policy"], arm["scenario"], backend=cfg["backend"],
+                                    device="cpu", **run)
+            check(arm_decisions(twin) == got_d,
+                  f"(g) {tag}: differs from BENCH_endtoend.json in {diff} and from its CPU twin")
+            row["lp_vertex_arms"][tag] = dict(
+                fields=diff, avg_jct_s=arm["metrics"]["avg_jct_s"],
+                record_avg_jct_s=ref["metrics"]["avg_jct_s"],
+                makespan_s=arm["metrics"]["makespan_s"], record_makespan_s=ref["metrics"]["makespan_s"])
+            log(f"[evaluate] {tag}: differs from BENCH_endtoend.json in {diff} (avg JCT "
+                f"{arm['metrics']['avg_jct_s']} vs {ref['metrics']['avg_jct_s']}) with scipy "
+                f"{scipy.__version__}'s LP on this host; equal in every decision field to its CPU "
+                f"twin (this host's CPU, not the card)")
+            expected.append(twin)
+            continue
+        for key in diff:
+            check(False, f"(g) {tag}: {key} differs from BENCH_endtoend.json: {got_d[key]} vs "
+                  f"{want_d[key]}")
+        expected.append(ref)
+    tess = next(p for p in policies if p.startswith("tesserae"))
+    got_x = doc["speedups_vs_" + tess]
+    want_x = evaluate.derive_speedups(expected, tess)
+    check(got_x == want_x, f"(g) speedups {got_x} differ from the expected arms' {want_x}")
+    if len(expected) == len(record["arms"]) and not row["lp_vertex_arms"]:
+        check(got_x == record["speedups_vs_" + tess], "(g) speedups differ from the record's")
+    log(f"[evaluate] {len(doc['arms']) - len(row['lp_vertex_arms'])} of {len(doc['arms'])} auto "
+        f"arms on {device} equal BENCH_endtoend.json in metrics, faults and match_telemetry; "
+        f"{len(row['lp_vertex_arms'])} LP-policy arms equal their CPU twins instead; the speedups "
+        f"equal those of the expected arms ({row['auto_s']:.1f} s; K5 launched "
+        f"{row['auto_migration_cost_launches']} times)")
+
+    rec = Recorder()
+    kernel_arms = {}
+    la0, t0 = lap_auction.launches, time.perf_counter()
+    try:
+        for sc in scenarios:
+            kernel_arms[sc] = evaluate.run_arm("tesserae-t", sc, backend="auction_kernel",
+                                               device=device, **run)
+    finally:
+        rec.close()
+    row["kernel_s"] = time.perf_counter() - t0
+    row["kernel_lap_auction_launches"] = lap_auction.launches - la0
+    row["kernel_solves"] = sum(1 for e in rec.events if e["what"] == "auction" and e["use_kernel"])
+    if device.type == "cuda":
+        check_kernel_solves(rec.events, "auction", sorted({
+            evaluate.workloads.scenario(sc).make_cluster(run["num_gpus"]).num_nodes
+            for sc in scenarios}), "(g) auction_kernel arms")
+    auto = {a["scenario"]: a for a in doc["arms"] if a["policy"] == "tesserae-t"}
+    row["kernel_vs_auto"] = {}
+    for sc, arm in kernel_arms.items():
+        m, ma = arm["metrics"], auto[sc]["metrics"]
+        d = dict(avg_jct_s=m["avg_jct_s"], auto_avg_jct_s=ma["avg_jct_s"],
+                 jct_rel_diff=m["avg_jct_s"] / ma["avg_jct_s"] - 1.0,
+                 makespan_s=m["makespan_s"], auto_makespan_s=ma["makespan_s"],
+                 makespan_rel_diff=m["makespan_s"] / ma["makespan_s"] - 1.0,
+                 migrations=m["migrations"], auto_migrations=ma["migrations"],
+                 bid_iters=arm["match_telemetry"]["bid_iters"], wall_s=arm["wall_s"])
+        row["kernel_vs_auto"][sc] = d
+        log(f"[evaluate] tesserae-t x {sc}: auction_kernel avg JCT {d['avg_jct_s']:.1f} s, makespan "
+            f"{d['makespan_s']:.1f} s; auto {d['auto_avg_jct_s']:.1f} s, {d['auto_makespan_s']:.1f} s "
+            f"({100 * d['jct_rel_diff']:+.3f} %, {100 * d['makespan_rel_diff']:+.3f} %); "
+            f"migrations {d['migrations']} vs {d['auto_migrations']}")
+
+    row["cpu_twins"] = {}
+    for sc in scale.get("twins", ()):
+        t0 = time.perf_counter()
+        twin = evaluate.run_arm("tesserae-t", sc, backend="auction_kernel", device="cpu", **run)
+        check(arm_decisions(twin) == arm_decisions(kernel_arms[sc]),
+              f"(g) tesserae-t x {sc} under auction_kernel: the card's arm and the CPU twin differ")
+        row["cpu_twins"][sc] = time.perf_counter() - t0
+        log(f"[evaluate] CPU twin (not the card) of tesserae-t x {sc} under auction_kernel: equal "
+            f"to the card's arm in every decision field ({row['cpu_twins'][sc]:.1f} s)")
+    log("[evaluate] " + json.dumps(row))
+    return row
+
+
+def scalability_phase(device, scale):
+    """(h) ``repro_torch.benchmarks.scalability`` on ``device``: Part 1
+    (decision time against active jobs on 256 GPUs, the 2048-job row beside
+    the paper's 1.6 s) under ``auto`` and ``auction_kernel``, and Part 2
+    (cluster scale) under scipy and ``auction_kernel``.  Every plan is
+    feasible, every kernel auction solve is one ``lap_auction`` launch with
+    no host sync, and every migrate step not already solved by scipy has
+    scipy's optimal cost.  The LP baselines (host code) are not run."""
+    import torch
+
+    from repro_torch.benchmarks import scalability
+    from repro_torch.core.migration import plan_migration
+    from repro_torch.core.profiler import ThroughputProfile
+
+    prof = ThroughputProfile()
+    rows, records = [], []
+    rec = Recorder()
+    t0 = time.perf_counter()
+    try:
+        for backend in ("auto", "auction_kernel"):
+            scalability.bench_paper_figure(prof, rows, records, backend, device, lp=False,
+                                           job_counts=scale["job_counts"])
+        t1 = time.perf_counter()
+        scalability.bench_cluster_scale(prof, rows, records, ["scipy", "auction_kernel"], device,
+                                        clusters=scale["clusters"])
+    finally:
+        rec.close()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out = dict(part1_s=t1 - t0, part2_s=time.perf_counter() - t1, records=records)
+    for r in rows:
+        log(f"[scalability] {r}")
+    claims = {r["backend"]: r for r in records if r["bench"] == "claim"}
+    for backend, r in claims.items():
+        d = next(x for x in records if x["bench"] == "decision_time" and x["jobs"] == 2048
+                 and x["backend"] == backend)
+        log(f"[scalability] 2048 active jobs on 256 GPUs, {backend}: cold decide() "
+            f"{d['total_s']:.4f} s, warm {d['warm_total_s']:.4f} s; the paper's claim < "
+            f"{scalability.PAPER_CLAIM_S} s (reported, not gated)")
+    if device.type == "cuda":
+        check_kernel_solves(rec.events, "auction", [c[0] for c in scale["clusters"]], "(h)")
+    t2 = time.perf_counter()
+    checked = 0
+    for prev, new_logical, gmap, kw, res in rec.migrations:
+        check_feasible(res.physical_plan, gmap, f"(h) {kw['backend']} migrate step")
+        if kw["backend"] == "scipy":
+            continue
+        ref = plan_migration(prev, new_logical, gmap, algorithm="node", backend="scipy",
+                             down_nodes=kw.get("down_nodes"), speed_factor=kw.get("speed_factor"),
+                             device=device)
+        check(res.matching_cost == ref.matching_cost,
+              f"(h) {kw['backend']} migrate step at {prev.cluster.num_gpus} GPUs: cost "
+              f"{res.matching_cost} is not scipy's {ref.matching_cost}")
+        checked += 1
+    out.update(steps=len(rec.migrations), scipy_checked=checked, check_s=time.perf_counter() - t2)
+    log(f"[check] (h): {len(rec.migrations)} migrate steps feasible, {checked} not solved by scipy "
+        f"have scipy's optimal cost ({out['check_s']:.1f} s)")
+    log("[scalability] " + json.dumps(out))
+    return out
+
+
 def build_report():
     """Phase 1's record of what was built: ``ptxas``'s registers, static
     shared memory and spills for every attention kernel instance, and the
@@ -1294,6 +1628,7 @@ def run(device, scale):
         "ties": compare_lap_bid((4, 8, 600), device, gen, ties=True, reps=5),
     }
     auction = auction_rows(kn, scale["fanout"], device, gen)
+    auction.update(wide_rows(device, gen, square=scale.get("wide_square", False)))
     mig_row = compare_migration_cost(kn * 4, device, gen)
     fused_rows = {
         "fanout": compare_lap_bid_fused((scale["fanout"], 4, 4), device, gen, tb="mixed"),
@@ -1307,6 +1642,7 @@ def run(device, scale):
                for i, shape in enumerate(serve["k6_shapes"])]
     k7_rows = [compare_flash_decode(shape, device, seed=20 + i)
                for i, shape in enumerate(serve["k7_shapes"])]
+    routing_row = check_flash_routing(device)
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -1404,21 +1740,43 @@ def run(device, scale):
               f"times, wanted {want}")
         check(serve_launches["flash_decode"] == 1, "flash_decode was not launched on the served cache")
 
+    # ---- phase 6: the evaluation harness ------------------------------------ #
+    zero_counts()
+    t0 = time.perf_counter()
+    eval_row = evaluation_phase(device, scale.get("evaluate", EVAL_REHEARSAL))
+    eval_launches = read_counts()
+    log(f"[evaluate path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(eval_launches)}")
+    if device.type == "cuda":
+        check(eval_row["auto_migration_cost_launches"] > 0, "(g): the auto arms never launched K5")
+        check(eval_launches["lap_auction"] > 0, "(g): the auction_kernel arms never launched lap_auction")
+    zero_counts()
+    t0 = time.perf_counter()
+    scal_row = scalability_phase(device, scale.get("scalability", SCALABILITY_REHEARSAL))
+    scal_launches = read_counts()
+    log(f"[scalability path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(scal_launches)}")
+    if device.type == "cuda":
+        check(scal_launches["lap_auction"] > 0, "(h) never launched lap_auction")
+        check(scal_launches["migration_cost"] > 0, "(h) never launched migration_cost")
+    by_path = {name: {"round": launches[name], "fused": fused_launches[name],
+                      "evaluate": eval_launches[name], "scalability": scal_launches[name]}
+               for name in ("lap_auction", "migration_cost", "lap_bid_batched",
+                            "lap_bid_fused_batched")}
+
     node = auction["node_cold"]
     kernels = [dict(
         name="lap_auction", route="cuda", source="src/repro_torch/kernels/csrc/lap_auction.cu",
         replaces="src/repro/kernels/lap_bid.py:149",
         also_replaces=["src/repro/kernels/lap_bid.py:398", "src/repro/kernels/lap_bid.py:343",
                        "src/repro/kernels/lap_bid.py:283", "src/repro/core/matching/auction.py:173"],
-        launches=launches["lap_auction"] + fused_launches["lap_auction"],
-        launches_by_path={"round": launches["lap_auction"], "fused": fused_launches["lap_auction"]},
-        max_abs_err=max(r["max_abs_err"] for r in auction.values()), ms=node["ms"],
+        launches=sum(by_path["lap_auction"].values()), launches_by_path=by_path["lap_auction"],
+        max_abs_err=max(r.get("max_abs_err", 0.0) for r in auction.values()), ms=node["ms"],
         plain_ms=node["plain_ms"], bound_ms=node["bound_ms"], bound_by=node["bound_by"],
         library_ms=None, shape=node["shape"], rounds=node["rounds"],
         ms_per_round=node["ms_per_round"], plain_ms_per_round=node["plain_ms_per_round"],
         other_shapes=[{key: r.get(key) for key in (
             "case", "shape", "rounds", "ms", "ms_per_round", "plain_ms", "plain_ms_per_round",
-            "bound_ms", "bound_by", "one_cta_ms")} for k, r in auction.items() if k != "node_cold"],
+            "bound_ms", "bound_by", "one_cta_ms", "cost", "scipy_cost", "wall_ms")}
+            for k, r in auction.items() if k != "node_cold"],
     )]
     for name, row, source, replaces in (
         ("lap_bid_batched", lap_rows["fanout"], "src/repro_torch/kernels/csrc/lap_bid.cu",
@@ -1430,8 +1788,7 @@ def run(device, scale):
     ):
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] + fused_launches[name],
-            launches_by_path={"round": launches[name], "fused": fused_launches[name]},
+            launches=sum(by_path[name].values()), launches_by_path=by_path[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"],
@@ -1462,6 +1819,7 @@ def run(device, scale):
             kernels[-1]["instances"] = {fn: r for fn, r in built["ptxas"].items() if name in fn}
             if name == "flash_attention":
                 kernels[-1]["hgmma"] = built["hgmma"]
+    next(k for k in kernels if k["name"] == "flash_attention")["head_dim_routing"] = routing_row
     return kernels
 
 

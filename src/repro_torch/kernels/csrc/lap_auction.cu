@@ -49,6 +49,14 @@
 //     H100, so remote memory is only read.)  Partial and merged keys are
 //     double-buffered by round: a CTA clears its partials of the last round
 //     before this round's first barrier, when every merge of them is done.
+//   * wide regime (an instance whose replicated column state, 40 bytes a
+//     column, does not fit a CTA's shared memory: m above ~5,700): one CTA
+//     per instance, its per-column state in global memory (L2-resident:
+//     12 bytes a column besides the prices), the prices and the assignment
+//     kept in place in the outputs.  Nothing is shared across CTAs, so a
+//     bid is a 64-bit atomicMax into the instance's own keys in global
+//     memory, read back after a block barrier.  Right before fast: it is
+//     the only plan for such widths.
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <climits>
@@ -64,6 +72,7 @@ constexpr float kEpsStep = 0.2f;     // lap_auction.py:EPS_STEP
 constexpr int kWarpThreads = 256;     // lap_auction.py:WARP_THREADS
 constexpr int kClusterThreads = 512;  // lap_auction.py:CLUSTER_THREADS
 constexpr int kMaxCluster = 16;       // lap_auction.py:MAX_CLUSTER
+constexpr int kWideThreads = 1024;    // lap_auction.py:WIDE_THREADS
 
 // the offer a row bids: p[j*] + ((best - second) + eps), second floored at neg
 __device__ __forceinline__ float offer_of(float best, float second, float pbest, float eps,
@@ -423,6 +432,144 @@ auction_cluster_kernel(const float* __restrict__ a, const float* __restrict__ tb
   }
 }
 
+// --------------------------------------------------------------------------
+// wide regime: one CTA per instance, the per-column state in global memory
+// --------------------------------------------------------------------------
+template <bool kFused>
+__global__ void __launch_bounds__(kWideThreads)
+auction_wide_kernel(const float* __restrict__ a, const float* __restrict__ tb,
+                    const float* __restrict__ p0, const int* __restrict__ col0,
+                    const float* __restrict__ eps0, const float* __restrict__ eps_min_v,
+                    const float* __restrict__ thr_v, int* col_out, float* p_out,
+                    int* __restrict__ it_out, float* __restrict__ eps_out, long long batch,
+                    int n, int m, int max_iters, float neg, unsigned char* scratch) {
+  const long long inst = blockIdx.x;
+  const float* ainst = a + inst * (long long)n * m;
+  // the instance's working state: prices and assignment in place in the
+  // outputs (no __restrict__: written and read back), the rest in the
+  // scratch of lap_auction.py:wide_scratch bytes: (B, m) u64 bid keys,
+  // (B, m) int32 owners, (B, n) int32 bidders
+  float* price = p_out + inst * m;
+  int* colof = col_out + inst * n;
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(scratch) + inst * m;
+  int* owner = reinterpret_cast<int*>(scratch + 8 * batch * m) + inst * m;
+  int* list = reinterpret_cast<int*>(scratch + 12 * batch * m) + inst * n;
+  __shared__ int s_nlist, s_assigned, s_new[2];
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  for (int j = tid; j < m; j += nthreads) {
+    price[j] = p0[inst * m + j];
+    owner[j] = -1;
+    keys[j] = 0ull;
+  }
+  for (int i = tid; i < n; i += nthreads) colof[i] = col0[inst * n + i];
+  if (tid == 0) {
+    s_nlist = 0;
+    s_assigned = 0;
+    s_new[0] = s_new[1] = 0;
+  }
+  __syncthreads();
+  int mine = 0;
+  for (int i = tid; i < n; i += nthreads) {
+    const int c = colof[i];
+    if (c >= 0) {
+      owner[c] = i;
+      ++mine;
+    }
+  }
+  mine = __reduce_add_sync(kFull, mine);
+  if (lane == 0 && mine) atomicAdd(&s_assigned, mine);
+  __syncthreads();
+  int assigned = s_assigned;
+  float eps = eps0[inst];
+  const float eps_min = eps_min_v[inst], thr = thr_v[inst];
+  const float tbi = kFused ? tb[inst] : 0.f;
+
+  // every thread holds the same assigned / eps / it: one decision per instance
+  int it = 0, round = 0;
+  while (true) {
+    const bool all = assigned == n;
+    if ((all && eps <= thr) || it >= max_iters) break;
+    if (all) {  // phase change: keep the prices, restart the assignment
+      for (int j = tid; j < m; j += nthreads) owner[j] = -1;
+      for (int i = tid; i < n; i += nthreads) colof[i] = -1;
+      assigned = 0;
+      eps = fmaxf(__fmul_rn(eps, kEpsStep), eps_min);
+      ++it;
+      __syncthreads();
+      continue;
+    }
+    const int q = round & 1;
+    // (1) the unassigned rows, compacted
+    for (int i = tid; i < n; i += nthreads)
+      if (colof[i] < 0) list[atomicAdd(&s_nlist, 1)] = i;
+    __syncthreads();
+    const int nbid = s_nlist;
+    // (2) one warp per bidder: top-2, offer, a 64-bit atomicMax into the keys
+    for (int k = warp; k < nbid; k += nwarps) {
+      const int i = list[k];
+      float ramp_i = 0.f;
+      if (kFused) {
+        const float gi = (float)(i + 1);
+        ramp_i = __fmul_rn(tbi, __fmul_rn(gi, gi));
+      }
+      float best, second, pbest;
+      int arg;
+      warp_top2<kFused>(ainst + (long long)i * m, price, m, ramp_i, lane, best, arg, second,
+                        pbest);
+      if (lane == 0) {
+        const float offer = offer_of(best, second, pbest, eps, neg);
+        if (offer > kBidFloor) atomicMax(keys + arg, bid_key(offer, i));
+      }
+    }
+    __syncthreads();
+    // (3) every column with bids takes its winner; the keys are read past L1
+    int fresh = 0;
+    for (int j = tid; j < m; j += nthreads) {
+      const unsigned long long key = __ldcg(keys + j);
+      if (key) {
+        __stcg(keys + j, 0ull);
+        const int w = (int)(0xffffffffu - (unsigned)(key & 0xffffffffull));
+        const int prev = owner[j];
+        owner[j] = w;
+        price[j] = from_ordered((unsigned)(key >> 32));
+        if (prev < 0) {
+          ++fresh;
+        } else {
+          colof[prev] = -1;
+        }
+        colof[w] = j;
+      }
+    }
+    fresh = __reduce_add_sync(kFull, fresh);
+    if (lane == 0 && fresh) atomicAdd(&s_new[q], fresh);
+    if (tid == 0) {
+      s_nlist = 0;
+      s_new[q ^ 1] = 0;
+    }
+    __syncthreads();
+    assigned += s_new[q];
+    ++it;
+    ++round;
+  }
+  if (tid == 0) {
+    it_out[inst] = it;
+    eps_out[inst] = eps;
+  }
+}
+
+template <bool kFused>
+cudaError_t launch_wide(const float* a, const float* tb, const float* p0, const int* col0,
+                        const float* eps0, const float* eps_min, const float* thr, int* col_out,
+                        float* p_out, int* it_out, float* eps_out, long long batch, int n, int m,
+                        int max_iters, float neg, unsigned char* scratch, cudaStream_t stream) {
+  auction_wide_kernel<kFused><<<(unsigned)batch, kWideThreads, 0, stream>>>(
+      a, tb, p0, col0, eps0, eps_min, thr, col_out, p_out, it_out, eps_out, batch, n, m,
+      max_iters, neg, scratch);
+  return cudaGetLastError();
+}
+
 template <bool kFused>
 cudaError_t launch_cluster(const float* a, const float* tb, const float* p0, const int* col0,
                            const float* eps0, const float* eps_min, const float* thr,
@@ -494,15 +641,18 @@ cudaError_t dispatch_warp(int group, const float* a, const float* tb, const floa
 // a (B, n, m) f32 (a COST matrix when fused, with tb (B,)); p0 (B, m) f32;
 // col0 (B, n) int32; eps0, eps_min, thr (B,) f32.  Writes col_out (B, n)
 // int32, p_out (B, m) f32, it_out (B,) int32, eps_out (B,) f32.  group > 0
-// is the warp regime with that many lanes per instance; otherwise cluster
-// CTAs of rows_per_cta rows each, with smem bytes of dynamic shared memory
-// (the wrapper's plan, checked against this file's).
+// is the warp regime with that many lanes per instance; cluster > 0 the
+// cluster regime, CTAs of rows_per_cta rows each with smem bytes of dynamic
+// shared memory; both 0 the wide regime, one CTA per instance working in
+// scratch (wide_scratch bytes of device memory).  The wrapper's plan is
+// checked against this file's.
 extern "C" int lap_auction(const void* a, const void* tb, const void* p0, const void* col0,
                            const void* eps0, const void* eps_min, const void* thr,
                            void* col_out, void* p_out, void* it_out, void* eps_out,
                            long long batch, long long n, long long m, long long max_iters,
                            double neg, int fused, int group, int cluster, int rows_per_cta,
-                           int threads, int smem_rows, long long smem, void* stream) {
+                           int threads, int smem_rows, long long smem, void* scratch,
+                           void* stream) {
   if (batch <= 0 || n <= 0 || m < n || max_iters < 0 || max_iters > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -528,6 +678,15 @@ extern "C" int lap_auction(const void* a, const void* tb, const void* p0, const 
                                     (int)n, (int)m, (int)max_iters, ng, s)
               : dispatch_warp<false>(group, A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch,
                                      (int)n, (int)m, (int)max_iters, ng, s);
+  } else if (cluster == 0) {
+    if (threads != kWideThreads || rows_per_cta != n || smem != 0 || smem_rows != 0 ||
+        scratch == nullptr || batch > INT_MAX)
+      return (int)cudaErrorInvalidValue;  // the plan and this file disagree
+    unsigned char* SC = (unsigned char*)scratch;
+    e = fused ? launch_wide<true>(A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch, (int)n,
+                                  (int)m, (int)max_iters, ng, SC, s)
+              : launch_wide<false>(A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch, (int)n,
+                                   (int)m, (int)max_iters, ng, SC, s);
   } else {
     if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
         threads != kClusterThreads || (long long)rows_per_cta * cluster < n ||

@@ -77,6 +77,8 @@ MAX_CLUSTER = 16
 #: kernel's static counters
 SMEM_LIMIT = 232_448
 SMEM_BUDGET = SMEM_LIMIT - 1024
+#: threads of a wide-regime block (csrc/lap_auction.cu kWideThreads)
+WIDE_THREADS = 1024
 
 _GRID_LIMIT = (1 << 31) - 1
 
@@ -93,10 +95,12 @@ loop_syncs = _SyncCount()
 
 
 class AuctionPlan(NamedTuple):
-    regime: str  # "warp": one lane group per instance; "cluster": a CTA cluster per instance
+    # "warp": one lane group per instance; "cluster": a CTA cluster per
+    # instance; "wide": one CTA per instance, its column state in global memory
+    regime: str
     group: int  # warp regime: lanes per instance (next_pow2(m)); 0 otherwise
     cluster: int  # cluster regime: CTAs per instance; 0 otherwise
-    rows_per_cta: int  # cluster regime: rows of the instance each CTA holds
+    rows_per_cta: int  # cluster / wide regime: rows of the instance each CTA holds
     threads: int  # threads per block
     grid: int  # blocks
     smem: int  # dynamic shared memory per block, bytes
@@ -111,6 +115,13 @@ def cluster_smem(m: int, rows_per_cta: int, smem_rows: bool) -> int:
     return 40 * m + 8 * rows_per_cta + (4 * rows_per_cta * m if smem_rows else 0)
 
 
+def wide_scratch(b: int, n: int, m: int) -> int:
+    """Device memory the wide regime works in (csrc layout): (B, m) u64 bid
+    keys, (B, m) int32 owners and (B, n) int32 bidder lists; the prices and
+    the assignment are kept in the outputs."""
+    return b * (12 * m + 4 * n)
+
+
 def launch_plan(b: int, n: int, m: int) -> AuctionPlan:
     """How :func:`lap_auction` launches a (B, n, m) batch.
 
@@ -119,8 +130,9 @@ def launch_plan(b: int, n: int, m: int) -> AuctionPlan:
     cluster per instance of ``next_pow2(ceil(n / ROWS_PER_CTA))`` CTAs (at
     most 16), each holding a band of rows; the rows sit in shared memory
     when the band fits beside the replicated state, and are read from
-    global memory (L2-resident) otherwise.  Raises when the replicated
-    state itself does not fit."""
+    global memory (L2-resident) otherwise.  When the replicated state itself
+    does not fit (m above ~5,700 columns), the wide regime: one CTA per
+    instance, its per-column state in global memory."""
     if n < 1 or m < 1 or n > m:
         raise ValueError(f"lap_auction: want 1 <= n <= m, got n={n}, m={m}")
     if m <= WARP_MAX_M:
@@ -138,10 +150,9 @@ def launch_plan(b: int, n: int, m: int) -> AuctionPlan:
     smem_rows = cluster_smem(m, rows, True) <= SMEM_BUDGET
     smem = cluster_smem(m, rows, smem_rows)
     if smem > SMEM_BUDGET:
-        raise ValueError(
-            f"lap_auction: an instance of {m} columns needs {smem} bytes of shared memory "
-            f"per CTA (limit {SMEM_BUDGET})"
-        )
+        if b > _GRID_LIMIT:
+            raise ValueError(f"lap_auction: {b} instances exceed one launch")
+        return AuctionPlan("wide", 0, 0, n, WIDE_THREADS, b, 0, False)
     if b * cluster > _GRID_LIMIT:
         raise ValueError(f"lap_auction: {b} instances exceed one launch")
     return AuctionPlan("cluster", 0, cluster, rows, CLUSTER_THREADS, b * cluster, smem, smem_rows)
@@ -288,10 +299,13 @@ def lap_auction(
     if b == 0:
         return col_out.long(), p_out, it_out, eps_out
     plan = plan or launch_plan(b, n, m)
+    scratch = None
+    if plan.regime == "wide":
+        scratch = torch.empty(wide_scratch(b, n, m), dtype=torch.uint8, device=a.device)
     fn = build.library("lap_auction").lap_auction
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 4 + [ctypes.c_double] + [
         ctypes.c_int
-    ] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+    ] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -300,7 +314,8 @@ def lap_auction(
             col_in.data_ptr(), eps.data_ptr(), eps_min.data_ptr(), thr.data_ptr(),
             col_out.data_ptr(), p_out.data_ptr(), it_out.data_ptr(), eps_out.data_ptr(),
             b, n, m, max_iters, float(neg), int(tb is not None), plan.group, plan.cluster,
-            plan.rows_per_cta, plan.threads, int(plan.smem_rows), plan.smem, stream,
+            plan.rows_per_cta, plan.threads, int(plan.smem_rows), plan.smem,
+            None if scratch is None else scratch.data_ptr(), stream,
         )
     build.check(err, "lap_auction")
     lap_auction.launches += 1

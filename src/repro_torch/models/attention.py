@@ -10,11 +10,14 @@ reference: the flash kernel (``kernels/flash_attention.py``) for a causal
 self-attention over the whole sequence, and an einsum path for everything
 else (decode against a cache, an offset query block).  ``REPRO_USE_FLASH=1``
 forces the flash branch where it applies and ``=0`` forces the einsum path;
-unset, the branch follows the tensors' device: the kernel on CUDA, the
-einsum path on the CPU (ROADMAP D6).  The flash branch routes query head
-``h`` to KV head ``h // (H/KV)`` inside the kernel instead of repeating the
-KV heads, and reads q/k/v in their (B, S, heads, D) layout by strides, so
-the three transposes of the reference's flash branch are gone too.
+unset, the kernel runs exactly when the tensors are on CUDA and the head
+dim has a kernel instance (``flash_attention.HEAD_DIMS``); every other case
+takes the einsum path, the reference's default for every head dim (ROADMAP
+D6).  An explicit ``=1`` with a head dim the kernel lacks raises there.
+The flash branch routes query head ``h`` to KV head ``h // (H/KV)`` inside
+the kernel instead of repeating the KV heads, and reads q/k/v in their
+(B, S, heads, D) layout by strides, so the three transposes of the
+reference's flash branch are gone too.
 """
 
 from __future__ import annotations
@@ -30,13 +33,16 @@ from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_n
 NEG_INF = -1e30
 
 
-def use_flash(device: torch.device) -> bool:
+def use_flash(device: torch.device, head_dim: int) -> bool:
     """The flash branch: ``REPRO_USE_FLASH`` when set ("1" on, "0" off),
-    else on exactly when the tensors are on CUDA."""
+    else on exactly when the tensors are on CUDA and the kernel has an
+    instance for ``head_dim``."""
     env = os.environ.get("REPRO_USE_FLASH")
     if env is not None:
         return env == "1"
-    return device.type == "cuda"
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    return device.type == "cuda" and head_dim in HEAD_DIMS
 
 
 # --------------------------------------------------------------------------- #
@@ -71,7 +77,7 @@ def sdpa(
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
 
-    if use_flash(q.device) and causal and s == t and q_offset is None and kv_valid_len is None:
+    if use_flash(q.device, d) and causal and s == t and q_offset is None and kv_valid_len is None:
         from repro_torch.kernels import flash_attention
 
         return flash_attention.flash_attention(q, k, v, causal=True)

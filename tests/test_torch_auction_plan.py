@@ -42,6 +42,9 @@ LIMIT = 232_448  # shared memory one block may use on an H100
         ((1, 8, 600), "cluster", 0, 1, 8, True),
         ((1, 512, 512), "cluster", 0, 16, 32, True),
         ((1, 640, 1320), "cluster", 0, 16, 40, False),
+        ((1, 8, 6000), "wide", 0, 0, 8, False),
+        ((1, 64, 6000), "wide", 0, 0, 64, False),
+        ((2, 6000, 6000), "wide", 0, 0, 6000, False),
     ],
 )
 def test_plan_regime_cluster_and_rows(shape, regime, group, cluster, rows, smem_rows):
@@ -52,6 +55,9 @@ def test_plan_regime_cluster_and_rows(shape, regime, group, cluster, rows, smem_
     if regime == "warp":
         assert plan.threads == la.WARP_THREADS and plan.smem == 0
         assert plan.grid * plan.threads >= b * group > (plan.grid - 1) * plan.threads
+    elif regime == "wide":
+        assert plan.threads == la.WIDE_THREADS and plan.grid == b and plan.smem == 0
+        assert la.wide_scratch(b, n, m) == b * (12 * m + 4 * n)
     else:
         assert plan.threads == la.CLUSTER_THREADS and plan.grid == b * cluster
         assert plan.rows_per_cta * cluster >= n > plan.rows_per_cta * (cluster - 1)
@@ -79,11 +85,23 @@ def test_plan_shared_memory_within_a_block(n, extra):
 
 
 def test_plan_rejects_what_the_kernel_does_not_take():
+    """n > m raises.  Past the widest instance whose replicated column state
+    fits a CTA's shared memory, the wide plan takes over (m = 6000 raised
+    before it existed); the widest instances the cluster plan took keep it."""
     with pytest.raises(ValueError, match="n <= m"):
         la.launch_plan(2, 5, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        la.launch_plan(1, 8, 6000)
+    assert la.launch_plan(1, 8, 6000).regime == "wide"
     assert la.launch_plan(1, 8, 5700).regime == "cluster"
+    widest = (la.SMEM_BUDGET - 8 * 8) // 40  # n = 8: one CTA, its rows read from L2
+    assert widest == 5784
+    assert la.launch_plan(1, 8, widest) == la.AuctionPlan(
+        "cluster", 0, 1, 8, la.CLUSTER_THREADS, 1, la.cluster_smem(widest, 8, False), False)
+    assert la.launch_plan(1, 8, widest + 1).regime == "wide"
+    square = max(n for n in range(5600, 5800)
+                 if la.cluster_smem(n, -(-n // la.MAX_CLUSTER), False) <= la.SMEM_BUDGET)
+    assert square == 5714
+    assert la.launch_plan(1, square, square).regime == "cluster"
+    assert la.launch_plan(1, square + 1, square + 1).regime == "wide"
 
 
 def test_plan_constants_match_the_cuda_source():
@@ -95,6 +113,9 @@ def test_plan_constants_match_the_cuda_source():
     assert const("kWarpThreads") == la.WARP_THREADS
     assert const("kClusterThreads") == la.CLUSTER_THREADS
     assert const("kMaxCluster") == la.MAX_CLUSTER
+    assert const("kWideThreads") == la.WIDE_THREADS
+    # the wide regime's scratch layout, (B, m) u64 keys then (B, m) and (B, n) int32
+    assert "scratch + 8 * batch * m" in src and "scratch + 12 * batch * m" in src
     assert "return 40 * m + 8 * rows + (smem_rows ? 4 * rows * m : 0);" in src
     assert re.search(r"kBidFloor = -5e17f", src) and la.BID_FLOOR == -5e17
 

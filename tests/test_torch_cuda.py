@@ -280,6 +280,66 @@ def test_lap_auction_every_cluster_layout(cuda, shape, cluster, smem_rows):
                            w.view(torch.int32) if w.dtype == torch.float32 else w)
 
 
+def _wide_plan(b, n):
+    return la.AuctionPlan("wide", 0, 0, n, la.WIDE_THREADS, b, 0, False)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64), (1, 512, 512), (1, 40, 1320), (4, 3, 40),
+                                   (3, 33, 33)])
+@pytest.mark.parametrize("max_iters", [0, 1, 7, 20_000])
+@pytest.mark.parametrize("tb", [None, "mixed"])
+def test_lap_auction_wide_plan_equals_the_plain_loop(cuda, shape, max_iters, tb):
+    """The wide regime (one CTA per instance, column state in global
+    memory) forced at shapes the other plans also take: every output bit
+    for bit, cut mid-phase by ``max_iters`` too, and with the fused
+    benefit assembly."""
+    b, n, m = shape
+    ben = _ints(n + m + max_iters, shape).to(cuda)
+    tbv = None
+    if tb is not None:
+        tbv = torch.where(torch.arange(b, device=cuda) % 2 == 1, _tb_scale(n, m), 0.0).float()
+        ben = ben.abs()
+    em = (torch.ones(b, device=cuda) if tbv is None else torch.where(tbv > 0, tbv, 1.0)) / (n + 1)
+    if n == m:
+        thr = em * np.float32(1 + 1e-6)
+        eps0 = torch.maximum(torch.clamp_min(ben.abs().amax(dim=(1, 2)), 1.0) / 4.0, em)
+    else:
+        thr, eps0 = torch.full((b,), float("inf"), device=cuda), em
+    args = (ben, torch.zeros(b, m, device=cuda), torch.full((b, n), -1, device=cuda), eps0, em,
+            thr, max_iters)
+    before = la.lap_auction.launches
+    got = la.lap_auction(*args, tb=tbv, neg=-1e30, plan=_wide_plan(b, n))
+    torch.cuda.synchronize()
+    assert la.lap_auction.launches == before + 1
+    want = la.lap_auction_plain(*args, tb=tbv, neg=-1e30)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 6000), (1, 64, 6000), (2, 8, 7000)])
+def test_lap_auction_past_shared_memory_takes_the_wide_plan(cuda, shape):
+    """Wider than any CTA's shared memory holds the column state: the
+    default plan is the wide one, bitwise equal to the plain loop, cold and
+    warm from the cold prices, and the engine's cost equals scipy's."""
+    from repro_torch.core.matching import solve_lap_batched
+
+    b, n, m = shape
+    assert launch_plan(*shape).regime == "wide"
+    # the rows share a column preference, so they compete for its best columns
+    ben = (_ints(m, (b, 1, m), 0, 50) + _ints(n * m, shape, -3, 4)).to(cuda)
+    res = _hold_auction(lambda uk: tauction._auction_rect(ben, None, 20_000, uk, None, -1e18))
+    assert bool(res.converged.all())
+    ben2 = ben + _ints(n + m, shape, -2, 3).to(cuda)
+    _hold_auction(lambda uk: tauction._auction_rect(ben2, None, 20_000, uk, res.prices, -1e18))
+    costs = -ben.cpu().double().numpy()
+    before = lap_auction.launches
+    got = solve_lap_batched(costs, backend="auction_kernel", device=cuda)
+    assert lap_auction.launches == before + 1 and not got.used_fallback.any()
+    want = solve_lap_batched(costs, backend="scipy", device="cpu")
+    np.testing.assert_array_equal(got.total_cost, want.total_cost)
+
+
 def test_lap_auction_regimes_meet_at_the_split(cuda):
     """Both sides of the warp/cluster split (m = 32 | 33), square and
     rectangular, in one batch each."""
@@ -438,6 +498,25 @@ def test_sdpa_defaults_to_the_flash_kernel_on_cuda(cuda, monkeypatch):
     einsum = sdpa(q, k, v, causal=True)
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(flash.float(), einsum.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("d", [80, 192])
+def test_sdpa_at_a_head_dim_without_a_kernel_runs_the_einsum_path(cuda, monkeypatch, d):
+    """Unset, a causal sdpa at a head dim K6 has no instance for runs the
+    einsum path on the card and matches the CPU's (2e-5, f32);
+    ``REPRO_USE_FLASH=1`` asks for the kernel there and raises."""
+    from repro_torch.models.attention import sdpa
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    q, k, v = _attn_inputs(4, 1, 96, 4, 2, d, torch.float32)
+    want = sdpa(q, k, v, causal=True)
+    before = flash_attention.launches
+    got = sdpa(q.to(cuda), k.to(cuda), v.to(cuda), causal=True)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    monkeypatch.setenv("REPRO_USE_FLASH", "1")
+    with pytest.raises(ValueError, match=f"head dim {d}"):
+        sdpa(q.to(cuda), k.to(cuda), v.to(cuda), causal=True)
 
 
 def _decode_inputs(seed, b, h, kv, s, d, dtype):

@@ -35,7 +35,7 @@ from repro.models import layers as jax_layers
 from repro.models import mlp as jax_mlp
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced, list_archs
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.models import attention, get_model, layers, mlp
 from repro_torch.models.convert import params_from_jax, tensor_from_numpy
@@ -86,6 +86,12 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "for m in ('workloads.' + w for w in ('schema', 'generators', 'failures', 'loaders',\n"
+        "                                     'scenarios')):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
+        "for m in ('common', 'evaluate', 'scalability'):\n"
+        "    assert 'repro_torch.benchmarks.' + m in sys.modules, m\n"
+        "assert 'benchmarks' not in sys.modules\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
@@ -228,12 +234,42 @@ def test_flash_branch_matches_jax_flash_branch(flash_env, s):
 
 def test_flash_default_follows_the_device(monkeypatch):
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
-    assert attention.use_flash(torch.device("cuda")) is True
-    assert attention.use_flash(torch.device("cpu")) is False
+    assert attention.use_flash(torch.device("cuda"), 128) is True
+    assert attention.use_flash(torch.device("cpu"), 128) is False
     monkeypatch.setenv("REPRO_USE_FLASH", "0")
-    assert attention.use_flash(torch.device("cuda")) is False
+    assert attention.use_flash(torch.device("cuda"), 128) is False
     monkeypatch.setenv("REPRO_USE_FLASH", "1")
-    assert attention.use_flash(torch.device("cpu")) is True
+    assert attention.use_flash(torch.device("cpu"), 128) is True
+
+
+@pytest.mark.parametrize("d,kernel", [(64, True), (128, True), (80, False), (192, False)])
+def test_flash_branch_routes_by_head_dim(monkeypatch, d, kernel):
+    """Unset, CUDA tensors take the kernel only at a head dim it has an
+    instance for; every other head dim takes the einsum path, as the
+    reference's default does.  ``REPRO_USE_FLASH=1`` asks for the kernel at
+    any head dim (on the card an unsupported one raises there), and the CPU
+    never takes the kernel unasked."""
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    assert attention.use_flash(torch.device("cuda"), d) is kernel
+    assert attention.use_flash(torch.device("cpu"), d) is False
+    assert (d in HEAD_DIMS) is kernel
+    monkeypatch.setenv("REPRO_USE_FLASH", "1")
+    assert attention.use_flash(torch.device("cuda"), d) is True
+    monkeypatch.setenv("REPRO_USE_FLASH", "0")
+    assert attention.use_flash(torch.device("cuda"), d) is False
+
+
+@pytest.mark.parametrize("d", [80, 192])
+def test_sdpa_at_a_head_dim_without_a_kernel_is_the_reference_einsum(monkeypatch, d):
+    """zamba2's 80 and nemotron-4's 192: unset, the port's sdpa is the
+    reference's default einsum path (2e-5, f32)."""
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    q, k, v = _qkv(d, 1, 48, 48, 4, 2, d)
+    want = jax_attn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    before = flash_attention.launches
+    got = attention.sdpa(_t(q), _t(k), _t(v), causal=True)
+    assert flash_attention.launches == before
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
 # --------------------------------------------------------------------------- #
