@@ -12,7 +12,9 @@ user calls — ``TesseraeScheduler.decide`` and ``Simulator.run`` with
 stage (``fused_fanout=True``) — serves Llama-3-8B at full width and
 depth (``transformer.forward`` prefill, ``greedy_generate``), runs the
 paper's evaluation harness (``repro_torch.benchmarks.evaluate`` and
-``.scalability``), and checks what comes out:
+``.scalability``), trains Llama-3-8B at full width (``make_train_step``,
+``save_checkpoint``/``restore_checkpoint``, ``train_loop``), and checks what
+comes out:
 
 1. environment: the card, torch/CUDA versions, the kernels' build time;
    what ``ptxas`` gave each attention kernel instance (registers, static
@@ -91,7 +93,25 @@ paper's evaluation harness (``repro_torch.benchmarks.evaluate`` and
    beside the paper's 1.6 s, not gated) and Part 2 (256 to 2048 GPUs, scipy
    and ``auction_kernel``): every plan feasible, every migrate step not
    solved by scipy at scipy's optimal cost.  Counters zeroed before (g) and
-   before (h) and read after each.
+   before (h) and read after each;
+7. training ``llama3-8b`` at full width, 4 of its 32 layers (bf16 params,
+   f32 AdamW moments, remat "nothing"; B 4 x S 2048; random weights from a
+   seeded ``torch.Generator`` on the card, data from ``batch_for``) through
+   ``make_train_step``: (a) one step at microbatches 1 and one at 2 from the
+   same state — finite loss, grad norms within 1e-2, every leaf a nonzero
+   gradient (each layer's wq/wk/wv: attention under autograd takes the
+   einsum path, ROADMAP D8), every parameter moved, ``REPRO_USE_FLASH=1``
+   raising under grad; (b) 1 warm and 5 timed steps: step ms, tokens/s,
+   ``train_mfu`` (6·N·T over the step and 989 TFLOP/s), peak memory, and a
+   profiler window over one step (busy share, kernels by name and kind);
+   (c) the migration path: ``save_checkpoint`` into a temporary directory
+   (removed afterwards), ``restore_checkpoint`` into a fresh state (bitwise
+   equal), the first step after it (loss within 1e-6 of the uninterrupted
+   run's), bytes, seconds and GB/s beside the simulator's
+   ``MIGRATION_OVERHEAD_S``; (d) ``train_loop`` on the reduced config in f32
+   on the card and on the host's CPU (losses within 1e-5, params within
+   1e-5 relative L2).  Counters zeroed before and read after: the training
+   path launches no kernel.
 
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's ``name, power.limit`` and ``{"ok": true, "device": ...}``.
@@ -138,6 +158,12 @@ FULL = dict(
     wide_square=True,
     evaluate=dict(twins=("poisson-steady", "philly-failures")),
     scalability=dict(job_counts=[128, 512, 1024, 2048], clusters=[(64, 4), (256, 4), (512, 4)]),
+    # phase 7: training llama3-8b at full width, 4 of its 32 layers (bf16
+    # params, f32 moments: 12 bytes a parameter with the grads, ~96 GB at
+    # full depth), B 4 x S 2048; then 3 f32 steps of train_loop on the
+    # reduced config, card against host
+    train=dict(arch="llama3-8b", reduced=False, layers=4, batch=4, seq=2048, timed_steps=5,
+               f32=dict(steps=3, batch=2, seq=64)),
 )
 
 #: the CPU rehearsal's phase 6: four arms of the record, a 64-GPU Part 2
@@ -150,6 +176,11 @@ SERVE_REHEARSAL = dict(
     arch="llama3-8b", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64,
     k6_shapes=[(1, 64, 4, 2, 64)], k7_shapes=[(2, 64, 4, 2, 64, 15)],
 )
+
+
+#: the CPU rehearsal's phase 7 (reduced llama3-8b)
+TRAIN_REHEARSAL = dict(arch="llama3-8b", reduced=True, layers=None, batch=2, seq=64, timed_steps=2,
+                       f32=dict(steps=3, batch=2, seq=32))
 
 
 class SmokeFailure(RuntimeError):
@@ -974,6 +1005,295 @@ def serve_phase(device, scale):
 
 
 # --------------------------------------------------------------------------- #
+# phase 7: training llama3-8b
+# --------------------------------------------------------------------------- #
+def _kernel_groups(top):
+    """Device time of a profile's kernels by kind (GEMM, copy, softmax,
+    reductions, elementwise, other) — the names are cuBLAS's and PyTorch's."""
+    groups = {}
+    for k in top:
+        name = k["name"].lower()
+        kind = ("gemm" if any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90_"))
+                else "copy" if "memcpy" in name
+                else "softmax" if "softmax" in name
+                else "reduce" if "reduce" in name
+                else "elementwise" if any(w in name for w in ("elementwise", "vectorized", "unrolled"))
+                else "other")
+        groups[kind] = groups.get(kind, 0.0) + k["ms"]
+    return groups
+
+
+def train_phase(device, scale):
+    """Train ``llama3-8b`` (bf16 params, f32 AdamW moments, remat "nothing")
+    through ``make_train_step`` on random weights from a seeded
+    ``torch.Generator`` on the card and data from ``batch_for(seed=0,
+    step=i)``: (a) one step with microbatches 1 and one with microbatches 2
+    from the same state (finite loss, grad norms within 1e-2 relative, every
+    leaf a nonzero gradient — each layer's wq/wk/wv included — read from the
+    first moment, every parameter moved, no flash launch, and
+    ``REPRO_USE_FLASH=1`` raising under grad); (b) 1 warm and ``timed_steps``
+    timed steps: step ms, tokens/s, ``train_mfu`` (6·N·T over the step time
+    and 989 TFLOP/s), peak memory, and two profiler windows of one step
+    each, the second reported (busy share, kernels by name and kind); (c) the
+    migration path: ``save_checkpoint`` into a temporary directory (removed
+    afterwards), ``restore_checkpoint`` into a fresh state (bitwise equal to
+    the saved one), the next step of the uninterrupted run and the first
+    step after the restore (losses within 1e-6 relative; whether they are
+    bitwise equal is printed), beside ``MIGRATION_OVERHEAD_S``; (d)
+    ``train_loop`` on the reduced config in f32 on the card and on the
+    host's CPU: losses within 1e-5 relative, and the params within 1e-5
+    relative L2 as a whole (each leaf's is printed)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.core.jobs import MIGRATION_OVERHEAD_S, migration_overhead_s
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.data import batch_for, to_device
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.step import TrainConfig, make_train_step, train_state_init
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = (get_reduced if scale["reduced"] else get_config)(scale["arch"])
+    full_layers = cfg.num_layers
+    if scale["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=scale["layers"])
+    b, s = scale["batch"], scale["seq"]
+    tokens = b * s
+    steps_total = 2 + 1 + scale["timed_steps"] + 2 + 2  # (a) + warm + timed + profiles + (c)
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=max(steps_total // 10, 1))
+    tc1, tc2 = TrainConfig(optimizer=opt), TrainConfig(optimizer=opt, microbatches=2)
+    step1, step2 = make_train_step(cfg, tc1), make_train_step(cfg, tc2)
+    out = dict(model=cfg.name, layers=cfg.num_layers, full_layers=full_layers,
+               reduced=f"{cfg.num_layers} of {full_layers} layers" if scale["layers"] else None,
+               d_model=cfg.d_model, dtype=cfg.dtype, batch=b, seq=s, tokens_per_step=tokens,
+               param_count=cfg.param_count(), lr=opt.learning_rate, warmup_steps=opt.warmup_steps)
+    batches = [to_device(batch_for(cfg.vocab_size, b, s, seed=0, step=i), device)
+               for i in range(steps_total)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    launches0 = fa.flash_attention.launches
+    saved_env = os.environ.pop("REPRO_USE_FLASH", None)
+
+    def init(seed):
+        state = train_state_init(torch.Generator(device=device).manual_seed(seed), cfg, tc1)
+        sync()
+        return state
+
+    try:
+        # ---- (a) one step at microbatches 1 and 2 from the same state ----- #
+        state = init(0)
+        before = [p.clone() for p in tree_leaves(state["params"])]
+        matmul = sum(p.numel() for path, p in _leaf_paths(state["params"])
+                     if p.dim() >= 2 and path != "embed")
+        out["matmul_params"] = matmul
+        out["state_gb"] = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
+        t0 = time.perf_counter()
+        state, m1 = step1(state, batches[0])
+        sync()
+        out["first_step_s"] = time.perf_counter() - t0
+        gn1, loss1 = float(m1["grad_norm"]), float(m1["loss"])
+        check(np.isfinite(loss1) and np.isfinite(gn1) and gn1 > 0,
+              f"train (a): loss {loss1}, grad norm {gn1}")
+        # m = (1 - beta1) * clipped grad after one step from zero moments
+        no_grad = [path for path, m in _leaf_paths(state["opt"]["m"]) if not bool(m.abs().max() > 0)]
+        check(not no_grad, f"train (a): these leaves got no gradient: {no_grad}")
+        qkv = [[bool(layer["attn"][w].abs().max() > 0) for w in ("wq", "wk", "wv")]
+               for layer in state["opt"]["m"]["layers"]]
+        check(all(all(r) for r in qkv), f"train (a): wq/wk/wv gradients per layer {qkv}")
+        unmoved = [path for (path, p), p0 in zip(_leaf_paths(state["params"]), before)
+                   if torch.equal(p, p0)]
+        check(not unmoved, f"train (a): these parameters did not change: {unmoved}")
+        del state, before
+        state = init(0)
+        state, m2 = step2(state, batches[0])
+        sync()
+        gn2, loss2 = float(m2["grad_norm"]), float(m2["loss"])
+        check(abs(gn2 - gn1) <= 1e-2 * gn1, f"train (a): grad norm {gn1} (microbatches 1) vs {gn2} (2)")
+        out["a"] = dict(loss_mb1=loss1, loss_mb2=loss2, grad_norm_mb1=gn1, grad_norm_mb2=gn2,
+                        leaves_with_gradient=len(list(_leaf_paths(state["opt"]["m"]))),
+                        layers_with_qkv_gradient=len(qkv))
+        os.environ["REPRO_USE_FLASH"] = "1"
+        small = to_device(batch_for(cfg.vocab_size, 1, 128, seed=0, step=0), device)
+        try:
+            step1(state, small)
+            raised = None
+        except RuntimeError as exc:
+            raised = str(exc)
+        finally:
+            os.environ.pop("REPRO_USE_FLASH", None)
+        check(raised is not None and "no backward" in raised,
+              f"train (a): REPRO_USE_FLASH=1 under grad did not raise ({raised})")
+        out["a"]["flash_forced_raises"] = raised
+
+        # ---- (b) timed steps ----------------------------------------------- #
+        state, _ = step1(state, batches[1])  # warm
+        sync()
+        t0 = time.perf_counter()
+        for i in range(scale["timed_steps"]):
+            state, metrics = step1(state, batches[2 + i])
+        sync()
+        step_s = (time.perf_counter() - t0) / scale["timed_steps"]
+        check(np.isfinite(float(metrics["loss"])), "train (b): the loss is not finite")
+        gemm_flop = 6 * matmul * tokens
+        remat_flop = 2 * (matmul - cfg.d_model * cfg.vocab_size) * tokens
+        attn_fwd = 4 * b * cfg.num_heads * s * s * cfg.head_dim * cfg.num_layers
+        bound = dict(gemm_ms=(gemm_flop + remat_flop) / PEAK_BF16_OPS_PER_S * 1e3,
+                     attention_f32_ms=4 * attn_fwd / PEAK_F32_OPS_PER_S * 1e3)
+        out["b"] = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                        train_mfu=gemm_flop / step_s / PEAK_BF16_OPS_PER_S,
+                        model_flop=gemm_flop, remat_flop=remat_flop, attention_flop=4 * attn_fwd,
+                        bound=bound, loss=float(metrics["loss"]))
+        # two windows of one step each; the second is reported (a window can
+        # pay the tracer's start-up in its host wall time)
+        k = 2 + scale["timed_steps"]
+        box, windows = {}, []
+        for i in (k, k + 1):
+            def profiled(batch=batches[i]):
+                box["state"], _ = step1(state, batch)
+
+            windows.append(profile_window(profiled, device, top=10**6))
+            state = box.pop("state")
+        prof = windows[-1]
+        if "top" in prof:
+            prof["by_kind_ms"] = _kernel_groups(prof["top"])
+            prof["top"] = prof["top"][:12]
+        out["b"]["profile_step"] = prof
+        out["b"]["profile_first_window_wall_ms"] = windows[0].get("wall_ms")
+        k += 1
+        if cuda:
+            out["b"]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        # ---- (c) the migration path: save, restore, the first step --------- #
+        at = k + 1  # the state has taken this many steps
+        tmp = tempfile.mkdtemp(prefix="repro_ckpt_")
+        try:
+            free = shutil.disk_usage(tmp).free
+            want_bytes = sum(t.numel() * (4 if t.dtype == torch.bfloat16 else t.element_size())
+                             for t in tree_leaves(state))
+            log(f"[train] checkpoint into {tmp}: {free / 1e9:.1f} GB free, ~{want_bytes / 1e9:.2f} GB to write")
+            check(free > 1.1 * want_bytes, f"train (c): {free} bytes free for a {want_bytes}-byte checkpoint")
+            path = os.path.join(tmp, "ckpt.npz")
+            sync()
+            t0 = time.perf_counter()
+            save_checkpoint(path, state, step=at, metadata={"arch": cfg.name})
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fd = os.open(path, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+            fsync_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(path)
+            fresh = init(1)
+            t0 = time.perf_counter()
+            fresh, got_at = restore_checkpoint(path, fresh)
+            sync()
+            restore_s = time.perf_counter() - t0
+            check(got_at == at, f"train (c): restored step {got_at}, saved {at}")
+            differ = [p for (p, x), (_, y) in zip(_leaf_paths(fresh), _leaf_paths(state))
+                      if x.dtype != y.dtype or not torch.equal(x, y)]
+            check(not differ, f"train (c): restored leaves differ from the saved state: {differ}")
+            nxt = batches[at]
+            state, m_go = step1(state, nxt)  # the uninterrupted run's next step
+            loss_go = float(m_go["loss"])
+            del state
+            if cuda:
+                torch.cuda.empty_cache()
+            sync()
+            t0 = time.perf_counter()
+            fresh, m_back = step1(fresh, nxt)
+            loss_back = float(m_back["loss"])
+            first_s = time.perf_counter() - t0
+            check(abs(loss_back - loss_go) <= 1e-6 * abs(loss_go),
+                  f"train (c): the first step after the restore has loss {loss_back}, "
+                  f"the uninterrupted run {loss_go}")
+            total = save_s + restore_s + first_s
+            out["c"] = dict(bytes=nbytes, save_s=save_s, save_gb_per_s=nbytes / save_s / 1e9,
+                            fsync_s=fsync_s, restore_s=restore_s,
+                            restore_gb_per_s=nbytes / restore_s / 1e9, first_step_s=first_s,
+                            save_restore_first_step_s=total, loss_uninterrupted=loss_go,
+                            loss_after_restore=loss_back, bitwise_loss=loss_back == loss_go,
+                            free_gb=free / 1e9, simulator_overhead_s=dict(
+                                MIGRATION_OVERHEAD_S, default=migration_overhead_s(cfg.name)))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del fresh
+        if cuda:
+            torch.cuda.empty_cache()
+        check(fa.flash_attention.launches == launches0,
+              f"train: the training path launched flash_attention "
+              f"{fa.flash_attention.launches - launches0} times")
+
+        # ---- (d) f32 train_loop, card against host ------------------------- #
+        f = scale["f32"]
+        cfg32 = dataclasses.replace(get_reduced(scale["arch"]), dtype="float32")
+        runs = {}
+        for where in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            st, losses = train_loop(cfg32, steps=f["steps"], batch_size=f["batch"], seq_len=f["seq"],
+                                    log_every=10**9, device=where)
+            runs[where.type] = (st, losses, time.perf_counter() - t0)
+        (sd, ld, td), (sh, lh, th) = runs[device.type], runs["cpu"]
+        loss_err = max(abs(a - c) / abs(c) for a, c in zip(ld, lh))
+        leaf_err = {p: _rel_l2(x.cpu(), y) for (p, x), (_, y) in zip(_leaf_paths(sd["params"]),
+                                                                     _leaf_paths(sh["params"]))}
+        diff2 = sum(float((x.cpu().double() - y.double()).pow(2).sum())
+                    for x, y in zip(tree_leaves(sd["params"]), tree_leaves(sh["params"])))
+        norm2 = sum(float(y.double().pow(2).sum()) for y in tree_leaves(sh["params"]))
+        tree_err = (diff2 / norm2) ** 0.5
+        check(loss_err <= 1e-5, f"train (d): f32 losses {ld} on {device} vs {lh} on the host")
+        check(tree_err <= 1e-5, f"train (d): f32 params {tree_err} apart (relative L2)")
+        worst = max(leaf_err, key=leaf_err.get)
+        out["d"] = dict(model=cfg32.name, steps=f["steps"], losses_device=ld, losses_host=lh,
+                        loss_max_rel_err=loss_err, params_rel_l2=tree_err, worst_leaf=worst,
+                        worst_leaf_rel_l2=leaf_err[worst], device_s=td, host_s=th)
+    finally:
+        if saved_env is not None:
+            os.environ["REPRO_USE_FLASH"] = saved_env
+    if cuda:
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    bb, c, d = out["b"], out["c"], out["d"]
+    log(f"[train] {cfg.name} {out['reduced'] or 'full depth'}, B {b} x S {s}: step "
+        f"{bb['step_ms']:.1f} ms, {bb['tokens_per_s']:.0f} tokens/s, train_mfu "
+        f"{bb['train_mfu']:.4f}, peak {out.get('peak_memory_gb', 0):.1f} GB; checkpoint "
+        f"{c['bytes'] / 1e9:.2f} GB: save {c['save_s']:.2f} s ({c['save_gb_per_s']:.2f} GB/s), "
+        f"restore {c['restore_s']:.2f} s ({c['restore_gb_per_s']:.2f} GB/s), first step "
+        f"{c['first_step_s']:.3f} s; f32 {device.type} vs host: losses {d['loss_max_rel_err']:.3g}, "
+        f"params {d['params_rel_l2']:.3g} (worst leaf {d['worst_leaf']} {d['worst_leaf_rel_l2']:.3g})")
+    log("[train] " + json.dumps(out))
+    return out
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from _leaf_paths(t, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _rel_l2(got, want):
+    scale = float(want.double().norm())
+    return float((got.double() - want.double()).norm()) / (scale if scale > 0 else 1.0)
+
+
+# --------------------------------------------------------------------------- #
 # phase 3 / 4: the main path
 # --------------------------------------------------------------------------- #
 class Recorder:
@@ -1757,8 +2077,18 @@ def run(device, scale):
     if device.type == "cuda":
         check(scal_launches["lap_auction"] > 0, "(h) never launched lap_auction")
         check(scal_launches["migration_cost"] > 0, "(h) never launched migration_cost")
+
+    # ---- phase 7: training llama3-8b --------------------------------------- #
+    zero_counts()
+    t0 = time.perf_counter()
+    train_phase(device, scale.get("train", TRAIN_REHEARSAL))
+    train_launches = read_counts()
+    log(f"[train path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(train_launches)}")
+    check(not any(train_launches.values()), f"the training path launched a kernel: {train_launches}")
+
     by_path = {name: {"round": launches[name], "fused": fused_launches[name],
-                      "evaluate": eval_launches[name], "scalability": scal_launches[name]}
+                      "evaluate": eval_launches[name], "scalability": scal_launches[name],
+                      "train": train_launches[name]}
                for name in ("lap_auction", "migration_cost", "lap_bid_batched",
                             "lap_bid_fused_batched")}
 
@@ -1806,7 +2136,8 @@ def run(device, scale):
         row = rows[0]  # the serving path's shape
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=serve_launches[name], launches_by_path={"serve": serve_launches[name]},
+            launches=serve_launches[name],
+            launches_by_path={"serve": serve_launches[name], "train": train_launches[name]},
             max_abs_err=row["max_abs_err"], rel_err=row["rel_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"], share_of_bound=row["share_of_bound"],

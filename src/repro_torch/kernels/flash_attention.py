@@ -156,8 +156,16 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """(B, S, H, D) attention output, contiguous.  CUDA tensors launch the
     kernel (bf16 or f32, D in ``HEAD_DIMS``; counted in
     ``flash_attention.launches``); CPU tensors take
-    :func:`flash_attention_plain`.  Any other device raises."""
+    :func:`flash_attention_plain`.  Any other device raises, and so does a
+    call that autograd records: the kernel has no backward, and its output
+    would cut the gradient to q/k/v without a word."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward (nor has the reference's Pallas "
+            "kernel), so it cannot run under autograd; unset REPRO_USE_FLASH to train on "
+            "the einsum path"
+        )
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal)

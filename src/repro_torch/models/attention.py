@@ -10,10 +10,17 @@ reference: the flash kernel (``kernels/flash_attention.py``) for a causal
 self-attention over the whole sequence, and an einsum path for everything
 else (decode against a cache, an offset query block).  ``REPRO_USE_FLASH=1``
 forces the flash branch where it applies and ``=0`` forces the einsum path;
-unset, the kernel runs exactly when the tensors are on CUDA and the head
-dim has a kernel instance (``flash_attention.HEAD_DIMS``); every other case
-takes the einsum path, the reference's default for every head dim (ROADMAP
-D6).  An explicit ``=1`` with a head dim the kernel lacks raises there.
+unset, the kernel runs exactly when the tensors are on CUDA, the head dim
+has a kernel instance (``flash_attention.HEAD_DIMS``) and autograd is not
+recording through q/k/v; every other case takes the einsum path, the
+reference's default for every head dim (ROADMAP D6, D8).  An explicit
+``=1`` raises where the kernel cannot serve: at a head dim it lacks, and
+under autograd, since the kernel has no backward (the reference's
+``jax.grad`` through its Pallas kernel fails too).  The reference's two
+knobs of the einsum path follow the flash branch as there:
+``REPRO_ABLATE_ATTN=1`` (a shape-preserving stand-in for profiling) and
+``REPRO_ATTN_DTYPE=bf16`` (probabilities and V in bf16 for the last
+product).
 The flash branch routes query head ``h`` to KV head ``h // (H/KV)`` inside
 the kernel instead of repeating the KV heads, and reads q/k/v in their
 (B, S, heads, D) layout by strides, so the three transposes of the
@@ -33,16 +40,18 @@ from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_n
 NEG_INF = -1e30
 
 
-def use_flash(device: torch.device, head_dim: int) -> bool:
+def use_flash(device: torch.device, head_dim: int, grad: bool = False) -> bool:
     """The flash branch: ``REPRO_USE_FLASH`` when set ("1" on, "0" off),
-    else on exactly when the tensors are on CUDA and the kernel has an
-    instance for ``head_dim``."""
+    else on exactly when the tensors are on CUDA, the kernel has an
+    instance for ``head_dim`` and ``grad`` (autograd records through the
+    inputs) is False: the kernel has no backward, so training takes the
+    einsum path, the reference's only trainable one (ROADMAP D8)."""
     env = os.environ.get("REPRO_USE_FLASH")
     if env is not None:
         return env == "1"
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
-    return device.type == "cuda" and head_dim in HEAD_DIMS
+    return device.type == "cuda" and head_dim in HEAD_DIMS and not grad
 
 
 # --------------------------------------------------------------------------- #
@@ -77,15 +86,24 @@ def sdpa(
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
 
-    if use_flash(q.device, d) and causal and s == t and q_offset is None and kv_valid_len is None:
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if causal and s == t and q_offset is None and kv_valid_len is None and use_flash(q.device, d, grad):
         from repro_torch.kernels import flash_attention
 
         return flash_attention.flash_attention(q, k, v, causal=True)
 
+    if os.environ.get("REPRO_ABLATE_ATTN") == "1":
+        # profiling bisection knob: shape-preserving stand-in for SDPA
+        return torch.repeat_interleave(v.mean(dim=1, keepdim=True), g, dim=2).to(q.dtype) + 0 * q
+
     qg = q.reshape(b, s, kvh, g, d)
     scale = 1.0 / (d**0.5)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    logits.mul_(scale)  # (B, KV, G, S, T); in place: at S = T = 8192 it is 8.6 GB
+    # (B, KV, G, S, T).  In place: at S = T = 8192 it is 8.6 GB.  Autograd
+    # allows it: the einsum's backward reads its inputs, not this output, and
+    # neither the scaling's nor the mask's backward reads a value; the
+    # softmax saves its own output.
+    logits.mul_(scale)
 
     if causal or kv_valid_len is not None:
         rows = torch.arange(s, device=q.device)[:, None]
@@ -99,7 +117,12 @@ def sdpa(
 
     probs = torch.softmax(logits, dim=-1)
     del logits
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    # Perf knob of the reference: the probs tensor is the largest buffer of
+    # this path, and bf16 halves its traffic (the softmax stays f32).
+    if os.environ.get("REPRO_ATTN_DTYPE", "f32") == "bf16":
+        out = torch.einsum("bkgst,btkd->bskgd", probs.to(torch.bfloat16), v.to(torch.bfloat16))
+    else:
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     # v's head dim may differ from q/k's (MLA: qk 192, v 128)
     return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 

@@ -4,6 +4,8 @@
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the port's params dict: the same nested keys and layouts, with the leading
 L axis of ``tree["layers"]`` un-stacked into a list of per-layer dicts.
+``train_state_from_jax(tree, cfg, device)`` does the same for a training
+state ``{"params", "opt": {"m", "v", "step"}}``.
 """
 
 from __future__ import annotations
@@ -40,3 +42,17 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device) -> Dict:
         for i in range(cfg.num_layers)
     ]
     return out
+
+
+def train_state_from_jax(tree: Dict, cfg: ModelConfig, device) -> Dict:
+    """The JAX package's train state (leaves as numpy arrays) as the port's:
+    params and both moments un-stacked, ``step`` a 0-d int32 tensor."""
+    opt = tree["opt"]
+    return {
+        "params": params_from_jax(tree["params"], cfg, device),
+        "opt": {
+            "m": params_from_jax(opt["m"], cfg, device),
+            "v": params_from_jax(opt["v"], cfg, device),
+            "step": tensor_from_numpy(np.asarray(opt["step"], np.int32), device),
+        },
+    }

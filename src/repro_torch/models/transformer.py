@@ -5,8 +5,11 @@ PyTorch counterpart of the dense path of the JAX package's
 ``models/transformer.py``.  Params are plain nested dicts of tensors in the
 reference's layouts, with one difference: ``params["layers"]`` is a Python
 list of per-layer dicts (the reference stacks them on a leading L axis for
-``lax.scan``), looped over in Python.  Scan and remat have nothing to do on
-a forward-only path.  Caches are ``{"layers": [per-layer cache]}``.
+``lax.scan``), looped over in Python.  While autograd records (training),
+each layer runs under the remat policy of ``models/scan_util.py``, as the
+reference's scanned body runs under ``jax.checkpoint``; a forward-only
+(serving) pass runs the layers as they are.  Caches are
+``{"layers": [per-layer cache]}``.
 
 Batch dict keys:
   tokens            (B, S) int                — always
@@ -28,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.layers import dtype_of, embed_init, dense_init, rms_norm
+from repro_torch.models.scan_util import remat
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -106,8 +110,26 @@ def forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor
     _require_dense(cfg)
     x, positions, mrope_positions = embed_inputs(params, cfg, batch)
     for layer_p in params["layers"]:
-        x = _attn_layer(layer_p, cfg, x, positions, mrope_positions)
+        if _records(x, layer_p):
+            x = remat(_attn_layer, layer_p, cfg, x, positions, mrope_positions)
+        else:
+            x = _attn_layer(layer_p, cfg, x, positions, mrope_positions)
     return _head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _records(x, layer_p) -> bool:
+    """Whether autograd records this layer: grad mode is on and its input
+    or one of its parameters requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = [x, layer_p]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif torch.is_tensor(t) and t.requires_grad:
+            return True
+    return False
 
 
 # --------------------------------------------------------------------------- #

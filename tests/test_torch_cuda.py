@@ -696,3 +696,111 @@ def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
     k2[:, n:] = 1e4
     v2[:, n:] = -1e4
     torch.testing.assert_close(fd._launch(q, k2, v2, n, plan), got, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# training on the card: the einsum path under autograd (ROADMAP D8)
+# --------------------------------------------------------------------------- #
+def _train_step_on(device, cfg, microbatches=1):
+    from repro_torch.train.data import batch_for, to_device
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.step import TrainConfig, make_train_step, train_state_init
+
+    tc = TrainConfig(microbatches=microbatches)
+    state = tree_map(lambda t: t.to(device),
+                     train_state_init(torch.Generator().manual_seed(0), cfg, tc))
+    batch = batch_for(cfg.vocab_size, 2, 64, seed=0, step=0, frontend=cfg.frontend,
+                      frontend_len=cfg.frontend_len, d_model=cfg.d_model)
+    return make_train_step(cfg, tc)(state, to_device(batch, device))
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from _paths(t, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_on_card_equals_cpu_in_f32(cuda, monkeypatch, microbatches):
+    """One reduced-config f32 step on the card: the metrics, the moments
+    (the gradients) and the params within 1e-5 relative L2 of the CPU's
+    (params over the elements where Adam's step is well conditioned,
+    |g| >= 100 eps, and within a quarter step elsewhere, as
+    ``test_torch_train.py`` holds the CPU to the JAX package); no flash
+    launch (unset, attention under autograd takes the einsum path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    cfg = dataclasses.replace(get_reduced("llama3-8b"), dtype="float32")
+    before = flash_attention.launches
+    card, mc = _train_step_on(cuda, cfg, microbatches)
+    assert flash_attention.launches == before
+    host, mh = _train_step_on("cpu", cfg, microbatches)
+    for k in ("loss", "nll", "z_loss", "grad_norm"):
+        assert abs(float(mc[k]) - float(mh[k])) <= 1e-5 * abs(float(mh[k])), k
+    def rel(g, w):
+        scale = float(w.norm())
+        return float((g - w).norm()) / (scale if scale > 0 else 1.0)
+
+    for (path, g), (_, w) in zip(_paths(card["opt"]), _paths(host["opt"]), strict=True):
+        assert rel(g.cpu().float(), w.float()) <= 1e-5, path
+    lr = 3e-4 / 100  # the default schedule's first step
+    for (path, g), (_, w), (_, m) in zip(_paths(card["params"]), _paths(host["params"]),
+                                         _paths(host["opt"]["m"]), strict=True):
+        g, w = g.cpu().float(), w.float()
+        ill = m.float().abs() / 0.1 < 100 * 1e-8
+        assert rel(g[~ill], w[~ill]) <= 1e-5, path
+        assert not ill.any() or float(((g - w).abs() - 1e-5 * w.abs())[ill].max()) <= lr / 4, path
+
+
+def test_train_step_on_card_gives_wq_wk_wv_a_gradient(cuda, monkeypatch):
+    """R1 on the card: under the default routing every layer's wq/wk/wv
+    gets a nonzero gradient (read from the first moment after one step from
+    zero, m = (1 - beta1) * clipped grad), in the model's bf16."""
+    from repro_torch.configs import get_reduced
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    state, _ = _train_step_on(cuda, get_reduced("llama3-8b"))
+    for path, m in _paths(state["opt"]["m"]):
+        assert m.abs().max() > 0, path
+    for layer in state["opt"]["m"]["layers"]:
+        for name in ("wq", "wk", "wv"):
+            assert layer["attn"][name].abs().max() > 0, name
+
+
+def test_flash_forced_under_grad_raises_on_card(cuda, monkeypatch):
+    from repro_torch.models.attention import sdpa
+
+    monkeypatch.setenv("REPRO_USE_FLASH", "1")
+    q, k, v = (t.to(cuda) for t in _attn_inputs(5, 1, 96, 4, 2, 64, torch.bfloat16))
+    before = flash_attention.launches
+    sdpa(q, k, v, causal=True)  # nothing records: the kernel
+    assert flash_attention.launches == before + 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        sdpa(q.requires_grad_(), k, v, causal=True)
+    assert flash_attention.launches == before + 1
+
+
+def test_checkpoint_round_trip_from_card_tensors(cuda, tmp_path):
+    """A state on the card saved and restored into a fresh state on the
+    card: bitwise equal, every leaf back on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.step import TrainConfig, train_state_init
+
+    cfg = get_reduced("llama3-8b")
+    state, _ = _train_step_on(cuda, cfg)
+    path = str(tmp_path / "card.npz")
+    save_checkpoint(path, state, step=1)
+    fresh = train_state_init(torch.Generator(device=cuda).manual_seed(9), cfg, TrainConfig())
+    restored, at = restore_checkpoint(path, fresh)
+    assert at == 1
+    for (path_, g), (_, w) in zip(_paths(restored), _paths(state), strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w), path_

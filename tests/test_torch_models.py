@@ -91,6 +91,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "for m in ('common', 'evaluate', 'scalability'):\n"
         "    assert 'repro_torch.benchmarks.' + m in sys.modules, m\n"
+        "for m in ('train.optimizer', 'train.data', 'train.step', 'train.checkpoint',\n"
+        "          'models.scan_util', 'launch.train'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert 'benchmarks' not in sys.modules\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
