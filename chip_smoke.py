@@ -22,7 +22,18 @@ comes out:
    SASS of the bf16 ``flash_attention`` instances (``cuobjdump -sass``),
    which must not be zero;
 2. kernels vs their plain versions at the main path's shapes (exact,
-   ``lap_bid_fused_batched`` bit for bit also on non-integer costs;
+   ``lap_bid_fused_batched`` bit for bit also on non-integer costs; the bid
+   kernels also at 1x4096x4096, more than the L2 holds, and
+   ``migration_cost`` also at 48x48, phase 6 (g)'s cluster, with the time
+   to read its 2048x2048 result back to the host; beside ``lap_bid_batched``
+   a PyTorch row max over the same matrix, the card's read rate for it;
+   the bid kernels and ``migration_cost`` timed as the replay cycles
+   through copies of their inputs larger than the L2 together
+   (``hbm_ms``), so their time is held to an HBM bound it can be compared
+   with, and also on one set of inputs as earlier runs timed them
+   (``l2_ms``); first a one-element ``zero_()`` in the same CUDA-graph
+   replay, printed as the launch floor beside the rows whose bound is far
+   below it;
    ``lap_auction``, the whole auction in one launch, bit for bit against
    the plain eager loop in every output — the 512x512 node match cold and
    warm, the 262,144 4x4 pair fan-out plain and fused, and after phase 3 the
@@ -109,8 +120,10 @@ comes out:
    equal), the first step after it (loss within 1e-6 of the uninterrupted
    run's), bytes, seconds and GB/s beside the simulator's
    ``MIGRATION_OVERHEAD_S``; (d) ``train_loop`` on the reduced config in f32
-   on the card and on the host's CPU (losses within 1e-5, params within
-   1e-5 relative L2).  Counters zeroed before and read after: the training
+   twice on the card and twice on the host's CPU on one thread (losses
+   within 1e-5, params within 1e-5 relative L2; whether each side repeats
+   itself bit for bit is printed, and how far a run on the host's thread
+   pool lands from the one-thread run).  Counters zeroed before and read after: the training
    path launches no kernel.
 
 Any failure exits non-zero.  The last three lines are the kernels JSON,
@@ -139,6 +152,8 @@ PEAK_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense (data sheet)
 FULL = dict(
     nodes=512, jobs_decide=512, jobs_sim=2048, sim_rounds=6, fanout=262144,
     fused_rounds=6, fused_shards=8,
+    # phase 2: K1/K3 on one wide square, 67 MB of f32 (more than the L2)
+    bid_wide=4096,
     # BENCH_fused_decide.json, record "fused_decide_scale" (counts, not times)
     fused_expect=dict(
         bid_iters=[4751608, 609, 308, 307, 609, 308],
@@ -255,10 +270,55 @@ def graph_ms(fn, device, reps=20, replays=5, warmup=3):
     return start.elapsed_time(end) / (reps * replays)
 
 
+#: the most input copies :func:`hbm_ms` cycles through
+HBM_MAX_SETS = 64
+
+
+def hbm_ms(fn, args, nbytes, device, reps=20):
+    """Device ms per call of ``fn(*args)`` with its operands read from HBM,
+    not the L2: the :func:`graph_ms` replay cycles through ``sets`` copies
+    of ``args`` and keeps every call's output, so the ``nbytes`` each call
+    moves add up to twice the L2 in one replay (at most
+    :data:`HBM_MAX_SETS` copies).  Returns ``(ms, sets, from_hbm)``;
+    ``from_hbm`` is false where even that fits in the L2 (the smallest
+    shapes, whose time is the launch's)."""
+    import itertools
+
+    import torch
+
+    if device.type != "cuda":  # CPU rehearsal only; never reported
+        return graph_ms(lambda: fn(*args), device, reps), 1, False
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    sets = max(1, min(HBM_MAX_SETS, -(-2 * l2 // nbytes)))
+    copies = [tuple(args)] + [tuple(t.clone() for t in args) for _ in range(sets - 1)]
+    turn, kept = itertools.count(), []
+    ms = graph_ms(lambda: kept.append(fn(*copies[next(turn) % sets])), device, max(reps, sets))
+    return ms, sets, sets * nbytes > l2
+
+
+def share_of_bound(bound, timing):
+    """``bound / ms`` for an :func:`hbm_ms` timing that streamed from HBM,
+    else None: a time taken from the L2 is not held to an HBM bound."""
+    ms, _, from_hbm = timing
+    return bound / ms if from_hbm else None
+
+
 def bound_ms(nbytes, ops, ops_rate):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def launch_floor_ms(device, reps=20):
+    """Device ms of a one-element ``zero_()`` in the same CUDA-graph replay
+    as the kernels: what any launch costs, a yardstick for the rows whose
+    bound is far below it (printed, never a kernel's number)."""
+    import torch
+
+    one = torch.zeros(1, device=device)
+    ms = graph_ms(lambda: one.zero_(), device, reps)
+    log(f"[kernel] launch floor (one-element zero_(), CUDA-graph replay): {ms:.6f} ms")
+    return ms
 
 
 # --------------------------------------------------------------------------- #
@@ -295,12 +355,22 @@ def compare_lap_bid(shape, device, gen, ties=False, reps=20):
     b, n, m = shape
     nbytes = 4 * b * n * m + 4 * b * m + 12 * b * n
     bnd, by = bound_ms(nbytes, 3 * b * n * m, PEAK_F32_OPS_PER_S)
+    timing = hbm_ms(lap_bid_batched, (a, p), nbytes, device, reps)
     row = dict(
         shape=list(shape),
         max_abs_err=err,
-        ms=graph_ms(lambda: lap_bid_batched(a, p), device, reps),
-        plain_ms=graph_ms(lambda: lap_bid_top2_plain(a, p), device, reps),
-        library_ms=graph_ms(lambda: torch.topk(a - p[:, None, :], 2, dim=-1), device, reps),
+        ms=timing[0],
+        hbm_sets=timing[1],
+        share_of_bound=share_of_bound(bnd, timing),
+        # one set of inputs replayed, L2-resident where it fits (how the
+        # kernel was timed before ``hbm_ms``)
+        l2_ms=graph_ms(lambda: lap_bid_batched(a, p), device, reps),
+        plain_ms=hbm_ms(lap_bid_top2_plain, (a, p), nbytes, device, reps)[0],
+        library_ms=hbm_ms(lambda x, q: torch.topk(x - q[:, None, :], 2, dim=-1), (a, p), nbytes,
+                          device, reps)[0],
+        # one read of the same matrix by PyTorch's row reduction: the read
+        # rate the card gives this layout (a yardstick, not the function)
+        row_max_ms=hbm_ms(lambda x: torch.amax(x, dim=-1), (a,), 4 * b * n * m, device, reps)[0],
         bound_ms=bnd,
         bound_by=by,
         eager_ms=timed(lambda: lap_bid_batched(a, p), device, reps),
@@ -354,12 +424,16 @@ def compare_lap_bid_fused(shape, device, gen, tb="zero", ties=False, non_integer
     vals = (tbv.view(b, 1, 1) * (gi * gi) * gj - cost) - p[:, None, :]
     nbytes = 4 * b * n * m + 4 * b * m + 4 * b + 12 * b * n
     bnd, by = bound_ms(nbytes, 5 * b * n * m, PEAK_F32_OPS_PER_S)
+    timing = hbm_ms(lap_bid_fused_batched, (cost, p, tbv), nbytes, device, reps)
     row = dict(
         shape=list(shape),
         max_abs_err=err,
-        ms=graph_ms(lambda: lap_bid_fused_batched(cost, p, tbv), device, reps),
-        plain_ms=graph_ms(lambda: lap_bid_fused_top2_plain(cost, p, tbv), device, reps),
-        library_ms=graph_ms(lambda: torch.topk(vals, 2, dim=-1), device, reps),
+        ms=timing[0],
+        hbm_sets=timing[1],
+        share_of_bound=share_of_bound(bnd, timing),
+        l2_ms=graph_ms(lambda: lap_bid_fused_batched(cost, p, tbv), device, reps),
+        plain_ms=hbm_ms(lap_bid_fused_top2_plain, (cost, p, tbv), nbytes, device, reps)[0],
+        library_ms=hbm_ms(lambda x: torch.topk(x, 2, dim=-1), (vals,), nbytes, device, reps)[0],
         library_note="torch.topk(vals, 2) of the pre-assembled benefit; assembly excluded",
         bound_ms=bnd,
         bound_by=by,
@@ -592,18 +666,24 @@ def compare_migration_cost(u, device, gen, reps=20):
           f"migration_cost {u}x{u}: differs from plain (bitwise)")
     nbytes = 8 * u * u + 2 * u * 2 * (4 + 8)
     bnd, by = bound_ms(nbytes, 3 * u * u, PEAK_F64_OPS_PER_S)
+    timing = hbm_ms(migration_cost, args, nbytes, device, reps)
     row = dict(
         shape=[u, u, 2],
         max_abs_err=float((got - want).abs().max()),
-        ms=graph_ms(lambda: migration_cost(*args), device, reps),
-        plain_ms=graph_ms(lambda: migration_cost_plain(*args), device, reps),
+        ms=timing[0],
+        hbm_sets=timing[1],
+        share_of_bound=share_of_bound(bnd, timing),
+        l2_ms=graph_ms(lambda: migration_cost(*args), device, reps),
+        plain_ms=hbm_ms(migration_cost_plain, args, nbytes, device, reps)[0],
         library_ms=None,
         bound_ms=bnd,
         bound_by=by,
         eager_ms=timed(lambda: migration_cost(*args), device, reps),
         readback_ms=timed(lambda: got.cpu(), device, 5, 1),
     )
-    log(f"[kernel] migration_cost {u}x{u}: bit-identical to plain; " + json.dumps(row))
+    log(f"[kernel] migration_cost {u}x{u}: bit-identical to plain; kernel {row['ms']:.6f} ms, "
+        f"then {row['readback_ms']:.6f} ms to read the {8 * u * u} bytes back to the host; "
+        + json.dumps(row))
     return row
 
 
@@ -1023,6 +1103,73 @@ def _kernel_groups(top):
     return groups
 
 
+def train_loop_check(device, arch, f):
+    """Phase 7 (d): ``train_loop`` on ``arch``'s reduced config in f32, ``f``
+    steps/batch/seq, twice on ``device`` and twice on the host's CPU on one
+    thread, then once on the host's thread pool.  The first run of the
+    device is held to the first of the host: losses within 1e-5 relative,
+    params within 1e-5 relative L2 as a whole.  Logged before the checks:
+    each leaf's error, each run's sum of squares, whether each side's second
+    run is bitwise equal to its first, the element that differs most
+    between the sides, and the pool run's distance from the one-thread run,
+    so a run that fails shows which side moved.  The reference runs on one
+    thread because a thread pool's sums need not take the same order from
+    one run to the next, and Adam's g / (|g| + eps) magnifies a rounding
+    change in a gradient near eps up to a step of lr."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg32 = dataclasses.replace(get_reduced(arch), dtype="float32")
+    cpu = torch.device("cpu")
+    runs = []  # the device's two runs, the host's two on one thread, the pool's
+    threads = torch.get_num_threads()
+    for where, one_thread in ((device, False), (device, False), (cpu, True), (cpu, True),
+                              (cpu, False)):
+        if one_thread:
+            torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        try:
+            st, losses = train_loop(cfg32, steps=f["steps"], batch_size=f["batch"],
+                                    seq_len=f["seq"], log_every=10**9, device=where)
+        finally:
+            torch.set_num_threads(threads)
+        params = [x.detach().cpu() for x in tree_leaves(st["params"])]
+        runs.append((params, losses, time.perf_counter() - t0))
+    (pd, ld, td), (pd2, _, _), (ph, lh, th), (ph2, _, _), (pool, _, _) = runs
+    paths = [p for p, _ in _leaf_paths(st["params"])]
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(ld, lh))
+    leaf_err = {p: _rel_l2(x, y) for p, x, y in zip(paths, pd, ph)}
+    diff2 = sum(float((x.double() - y.double()).pow(2).sum()) for x, y in zip(pd, ph))
+    norm2 = sum(float(y.double().pow(2).sum()) for y in ph)
+    tree_err = (diff2 / norm2) ** 0.5
+    worst = max(leaf_err, key=leaf_err.get)
+    gaps = [float((x.double() - y.double()).abs().max()) for x, y in zip(pd, ph)]
+    k = max(range(len(gaps)), key=gaps.__getitem__)
+    idx = int((pd[k].double() - ph[k].double()).abs().argmax())
+    out = dict(model=cfg32.name, steps=f["steps"], losses_device=ld,
+               losses_host=lh, loss_max_rel_err=loss_err, params_rel_l2=tree_err,
+               worst_leaf=worst, worst_leaf_rel_l2=leaf_err[worst], device_s=td, host_s=th,
+               params_sq_device=[sum(float(x.double().pow(2).sum()) for x in r[0])
+                                 for r in runs[:2]],
+               params_sq_host=[sum(float(x.double().pow(2).sum()) for x in r[0])
+                               for r in runs[2:]],
+               host_pool_threads=threads,
+               host_pool_rel_l2=(sum(float((x.double() - y.double()).pow(2).sum())
+                                     for x, y in zip(pool, ph)) / norm2) ** 0.5,
+               device_repeat_bitwise=all(torch.equal(x, y) for x, y in zip(pd, pd2)),
+               host_repeat_bitwise=all(torch.equal(x, y) for x, y in zip(ph, ph2)),
+               largest_gap=dict(leaf=paths[k], index=idx, device=float(pd[k].flatten()[idx]),
+                                host=float(ph[k].flatten()[idx])),
+               leaf_rel_l2=leaf_err)
+    log(f"[train] (d) f32 train_loop, {device} vs the host: " + json.dumps(out))
+    check(loss_err <= 1e-5, f"train (d): f32 losses {ld} on {device} vs {lh} on the host")
+    check(tree_err <= 1e-5, f"train (d): f32 params {tree_err} apart (relative L2)")
+    return out
+
+
 def train_phase(device, scale):
     """Train ``llama3-8b`` (bf16 params, f32 AdamW moments, remat "nothing")
     through ``make_train_step`` on random weights from a seeded
@@ -1040,9 +1187,7 @@ def train_phase(device, scale):
     the saved one), the next step of the uninterrupted run and the first
     step after the restore (losses within 1e-6 relative; whether they are
     bitwise equal is printed), beside ``MIGRATION_OVERHEAD_S``; (d)
-    ``train_loop`` on the reduced config in f32 on the card and on the
-    host's CPU: losses within 1e-5 relative, and the params within 1e-5
-    relative L2 as a whole (each leaf's is printed)."""
+    :func:`train_loop_check`, the f32 ``train_loop`` card against host."""
     import shutil
     import tempfile
 
@@ -1052,7 +1197,6 @@ def train_phase(device, scale):
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.core.jobs import MIGRATION_OVERHEAD_S, migration_overhead_s
-    from repro_torch.launch.train import train_loop
     from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.train.data import batch_for, to_device
     from repro_torch.train.optimizer import AdamWConfig, tree_leaves
@@ -1237,28 +1381,7 @@ def train_phase(device, scale):
               f"{fa.flash_attention.launches - launches0} times")
 
         # ---- (d) f32 train_loop, card against host ------------------------- #
-        f = scale["f32"]
-        cfg32 = dataclasses.replace(get_reduced(scale["arch"]), dtype="float32")
-        runs = {}
-        for where in (device, torch.device("cpu")):
-            t0 = time.perf_counter()
-            st, losses = train_loop(cfg32, steps=f["steps"], batch_size=f["batch"], seq_len=f["seq"],
-                                    log_every=10**9, device=where)
-            runs[where.type] = (st, losses, time.perf_counter() - t0)
-        (sd, ld, td), (sh, lh, th) = runs[device.type], runs["cpu"]
-        loss_err = max(abs(a - c) / abs(c) for a, c in zip(ld, lh))
-        leaf_err = {p: _rel_l2(x.cpu(), y) for (p, x), (_, y) in zip(_leaf_paths(sd["params"]),
-                                                                     _leaf_paths(sh["params"]))}
-        diff2 = sum(float((x.cpu().double() - y.double()).pow(2).sum())
-                    for x, y in zip(tree_leaves(sd["params"]), tree_leaves(sh["params"])))
-        norm2 = sum(float(y.double().pow(2).sum()) for y in tree_leaves(sh["params"]))
-        tree_err = (diff2 / norm2) ** 0.5
-        check(loss_err <= 1e-5, f"train (d): f32 losses {ld} on {device} vs {lh} on the host")
-        check(tree_err <= 1e-5, f"train (d): f32 params {tree_err} apart (relative L2)")
-        worst = max(leaf_err, key=leaf_err.get)
-        out["d"] = dict(model=cfg32.name, steps=f["steps"], losses_device=ld, losses_host=lh,
-                        loss_max_rel_err=loss_err, params_rel_l2=tree_err, worst_leaf=worst,
-                        worst_leaf_rel_l2=leaf_err[worst], device_s=td, host_s=th)
+        out["d"] = train_loop_check(device, scale["arch"], scale["f32"])
     finally:
         if saved_env is not None:
             os.environ["REPRO_USE_FLASH"] = saved_env
@@ -1942,6 +2065,7 @@ def run(device, scale):
 
     # ---- phase 2: kernels vs plain at the main path's shapes --------------- #
     kn = scale["nodes"]
+    floor_ms = launch_floor_ms(device)
     lap_rows = {
         "fanout": compare_lap_bid((scale["fanout"], 4, 4), device, gen),
         "node": compare_lap_bid((1, kn, kn), device, gen),
@@ -1958,6 +2082,13 @@ def run(device, scale):
             (4096, 4, 4), device, gen, tb="scale", non_integer=True, reps=5
         ),
     }
+    # rows added later draw from their own generator, so the rows above keep
+    # the inputs (and the auction rows the round counts) of earlier runs
+    gen_late = torch.Generator().manual_seed(18)
+    wide = scale.get("bid_wide", 64)
+    lap_rows["wide"] = compare_lap_bid((1, wide, wide), device, gen_late)
+    fused_rows["wide"] = compare_lap_bid_fused((1, wide, wide), device, gen_late, tb="zero")
+    mig_small = compare_migration_cost(48, device, gen_late)  # (g)'s 48 GPUs
     k6_rows = [compare_flash_attention(shape, device, seed=10 + i, long=i > 0)
                for i, shape in enumerate(serve["k6_shapes"])]
     k7_rows = [compare_flash_decode(shape, device, seed=20 + i)
@@ -2108,20 +2239,25 @@ def run(device, scale):
             "bound_ms", "bound_by", "one_cta_ms", "cost", "scipy_cost", "wall_ms")}
             for k, r in auction.items() if k != "node_cold"],
     )]
-    for name, row, source, replaces in (
-        ("lap_bid_batched", lap_rows["fanout"], "src/repro_torch/kernels/csrc/lap_bid.cu",
-         "src/repro/kernels/lap_bid.py:149"),
-        ("migration_cost", mig_row, "src/repro_torch/kernels/csrc/migration_cost.cu",
+    shape_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "library_ms",
+                  "row_max_ms", "max_abs_err", "l2_ms", "hbm_sets")
+    for name, rows, source, replaces in (
+        ("lap_bid_batched", [lap_rows[k] for k in ("fanout", "node", "wide")],
+         "src/repro_torch/kernels/csrc/lap_bid.cu", "src/repro/kernels/lap_bid.py:149"),
+        ("migration_cost", [mig_row, mig_small], "src/repro_torch/kernels/csrc/migration_cost.cu",
          "src/repro/kernels/migration_cost.py:51"),
-        ("lap_bid_fused_batched", fused_rows["fanout"], "src/repro_torch/kernels/csrc/lap_bid.cu",
-         "src/repro/kernels/lap_bid.py:343"),
+        ("lap_bid_fused_batched", [fused_rows[k] for k in ("fanout", "node", "wide")],
+         "src/repro_torch/kernels/csrc/lap_bid.cu", "src/repro/kernels/lap_bid.py:343"),
     ):
+        row = rows[0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path[name].values()), launches_by_path=by_path[name],
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=row["shape"],
+            library_ms=row["library_ms"], shape=row["shape"], share_of_bound=row["share_of_bound"],
+            l2_ms=row["l2_ms"], hbm_sets=row["hbm_sets"], launch_floor_ms=floor_ms,
+            other_shapes=[{key: r.get(key) for key in shape_keys} for r in rows[1:]],
         ))
     kernels[-1]["also_replaces"] = ["src/repro/kernels/lap_bid.py:283"]
     for k in kernels:  # the bid-only kernels: the loop that called them is lap_auction now

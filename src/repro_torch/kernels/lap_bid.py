@@ -19,12 +19,15 @@ it and how it is laid out); it replaces the Pallas kernels
 / ``lap_bid_fused_pallas_batched`` of the JAX package.  The wrappers
 :func:`lap_bid_batched` and :func:`lap_bid_fused_batched` launch it for CUDA
 tensors and take the plain versions :func:`lap_bid_top2_plain` /
-:func:`lap_bid_fused_top2_plain` only for CPU tensors.
+:func:`lap_bid_fused_top2_plain` only for CPU tensors.  How the kernel is
+launched is decided here, by :func:`launch_geometry` (which the CPU tests
+reach), and passed to the kernel's entry points.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -33,7 +36,62 @@ from repro_torch.kernels import build
 #: "no second column" value of the kernel (the Pallas kernel's NEG_INF).
 NEG_INF = -1e30
 
+#: threads per CTA (the kernel's ``__launch_bounds__`` allow up to 256)
+THREADS = 256
+#: the most lanes that share a row (the kernel merges within a warp)
+MAX_GROUP = 32
+#: columns below which a row takes no more lanes
+COLS_PER_LANE = 16
+
 _GRID_LIMIT = (1 << 31) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How ``csrc/lap_bid.cu`` covers a (B, n, m) batch: ``group`` lanes own
+    each row (row ``bx * rows_per_cta + t // group`` for thread ``t`` of
+    block ``bx``), ``rows_per_cta = threads // group`` rows to a CTA, and
+    ``grid`` CTAs.  Within a row, lane ``l`` reads the aligned float4
+    chunks ``l, l + group, ...``, lane 0 the scalar head before them and
+    lane ``group - 1`` the scalar tail after them.  A row's instance is
+    ``row // n``, computed as ``(row * div_mul >> 32) >> div_shr``
+    (:func:`row_divisor`)."""
+
+    group: int
+    rows_per_cta: int
+    threads: int
+    grid: int
+    div_mul: int
+    div_shr: int
+
+
+def launch_geometry(b: int, n: int, m: int) -> Geometry:
+    """The kernel's launch for a (B, n, m) batch (B * n >= 1, m >= 1): the
+    fewest lanes per row, a power of two up to a warp, that leave each lane
+    about :data:`COLS_PER_LANE` columns (one thread per row up to 16
+    columns)."""
+    if b * n < 1 or m < 1:
+        raise ValueError(f"lap_bid: want B * n >= 1 and m >= 1, got {(b, n, m)}")
+    group = 1
+    while group < MAX_GROUP and COLS_PER_LANE * group < m:
+        group *= 2
+    rows_per_cta = THREADS // group
+    grid = -(-(b * n) // rows_per_cta)
+    if grid > _GRID_LIMIT:
+        raise ValueError(f"lap_bid: {b * n} rows exceed one launch")
+    return Geometry(group, rows_per_cta, THREADS, grid, *row_divisor(n))
+
+
+def row_divisor(n: int):
+    """``(mul, shr)`` with ``row // n == (row * mul >> 32) >> shr`` for every
+    ``0 <= row < 2**31`` and ``n >= 2`` (Granlund and Montgomery's rounding-up
+    multiplier, ``mul = ceil(2**(31 + l) / n)``, ``l = ceil(log2 n)``);
+    ``(0, 0)`` for ``n = 1``, whose instance is the row, and from ``n =
+    2**31`` on.  The kernel divides for real from ``2**31`` rows on."""
+    if n < 2 or n >= 1 << 31:
+        return 0, 0
+    log2 = (n - 1).bit_length()
+    return -(-(1 << (31 + log2)) // n), log2 - 1
 
 
 def lap_bid_top2_plain(a: torch.Tensor, prices: torch.Tensor):
@@ -104,21 +162,18 @@ def _launch(what: str, entry: str, a: torch.Tensor, prices: torch.Tensor, tb=Non
     second = torch.empty((b, n), dtype=torch.float32, device=a.device)
     if b * n == 0 or m == 0:
         return best_v, best_j, second
-    group = 1
-    while group < m and group < 32:
-        group *= 2
-    if (b * n * group + 255) // 256 > _GRID_LIMIT:
-        raise ValueError(f"{what}: {b * n} rows exceed one launch")
+    geo = launch_geometry(b, n, m)
     fn = getattr(build.library("lap_bid"), entry)
-    fn.argtypes = [ctypes.c_void_p] * (len(operands) + 3) + [ctypes.c_longlong] * 3 + [
-        ctypes.c_void_p
-    ]
+    fn.argtypes = ([ctypes.c_void_p] * (len(operands) + 3) + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
+                                           ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(
             *(t.data_ptr() for t in operands), best_v.data_ptr(), best_j.data_ptr(),
-            second.data_ptr(), b, n, m, stream,
+            second.data_ptr(), b, n, m, geo.group, geo.threads, geo.grid, geo.div_mul,
+            geo.div_shr, stream,
         )
     build.check(err, what)
     return best_v, best_j, second

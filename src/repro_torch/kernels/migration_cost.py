@@ -11,11 +11,14 @@ job ids (-1 empty, P = MAX_PACK = 2) and per-slot f64 weights ``w_u`` /
 ``csrc/migration_cost.cu``; it replaces the Pallas kernel
 ``migration_cost_pallas`` of the JAX package and is bit-identical to the
 numpy host computation (``core.migration.pairwise_migration_cost``).
+How it is launched is decided here, by :func:`launch_geometry` (which the
+CPU tests reach), and passed to the kernel's entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -23,6 +26,64 @@ from repro_torch.kernels import build
 
 #: slots per GPU the kernel is unrolled for (core.cluster.MAX_PACK)
 P = 2
+#: threads per CTA (the kernel's ``__launch_bounds__`` allow up to 256)
+THREADS = 256
+#: the fewest column pairs a CTA row spans, a warp
+MIN_TX = 32
+#: rows per thread on large outputs (the kernel is built for 1, 2, 4 and 8)
+ROWS = 8
+#: outputs of this many cells and more take ``ROWS`` rows per thread
+MANY_CELLS = 1 << 21
+#: the largest y grid of a launch; more row tiles are looped over
+MAX_GRID_Y = 65535
+_GRID_LIMIT = (1 << 31) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How ``csrc/migration_cost.cu`` covers a (U, V) output.
+
+    Blocks are ``block = (tx, ty)`` threads.  Thread ``(x, y)`` of block
+    ``(bx, by)`` owns column pair ``k = bx * tx + x`` (``< pairs``) and, in
+    each row tile ``t = by, by + grid[1], ...`` (of ``ty * rows`` rows),
+    the rows ``t * ty * rows + r * ty + y`` for ``r < rows``.  In row ``u``
+    it writes cells ``2k + s`` and ``2k + s + 1`` as one 16-byte store,
+    where ``s = 1`` on a row that starts 8 bytes past a 16-byte boundary (V
+    odd, u odd) and 0 elsewhere.  A pair reaching past V leaves a one-cell
+    tail (a scalar store); on a shifted row the pair-0 thread also writes
+    cell 0, the scalar head."""
+
+    block: tuple
+    rows: int
+    pairs: int
+    row_tiles: int
+    grid: tuple
+
+
+def launch_geometry(u: int, v: int) -> Geometry:
+    """The kernel's launch for a (U, V) output (U, V >= 1): ``tx`` the
+    column pairs rounded up to a power of two in [32, 256], ``ty = 256 /
+    tx``; 8 rows per thread from 2^21 cells on, 1 below."""
+    if u < 1 or v < 1:
+        raise ValueError(f"migration_cost: want U, V >= 1, got {u}x{v}")
+    pairs = (v + 1) // 2
+    tx = MIN_TX
+    while tx < THREADS and tx < pairs:
+        tx *= 2
+    ty = THREADS // tx
+    rows = ROWS if u * v >= MANY_CELLS else 1
+    row_tiles = -(-u // (ty * rows))
+    grid = (-(-pairs // tx), min(row_tiles, MAX_GRID_Y))
+    if grid[0] > _GRID_LIMIT:
+        raise ValueError(f"migration_cost: {u}x{v} exceeds one launch")
+    return Geometry((tx, ty), rows, pairs, row_tiles, grid)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on a 16-byte-aligned base (the kernel's vector loads need it);
+    a fresh copy only where a view starts elsewhere.  The operands are 24
+    bytes per GPU."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def migration_cost_plain(slots_u, slots_v, w_u, w_v) -> torch.Tensor:
@@ -83,16 +144,17 @@ def migration_cost(slots_u, slots_v, w_u, w_v) -> torch.Tensor:
     out = torch.empty((u, v), dtype=torch.float64, device=dev)
     if u * v == 0:
         return out
-    if (u * v + 255) // 256 > (1 << 31) - 1:
-        raise ValueError(f"migration_cost: {u}x{v} exceeds one launch")
+    geo = launch_geometry(u, v)
+    slots_u, slots_v, w_u, w_v = (_aligned(t) for t in (slots_u, slots_v, w_u, w_v))
     fn = build.library("migration_cost").migration_cost
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             slots_u.data_ptr(), slots_v.data_ptr(), w_u.data_ptr(), w_v.data_ptr(),
-            out.data_ptr(), u, v, stream,
+            out.data_ptr(), u, v, *geo.block, geo.rows, geo.row_tiles, *geo.grid, stream,
         )
     build.check(err, "migration_cost")
     migration_cost.launches += 1

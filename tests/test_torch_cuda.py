@@ -13,6 +13,9 @@ other ``test_torch_*`` files, so equality here closes the chain
 card == CPU port == JAX reference.
 """
 
+import ctypes
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,8 @@ from repro_torch.core.traces import synthetic_active_jobs
 from repro_torch.core.fused import FusedMigrationPlanner, _tb_scale
 from repro_torch.core.matching import auction as tauction
 from repro_torch.core.placement import place_without_packing
+from repro_torch.kernels import build
+from repro_torch.kernels import lap_bid as lb
 from repro_torch.kernels.lap_bid import (
     lap_bid_batched,
     lap_bid_fused_batched,
@@ -33,6 +38,7 @@ from repro_torch.kernels.lap_bid import (
 )
 from repro_torch.kernels import lap_auction as la
 from repro_torch.kernels.lap_auction import lap_auction, launch_plan
+from repro_torch.kernels import migration_cost as mc
 from repro_torch.kernels.migration_cost import migration_cost, migration_cost_plain
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -126,6 +132,181 @@ def test_lap_bid_fused_kernel_ties_across_warp_stride(cuda):
     )
     assert best_j.cpu().tolist() == [[31, 5, 100, 0]]
     assert torch.equal(second.cpu(), best_v.cpu())
+
+
+def _poison_next_blocks(device, *numels):
+    """Hand the caching allocator's next blocks of these f32 sizes back full
+    of NaN bits, so an output cell a kernel never writes cannot pass for a
+    written one."""
+    junk = [torch.full((k,), float("nan"), device=device) for k in numels]
+    del junk
+
+
+def _offset_copy(x, offset, device):
+    """``x`` on the card as a contiguous view whose base sits ``offset``
+    elements past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=device)
+    view = flat[offset:offset + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("change", ["grid", "group", "threads"])
+def test_lap_bid_entry_refuses_a_geometry_that_misses_rows(cuda, change, fused):
+    """The entry points launch the geometry they are given, so they refuse
+    one that leaves a row unread (a grid one CTA short), a group that is not
+    a power of two and a block that is not whole warps."""
+    b, n, m = 3, 100, 8
+    geo = lb.launch_geometry(b, n, m)
+    geo = dataclasses.replace(geo, **{"grid": dict(grid=geo.grid - 1),
+                                      "group": dict(group=3),
+                                      "threads": dict(threads=48)}[change])
+    a = torch.zeros((b, n, m), device=cuda)
+    p = torch.zeros((b, m), device=cuda)
+    outs = [torch.empty((b, n), dtype=dt, device=cuda)
+            for dt in (torch.float32, torch.int32, torch.float32)]
+    operands = (a, p, torch.zeros(b, device=cuda)) if fused else (a, p)
+    fn = getattr(build.library("lap_bid"), "lap_bid_fused_batched" if fused else "lap_bid_batched")
+    fn.argtypes = ([ctypes.c_void_p] * (len(operands) + 3) + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(*(t.data_ptr() for t in (*operands, *outs)), b, n, m, geo.group, geo.threads,
+             geo.grid, geo.div_mul, geo.div_shr, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("ints", [True, False])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 8, 9, 600, 4097])
+def test_lap_bid_kernels_at_ragged_widths_and_offset_bases(cuda, m, offset, ints, fused):
+    """Rows whose starts fall anywhere in a 16-byte chunk (ragged m, and a
+    matrix and prices whose bases are ``offset`` f32 past a boundary) take
+    the scalar head and tail; bit for bit against the plain versions,
+    non-integer fused costs included."""
+    b, n = 3, 7
+    g = torch.Generator().manual_seed(m * 16 + offset * 2 + ints)
+    if ints:
+        a = torch.randint(-20, 20, (b, n, m), generator=g).float()
+        p = torch.randint(0, 4, (b, m), generator=g).float()
+    else:
+        a = torch.randn((b, n, m), generator=g) * 3.0
+        p = torch.randn((b, m), generator=g)
+    a[0, 0, : min(5, m)] = a[0, 0].max()  # a tie at the row's start
+    tb = torch.where(torch.arange(b) % 2 == 1, _tb_scale(n, m), 0.5).float()
+    ac, pc = _offset_copy(a, offset, cuda), _offset_copy(p, (offset + 1) % 4, cuda)
+    _poison_next_blocks(cuda, b * n, b * n, b * n)
+    if fused:
+        got = lap_bid_fused_batched(ac, pc, tb.to(cuda))
+        want = lap_bid_fused_top2_plain(a, p, tb)
+    else:
+        got = lap_bid_batched(ac, pc)
+        want = lap_bid_top2_plain(a, p)
+    for w, o in zip(want, got):
+        assert torch.equal(w.view(torch.int32), o.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_lap_bid_ties_across_the_head_and_chunk_boundaries(cuda, offset, fused):
+    """Equal maxima on both sides of the scalar head, of a 16-byte chunk, of
+    a lane's stride (32 chunks) and at the row's two ends: the lower column
+    wins and the second equals the best."""
+    m = 600  # every row starts ``offset`` f32 past a boundary
+    head = (4 - offset) % 4  # scalar columns before the row's first 16-byte boundary
+    pairs = [(head - 1, head), (head + 3, head + 4), (head + 127, head + 128),
+             (head + 1, head + 129), (0, m - 1)]
+    pairs = [(i, j) for i, j in pairs if 0 <= i < j < m]
+    a = torch.full((1, len(pairs) + 1, m), -5.0)
+    for r, (i, j) in enumerate(pairs):
+        a[0, r, [j, i]] = 7.0
+    a[0, -1, :] = 1.0
+    pc = torch.zeros(1, m, device=cuda)
+    if fused:  # tb = 0: the benefit is -cost
+        cost = _offset_copy(-a, offset, cuda)
+        best_v, best_j, second = lap_bid_fused_batched(cost, pc, torch.zeros(1, device=cuda))
+    else:
+        best_v, best_j, second = lap_bid_batched(_offset_copy(a, offset, cuda), pc)
+    assert best_j.cpu().tolist() == [[i for i, _ in pairs] + [0]]
+    assert torch.equal(second.cpu(), best_v.cpu())
+
+
+@pytest.mark.parametrize("change", ["grid_x", "row_tiles", "rows", "block"])
+def test_migration_cost_entry_refuses_a_geometry_that_misses_cells(cuda, change):
+    """The entry point launches the geometry it is given, so it refuses one
+    that leaves a cell unwritten (a column block or a row tile short), rows
+    per thread it is not built for and a block past its launch bounds."""
+    u, v = 300, 700
+    geo = mc.launch_geometry(u, v)
+    tx, ty = geo.block
+    grid_x, grid_y = geo.grid
+    rows, row_tiles = geo.rows, geo.row_tiles
+    if change == "grid_x":
+        grid_x -= 1
+    elif change == "row_tiles":
+        row_tiles -= 1
+    elif change == "rows":
+        rows = 3
+    else:
+        ty *= 2
+    su = torch.zeros((u, 2), dtype=torch.int32, device=cuda)
+    sv = torch.zeros((v, 2), dtype=torch.int32, device=cuda)
+    wu = torch.zeros((u, 2), dtype=torch.float64, device=cuda)
+    wv = torch.zeros((v, 2), dtype=torch.float64, device=cuda)
+    out = torch.empty((u, v), dtype=torch.float64, device=cuda)
+    fn = build.library("migration_cost").migration_cost
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(su.data_ptr(), sv.data_ptr(), wu.data_ptr(), wv.data_ptr(), out.data_ptr(), u, v,
+             tx, ty, rows, row_tiles, grid_x, grid_y, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+def _padded_slots(count, g, shift):
+    """(count, 2) slots cycling through all 16 patterns of a real id (0..5,
+    so GPUs share jobs) or a padding id -1/-2/-3 in each of the two slots."""
+    real = torch.randint(0, 6, (count, 2), generator=g, dtype=torch.int32)
+    pattern = (torch.arange(count) * 7 + shift) % 16
+    code = torch.stack([pattern // 4, pattern % 4], dim=1).to(torch.int32)
+    return torch.where(code == 0, real, -code)
+
+
+@pytest.mark.parametrize("weights", ["gathered", "every slot"])
+@pytest.mark.parametrize("u,v", [(2048, 2048), (2047, 2049), (1, 5), (5, 1), (48, 48)])
+def test_migration_cost_kernel_padding_ids_and_odd_widths(cuda, u, v, weights):
+    """Every -1/-2/-3 padding pattern against every other, at odd V (rows
+    shifted by one cell, a scalar head or tail): bit for bit against the
+    plain version.  ``every slot`` gives padding slots a weight too, and
+    non-dyadic ones, so the operation order decides every bit."""
+    g = torch.Generator().manual_seed(u * 3 + v)
+    su, sv = _padded_slots(u, g, 0), _padded_slots(v, g, 5)
+    if weights == "gathered":
+        w = torch.tensor([0.5, 0.25, 0.125, 0.0625], dtype=torch.float64)
+        wu = torch.where(su < 0, 0.0, w[su.clamp_min(0) % 4])
+        wv = torch.where(sv < 0, 0.0, w[sv.clamp_min(0) % 4])
+    else:
+        wu = torch.rand((u, 2), generator=g, dtype=torch.float64) / 3.0
+        wv = torch.rand((v, 2), generator=g, dtype=torch.float64) / 7.0
+    _poison_next_blocks(cuda, 2 * u * v)
+    got = migration_cost(su.to(cuda), sv.to(cuda), wu.to(cuda), wv.to(cuda)).cpu()
+    want = migration_cost_plain(su, sv, wu, wv)
+    assert torch.equal(want.view(torch.int64), got.view(torch.int64))
+
+
+def test_migration_cost_kernel_takes_offset_views(cuda):
+    """Operands that are contiguous views past a 16-byte boundary (the
+    kernel's vector loads need it) are copied to an aligned base first."""
+    g = torch.Generator().manual_seed(7)
+    su, sv = _padded_slots(33, g, 1), _padded_slots(31, g, 2)
+    wu = torch.rand((33, 2), generator=g, dtype=torch.float64)
+    wv = torch.rand((31, 2), generator=g, dtype=torch.float64)
+    views = [_offset_copy(t, 1, cuda) for t in (su, sv, wu, wv)]
+    assert all(t.data_ptr() % 16 for t in views)
+    got = migration_cost(*views).cpu()
+    assert torch.equal(migration_cost_plain(su, sv, wu, wv).view(torch.int64), got.view(torch.int64))
 
 
 # --------------------------------------------------------------------------- #
