@@ -10,7 +10,8 @@ Tesserae round at 2048 GPUs (512 nodes x 4) through the entry points a
 user calls — ``TesseraeScheduler.decide`` and ``Simulator.run`` with
 ``lap_backend="auction_kernel"``, then the same with the fused migrate
 stage (``fused_fanout=True``) — serves Llama-3-8B at full width and
-depth (``transformer.forward`` prefill, ``greedy_generate``), runs the
+depth (``transformer.forward`` prefill, ``greedy_generate``) and the MoE
+and MLA families at full width (DBRX-132B, DeepSeek-V2-236B), runs the
 paper's evaluation harness (``repro_torch.benchmarks.evaluate`` and
 ``.scalability``), trains Llama-3-8B at full width (``make_train_step``,
 ``save_checkpoint``/``restore_checkpoint``, ``train_loop``), and checks what
@@ -72,23 +73,36 @@ comes out:
    ``FusedMigrationPlanner(use_kernel=False)`` give bit-identical plans,
    costs and bid iterations; a tie-break run at 8 nodes gives fused plans
    bit-identical to the host scipy planner; every plan is feasible;
-5. serving ``llama3-8b`` (32 layers, bf16, random weights from a seeded
-   ``torch.Generator`` on the card, freed after the phase): (e) a prefill
-   forward of 8192 random tokens on the flash branch (sdpa's default on
-   CUDA; K6 launched once per layer), each layer's K6 output held to the
-   plain version on that layer's q/k/v (3e-2; 1e-2 relative per query
-   tile), and the einsum path's
-   forward; (f) ``greedy_generate`` with batch 8, a 32-token prompt and 32
-   new tokens against an 8192-slot cache, and one forward of the 64
-   tokens; then K7 launched on layer 0's final cache with the last step's q
-   (valid_len 63) and held to its plain version (3e-2; 1e-2 relative per
-   head) and to the einsum ``sdpa`` (3e-2).  The whole-model comparisons — flash forward vs einsum forward,
-   stepped logits vs the forward's — are enforced on the same weights
-   upcast to f32 (1e-4); in bf16 they are reported with each path's
-   distance from the f32 forward (at depth 32 bf16 rounding alone moves
-   logits by up to ~0.08, the einsum path's as much as the flash path's).
-   Counters zeroed before (e) and read after: K6 must have launched once
-   per layer of every flash forward, K7 once;
+5. serving, one row at a time (:func:`serve_row`), bf16 on random weights
+   from a seeded ``torch.Generator`` on the card, freed after the row, each
+   row its own path with the counters zeroed before and read after:
+   ``llama3-8b`` at full width and depth, then the MoE and MLA families at
+   full width, (e2) ``dbrx-132b`` on 8 of 40 layers and (e3)
+   ``deepseek-v2-236b`` on 6 of 60.  (e) a prefill forward of 8192 random
+   tokens (2048 for (e3)): GQA at D 128 on the flash branch (sdpa's default
+   on CUDA; K6 launched once per layer, 48/8 heads in (e2)), each layer's
+   K6 output held to the plain version on that layer's q/k/v (3e-2; 1e-2
+   relative per query tile); MLA's head dim 192 has no K6 instance (F7),
+   so (e3) runs the einsum path and launches no kernel; a MoE prefill must
+   not beat its bound; the dense row also runs the einsum path's forward.
+   (f) ``greedy_generate`` with batch 8, a 32-token prompt and 32 new
+   tokens against an 8192-slot cache, and one forward of the 64 tokens;
+   then, for GQA, K7 launched on layer 0's final cache with the last step's
+   q (valid_len 63; group 4, 6 in (e2)) and held to its plain version
+   (3e-2; 1e-2 relative per head) and to the einsum ``sdpa`` (3e-2).  The
+   whole-model comparisons — flash forward vs einsum forward, stepped
+   logits vs the forward's — are enforced on the same weights upcast to
+   f32 (1e-4): the dense row at full depth; a MoE row on its first 2
+   layers, after the bf16 model is freed, and they see the routing: each
+   layer's expert choices are recorded on both paths, every flip must sit
+   at a near tie (margin <= 1e-4, printed), and the logits are held before
+   the first token routed differently; stepped decode is held at B 1 x 8
+   tokens, where ``capacity_of`` is 8 and no expert overflows, and the B 8
+   x 64-token run is reported with the choices its forward dropped.  In
+   bf16 the dense row's comparisons are reported with each path's distance
+   from the f32 forward (at depth 32 bf16 rounding alone moves logits by up
+   to ~0.08, the einsum path's as much as the flash path's).  K6 must have
+   launched once per layer of every flash forward, K7 once, nothing else;
 6. the evaluation harness on the card: (g) ``BENCH_endtoend.json``'s
    sweep (5 policies x 8 scenarios, 48 GPUs, 100 jobs, seed 0, ``auto``):
    every arm's metrics, faults and matching telemetry, and the derived
@@ -123,8 +137,13 @@ comes out:
    twice on the card and twice on the host's CPU on one thread (losses
    within 1e-5, params within 1e-5 relative L2; whether each side repeats
    itself bit for bit is printed, and how far a run on the host's thread
-   pool lands from the one-thread run).  Counters zeroed before and read after: the training
-   path launches no kernel.
+   pool lands from the one-thread run).  Each op of the card's two runs,
+   forward and backward, is logged with a checksum of its output
+   (:func:`op_recorder`), and the first op that differs between them is
+   printed with its inputs' shapes, strides and addresses mod 256 (the
+   initial state ``train_loop`` draws on the host is recorded too).
+   Counters zeroed before and read after: the training path launches no
+   kernel.
 
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's ``name, power.limit`` and ``{"ok": true, "device": ...}``.
@@ -132,6 +151,7 @@ the card's ``name, power.limit`` and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -165,9 +185,20 @@ FULL = dict(
         context=8192,
         # kernel rows: (B, S, H, KV, D) for flash_attention, (B, S, H, KV, D,
         # valid) for flash_decode; the first of each is the path's shape
-        k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128)],
-        k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768)],
+        k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128)],
+        k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768),
+                   (8, 8192, 48, 8, 128, 63)],
     ),
+    # phase 5, rows (e2) and (e3): dbrx-132b (8 of 40 layers, 54.6 GB of bf16
+    # weights) and deepseek-v2-236b (6 of 60 layers, 50.7 GB) at full width.
+    # MLA's prefill runs the einsum path (F7), whose f32 logits for 128 heads
+    # are 2.1 GB at S 2048
+    serve_moe=[
+        dict(arch="dbrx-132b", reduced=False, layers=8, prefill_s=8192, batch=8, prompt=32,
+             gen=32, context=8192),
+        dict(arch="deepseek-v2-236b", reduced=False, layers=6, prefill_s=2048, batch=8,
+             prompt=32, gen=32, context=8192),
+    ],
     # phase 6: BENCH_endtoend.json's whole sweep, and the scalability
     # benchmark's Part 1 (256 GPUs) and Part 2 (up to 2048 GPUs)
     wide_square=True,
@@ -192,6 +223,12 @@ SERVE_REHEARSAL = dict(
     k6_shapes=[(1, 64, 4, 2, 64)], k7_shapes=[(2, 64, 4, 2, 64, 15)],
 )
 
+
+#: the CPU rehearsal's rows (e2) and (e3): the reduced dbrx and deepseek-v2
+SERVE_MOE_REHEARSAL = [
+    dict(arch=arch, reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64)
+    for arch in ("dbrx-132b", "deepseek-v2-236b")
+]
 
 #: the CPU rehearsal's phase 7 (reduced llama3-8b)
 TRAIN_REHEARSAL = dict(arch="llama3-8b", reduced=True, layers=None, batch=2, seq=64, timed_steps=2,
@@ -885,53 +922,210 @@ def _upcast(tree):
     return tree.float()
 
 
-def serve_phase(device, scale):
-    """Serve ``llama3-8b`` in bf16 on random weights: (e) a prefill forward
-    on the flash branch (sdpa's default on CUDA), each layer's K6 output held
-    to the plain version on that layer's own q/k/v (3e-2), and the einsum
-    path's forward (``REPRO_USE_FLASH=0``); (f) ``greedy_generate`` (prefill
-    by stepping, greedy decode) and one forward of the generated tokens; K7
-    launched on layer 0's final cache with the last step's q, held to its
-    plain version and to the einsum ``sdpa`` (3e-2).
+# --------------------------------------------------------------------------- #
+# phase 5, rows (e2) and (e3): serving the MoE and MLA families
+# --------------------------------------------------------------------------- #
+#: a routing flip between two f32 paths is allowed only where the token's
+#: k-th and (k+1)-th router probabilities are this close in either path
+NEAR_TIE = 1e-4
 
-    The whole-model comparisons are enforced on the same weights upcast to
-    f32, where rounding does not swamp them: the flash forward against the
-    einsum forward, and the stepped logits against the forward's, at 1e-4.
-    In bf16 the two paths of a 32-layer model differ by up to ~0.08 — as far
-    as the einsum path itself is from the f32 forward — so the bf16
-    comparisons (with each path's distance from the f32 forward) are
-    reported, not enforced."""
+
+class RouteRecorder:
+    """Records every ``moe_route`` call (the MoE layers in order) while it
+    is entered: each call's f32 probabilities, experts and keep mask."""
+
+    def __enter__(self):
+        import repro_torch.models.mlp as mlp
+
+        self.mlp, self.real, self.calls = mlp, mlp.moe_route, []
+
+        def recording(cfg, probs, groups):
+            r = self.real(cfg, probs, groups)
+            self.calls.append(dict(probs=probs, experts=r["experts"],
+                                   keep=r["keep"].reshape(r["experts"].shape)))
+            return r
+
+        mlp.moe_route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp.moe_route = self.real
+
+    def dropped(self):
+        return sum(int((~c["keep"]).sum()) for c in self.calls)
+
+
+def _gaps(probs, k):
+    """Per token, the gaps between its adjacent top-(k+1) probabilities:
+    (T, k), column j the gap from rank j to rank j+1."""
+    top = probs.float().topk(k + 1, dim=-1).values
+    return top[:, :-1] - top[:, 1:]
+
+
+def routing_diff(want, got, k):
+    """Layer by layer (lists of recorded routes over the same tokens, in
+    order), where two paths route differently.  A token's choices are its
+    top-k experts in rank order.  Where they differ, they must differ at
+    near ties: at the first rank that differs and, if the set of experts
+    differs, at the k-th rank too, the gap to the next probability is <=
+    ``NEAR_TIE`` in either path.  A change of the set is a flip: it moves
+    the capacity slots of every later token, so every token from the first
+    flip on is cut from the later layers.  A change of order alone (a
+    reorder) moves no slot — a choice's slot counts the earlier tokens'
+    choices of its expert — and cuts nothing.  A token whose keep differs
+    with the same experts must follow a flip of the same layer.  Returns
+    the counts, the flips and reorders with their margins and both paths'
+    experts, and ``cut``, the first token any layer flipped or kept
+    differently."""
+    import torch
+
+    cut, flips, reorders, downstream, bad = None, [], [], 0, []
+    for layer, (w, g) in enumerate(zip(want, got)):
+        w_set, w_order = w["experts"].sort(-1)
+        g_set, g_order = g["experts"].sort(-1)
+        set_diff = (w_set != g_set).any(-1)
+        keep_diff = (w["keep"].gather(-1, w_order) != g["keep"].gather(-1, g_order)).any(-1)
+        rank_diff = w["experts"] != g["experts"]
+        moved = torch.nonzero(rank_diff.any(-1) | keep_diff).flatten().tolist()
+        if not moved:
+            continue
+        gw, gg = _gaps(w["probs"], k), _gaps(g["probs"], k)
+        first_flip = None
+        for t in moved:
+            if cut is not None and t >= cut:
+                downstream += 1
+                continue
+            if bool(rank_diff[t].any()):
+                j = int(rank_diff[t].nonzero()[0])
+                ranks = [j, k - 1] if bool(set_diff[t]) else [j]
+                m = min(max(float(gw[t, r]) for r in ranks), max(float(gg[t, r]) for r in ranks))
+                entry = dict(layer=layer, token=t, rank=j, margin=m,
+                             experts_want=w["experts"][t].tolist(),
+                             experts_got=g["experts"][t].tolist())
+                if bool(set_diff[t]):
+                    first_flip = t if first_flip is None else first_flip
+                    flips.append(entry)
+                else:
+                    reorders.append(entry)
+                if m > NEAR_TIE:
+                    bad.append(entry)
+            elif first_flip is None or t < first_flip:
+                bad.append(dict(layer=layer, token=t, keep_moved_without_a_flip=True))
+        div = torch.nonzero(set_diff | keep_diff).flatten().tolist()
+        if div:
+            cut = div[0] if cut is None else min(cut, div[0])
+    return dict(flips=len(flips), reorders=len(reorders), downstream=downstream, cut=cut,
+                flip_list=flips[:10], reorder_list=reorders[:10], not_near_ties=bad[:10])
+
+
+def moe_row_bounds(cfg, s, batch, cache_len):
+    """The least time a prefill of B 1 x ``s`` tokens and a decode step at
+    ``batch`` could take on the card: the larger of the operations at the
+    bf16 peak (the weight GEMMs, every expert's capacity slots, the causal
+    attention core, the head) and the weights read once; a decode step
+    reads every weight and the cache's valid half at most (bytes)."""
+    from repro_torch.models.mlp import capacity_of
+
+    d, h, e = cfg.d_model, cfg.num_heads, cfg.num_experts
+    if cfg.use_mla:
+        r, qn, qr, vd = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        proj = d * h * (qn + qr) + d * (r + qr) + r * h * (qn + vd) + h * vd * d
+        core, cache_row = s * s * h * (qn + qr + vd), r + qr
+    else:
+        hd, kv = cfg.head_dim, cfg.num_kv_heads
+        proj = 2 * d * h * hd + 2 * d * kv * hd
+        core, cache_row = s * s * h * 2 * hd, 2 * kv * hd
+    experts = 2 * e * capacity_of(cfg, s) * 3 * d * cfg.moe_d_ff
+    shared = 2 * s * 3 * d * cfg.moe_d_ff * cfg.num_shared_experts
+    ops = (cfg.num_layers * (2 * s * proj + core + experts + shared + 2 * s * d * e)
+           + 2 * s * d * cfg.vocab_size)
+    weights = 2 * cfg.param_count()
+    prefill = bound_ms(weights, ops, PEAK_BF16_OPS_PER_S)
+    cache = cfg.num_layers * batch * cache_len * cache_row  # bf16, half the slots valid
+    return dict(prefill_bound_ms=prefill[0], prefill_bound_by=prefill[1], prefill_ops=ops,
+                step_bound_ms=(weights + cache) / PEAK_BYTES_PER_S * 1e3, weight_bytes=weights)
+
+
+#: a MoE row's f32 checks run on its first layers only, after the bf16
+#: model is freed: 8 dbrx layers upcast to f32 would be 109 GB
+F32_LAYERS = 2
+
+#: a MoE row holds stepped decode to the forward on one sequence of this
+#: many tokens (half prompt, half generated), where ``capacity_of`` equals
+#: the token count and no expert can overflow on either path
+STEP_TOKENS = 8
+
+
+def serve_row(device, scale):
+    """Serve one config of phase 5 in bf16 on random weights from a seeded
+    ``torch.Generator`` on the card, at full width and ``scale["layers"]``
+    of its layers (all when unset).  Returns the row and the kernel
+    launches it expects.
+
+    (e) A prefill forward of B 1 x ``prefill_s`` tokens.  GQA at D 128 takes
+    the flash branch (sdpa's default on CUDA): K6 in every layer, each
+    layer's output held to the plain version on that layer's own q/k/v
+    (3e-2; 1e-2 relative per query tile), and two flash forwards bitwise
+    equal.  MLA takes the einsum path (F7), no kernel.  A MoE row's prefill
+    must not beat its bound (:func:`moe_row_bounds`); a dense row also runs
+    the einsum path's forward (``REPRO_USE_FLASH=0``).  (f)
+    ``greedy_generate`` at B ``batch``, ``prompt`` + ``gen`` tokens, and one
+    forward of them; for GQA, K7 launched on layer 0's final cache with the
+    last step's q, held to its plain version and to the einsum ``sdpa``
+    (3e-2).
+
+    The whole-model checks run on the same weights upcast to f32, where
+    rounding does not swamp them: a dense row at full depth, a MoE row on
+    its first ``F32_LAYERS`` layers.  They see the routing: each MoE layer's
+    expert choices are recorded on both paths, every flip must be a near
+    tie (:func:`routing_diff`), and the logits are held at 1e-4 before the
+    first token routed differently (everywhere, in a dense row).  The flash
+    forward is held to the einsum forward (GQA).  Stepped decode is held to
+    the forward where no expert can overflow: the whole B x (prompt + gen)
+    run of a dense row; for a MoE row one sequence of ``STEP_TOKENS``
+    (stepped decode and the forward use different capacities by design, in
+    the reference too), and the longer run is reported with the choices its
+    forward dropped.  In bf16 the two paths of a 32-layer model differ by up
+    to ~0.08 — as far as the einsum path itself is from the f32 forward —
+    so a dense row's bf16 comparisons (with each path's distance from the
+    f32 forward) are reported, not enforced."""
     import collections
     import os
 
     import torch
 
     import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.flash_decode as fd
     import repro_torch.models.attention as attention
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     from repro_torch.models import get_model
+    from repro_torch.models.mlp import capacity_of
     from repro_torch.serve import ServeConfig, greedy_generate, init_serving_cache, make_serve_step
 
+    cuda = device.type == "cuda"
+
     def sync():
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
 
-    cfg = (get_reduced if scale["reduced"] else get_config)(scale["arch"])
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    base = (get_reduced if scale["reduced"] else get_config)(scale["arch"])
+    cfg = dataclasses.replace(base, num_layers=scale.get("layers") or base.num_layers)
     model = get_model(cfg)
-    out = dict(model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, dtype=cfg.dtype,
-               param_count=cfg.param_count(), flash_forwards=0)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=device).manual_seed(0), cfg)
-    sync()
-    out["init_s"] = time.perf_counter() - t0
-    if device.type == "cuda":
-        out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
-    # on the card the flash branch is sdpa's default; the CPU rehearsal forces it
-    flash_env = None if device.type == "cuda" else "1"
+    gqa, moe = not cfg.use_mla, bool(cfg.num_experts)
+    k = cfg.num_experts_per_token
+    nl = min(F32_LAYERS, cfg.num_layers) if moe else cfg.num_layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=nl)
+    reduced = (f"{cfg.num_layers} of {base.num_layers} layers" if cfg.num_layers < base.num_layers
+               else "full depth") + (f"; the f32 checks on the first {nl}" if nl < cfg.num_layers else "")
+    out = dict(model=cfg.name, layers=cfg.num_layers, full_layers=base.num_layers, reduced=reduced,
+               d_model=cfg.d_model, dtype=cfg.dtype, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+               experts=cfg.num_experts, top_k=k, shared_experts=cfg.num_shared_experts,
+               mla=cfg.use_mla, param_count=cfg.param_count(),
+               attention="flash (K6)" if gqa else "einsum (F7)")
+    expect = dict(flash_attention=0, flash_decode=0)
+    # on the card the flash branch is sdpa's default at D 128; the CPU
+    # rehearsal forces it for GQA (MLA has no flash branch, F7)
+    flash_env = None if cuda else ("1" if gqa else "0")
     saved_env = os.environ.get("REPRO_USE_FLASH")
 
     def set_flash(value):
@@ -941,147 +1135,250 @@ def serve_phase(device, scale):
             os.environ["REPRO_USE_FLASH"] = value
 
     def forward(p, c, tokens, flash=True):
+        """Logits and seconds of one forward; K6's launches checked."""
         set_flash(flash_env if flash else "0")
-        out["flash_forwards"] += int(flash)
+        n0 = fa.flash_attention.launches
         sync()
         t = time.perf_counter()
         logits, _ = model.forward(p, c, {"tokens": tokens})
         sync()
-        check(bool(torch.isfinite(logits).all()), f"{c.dtype} forward: logits are not finite")
-        return logits, time.perf_counter() - t
+        dt = time.perf_counter() - t
+        check(bool(torch.isfinite(logits).all()), f"{c.name} {c.dtype} forward: logits are not finite")
+        want = c.num_layers if (flash and gqa and cuda) else 0
+        expect["flash_attention"] += want
+        if cuda:
+            check(fa.flash_attention.launches - n0 == want,
+                  f"{c.name} forward: K6 launched {fa.flash_attention.launches - n0} times, wanted {want}")
+        return logits, dt
 
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0), cfg)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    if cuda:
+        out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
     gen = torch.Generator(device=device).manual_seed(1)
     orig_sdpa = attention.sdpa
     try:
         # ---- (e) prefill ---------------------------------------------------- #
         s = scale["prefill_s"]
         tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=device)
-        logits, out["prefill_s"] = forward(params, cfg, tokens)
+        with RouteRecorder() as routes:
+            logits, out["prefill_s"] = forward(params, cfg, tokens)
         out["prefill_tokens_per_s"] = s / out["prefill_s"]
         check(tuple(logits.shape) == (1, s, cfg.vocab_size), f"prefill logits {tuple(logits.shape)}")
+        if moe:
+            out.update(moe_row_bounds(cfg, s, scale["batch"], scale["context"]),
+                       capacity=capacity_of(cfg, s), prefill_dropped_choices=routes.dropped(),
+                       prefill_choices=s * k * cfg.num_layers)
+            check(out["prefill_s"] * 1e3 >= out["prefill_bound_ms"],
+                  f"{cfg.name}: a prefill of {out['prefill_s']} s is under its bound "
+                  f"({out['prefill_bound_ms']} ms): it skipped work")
+        if gqa:
+            layer_errs = []
 
-        layer_errs = []
+            def checked_sdpa(q, k_, v, causal, q_offset=None, kv_valid_len=None):
+                res = orig_sdpa(q, k_, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+                want = fa.flash_attention_plain(q, k_, v, causal)
+                b_, s_ = q.shape[:2]
+                layer_errs.append((*logits_close(res.reshape(b_, s_, -1), want.reshape(b_, s_, -1),
+                                                 3e-2), rel_err(res, want, 128)))
+                return res
 
-        def checked_sdpa(q, k, v, causal, q_offset=None, kv_valid_len=None):
-            res = orig_sdpa(q, k, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
-            want = fa.flash_attention_plain(q, k, v, causal)
-            b_, s_ = q.shape[:2]
-            layer_errs.append((*logits_close(res.reshape(b_, s_, -1), want.reshape(b_, s_, -1), 3e-2),
-                               rel_err(res, want, 128)))
-            return res
-
-        attention.sdpa = checked_sdpa
-        launches0 = fa.flash_attention.launches
-        again, _ = forward(params, cfg, tokens)
-        attention.sdpa = orig_sdpa
-        check(len(layer_errs) == cfg.num_layers,
-              f"prefill: attention ran in {len(layer_errs)} of {cfg.num_layers} layers")
-        if device.type == "cuda":
-            check(fa.flash_attention.launches - launches0 == cfg.num_layers,
-                  "prefill: the flash kernel did not run in every layer")
-        for i, (err, ok, rel) in enumerate(layer_errs):
-            check(ok, f"prefill layer {i}: flash_attention differs from plain beyond 3e-2 ({err})")
-            check(rel <= REL_TOL, f"prefill layer {i}: a query tile's relative error {rel} > {REL_TOL}")
-        out["prefill_layer_max_err"] = max(err for err, _, _ in layer_errs)
-        out["prefill_layer_max_rel_err"] = max(rel for _, _, rel in layer_errs)
-        check(torch.equal(again, logits), "prefill: two flash forwards differ")
-        del again
-        einsum_logits, out["prefill_einsum_s"] = forward(params, cfg, tokens, flash=False)
-        out["bf16_prefill_vs_einsum"] = logits_stats(logits, einsum_logits, 0.05)
+            attention.sdpa = checked_sdpa
+            again, _ = forward(params, cfg, tokens)
+            attention.sdpa = orig_sdpa
+            check(len(layer_errs) == cfg.num_layers,
+                  f"{cfg.name} prefill: attention ran in {len(layer_errs)} of {cfg.num_layers} layers")
+            for i, (err, ok, rel) in enumerate(layer_errs):
+                check(ok, f"{cfg.name} prefill layer {i}: K6 differs from plain beyond 3e-2 ({err})")
+                check(rel <= REL_TOL, f"{cfg.name} prefill layer {i}: a query tile's relative "
+                      f"error {rel} > {REL_TOL}")
+            out["prefill_layer_max_err"] = max(e for e, _, _ in layer_errs)
+            out["prefill_layer_max_rel_err"] = max(r for _, _, r in layer_errs)
+            check(torch.equal(again, logits), f"{cfg.name} prefill: two flash forwards differ")
+            del again
+        if moe:  # the bf16 logits are compared with nothing at a cut depth
+            del logits
+        else:
+            einsum_logits, out["prefill_einsum_s"] = forward(params, cfg, tokens, flash=False)
+            out["bf16_prefill_vs_einsum"] = logits_stats(logits, einsum_logits, 0.05)
+        out["profile_prefill"] = profile_window(lambda: forward(params, cfg, tokens), device)
 
         # ---- (f) greedy serving --------------------------------------------- #
         b, p, n = scale["batch"], scale["prompt"], scale["gen"]
         prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=device)
         sc = ServeConfig(batch_size=b, context_len=scale["context"])
-        captured = collections.deque(maxlen=cfg.num_layers)  # the last step's layers
+        captured = collections.deque(maxlen=cfg.num_layers)  # the last step's layers (GQA)
 
-        def recording_sdpa(q, k, v, causal, q_offset=None, kv_valid_len=None):
-            res = orig_sdpa(q, k, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+        def recording_sdpa(q, k_, v, causal, q_offset=None, kv_valid_len=None):
+            res = orig_sdpa(q, k_, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
             if kv_valid_len is not None:
-                captured.append((q, k, v, kv_valid_len, res))
+                captured.append((q, k_, v, kv_valid_len, res))
             return res
 
         attention.sdpa = recording_sdpa
         set_flash(flash_env)
+        steps = p + n - 1
         sync()
         t0 = time.perf_counter()
         seq, step_logits = greedy_generate(params, cfg, prompt, n, sc, return_logits=True)
         sync()
         attention.sdpa = orig_sdpa
-        steps = p + n - 1
         out.update(generate_s=time.perf_counter() - t0, steps=steps, batch=b,
                    cache_len=sc.cache_len(cfg))
         out["step_ms"] = out["generate_s"] / steps * 1e3
         out["decode_tokens_per_s"] = b * steps / out["generate_s"]
-        check(tuple(seq.shape) == (b, p + n), f"generated {tuple(seq.shape)}")
-        check(bool(torch.isfinite(step_logits).all()), "stepped logits are not finite")
-        full, _ = forward(params, cfg, seq)
+        check(tuple(seq.shape) == (b, p + n), f"{cfg.name}: generated {tuple(seq.shape)}")
+        check(bool(torch.isfinite(step_logits).all()), f"{cfg.name}: stepped logits are not finite")
+        with RouteRecorder() as routes:
+            full, _ = forward(params, cfg, seq)
         out["bf16_decode_vs_forward"] = logits_stats(step_logits, full[:, :-1], 0.05)
+        if moe:
+            out["bf16_decode_vs_forward"].update(tokens=b * (p + n), capacity=capacity_of(cfg, b * (p + n)),
+                                                 forward_dropped_choices=routes.dropped())
+            del step_logits
         del full
-
-        # where the time goes: one prefill forward and three decode steps
-        out["profile_prefill"] = profile_window(lambda: forward(params, cfg, tokens), device)
         cache = init_serving_cache(cfg, sc, device)
         serve_step = make_serve_step(cfg)
         out["profile_decode_3_steps"] = profile_window(
             lambda: [serve_step(params, seq[:, i:i + 1], cache, i) for i in range(steps - 3, steps)],
-            device,
-        )
+            device)
         del cache
-
-        q, k, v, valid, einsum_out = captured[0]  # layer 0 of the last step
-        check(valid == steps, f"last step's valid_len {valid}, wanted {steps}")
-        got = flash_decode(q[:, 0], k, v, valid)
-        want = flash_decode_plain(q[:, 0], k, v, valid)
-        err_plain, ok_plain = logits_close(got, want, 3e-2)
-        rel_plain = rel_err(got, want)
-        err_sdpa, ok_sdpa = logits_close(got, einsum_out[:, 0], 3e-2)
-        check(ok_plain, f"flash_decode on the served cache differs from plain ({err_plain})")
-        check(rel_plain <= REL_TOL, f"flash_decode on the served cache: a head's relative error "
-              f"{rel_plain} > {REL_TOL}")
-        check(ok_sdpa, f"flash_decode on the served cache differs from sdpa ({err_sdpa})")
-        out.update(k7_valid_len=valid, k7_vs_plain_max_err=err_plain, k7_vs_plain_rel_err=rel_plain,
-                   k7_vs_sdpa_max_err=err_sdpa)
-        del captured, q, k, v, einsum_out, got, want
+        if gqa:  # K7 on layer 0's served cache, with the last step's q
+            q, kc, vc, valid, einsum_out = captured[0]
+            check(valid == steps, f"{cfg.name}: the last step's valid_len {valid}, wanted {steps}")
+            n0 = fd.flash_decode.launches
+            got = fd.flash_decode(q[:, 0], kc, vc, valid)
+            expect["flash_decode"] += 1
+            if cuda:
+                check(fd.flash_decode.launches - n0 == 1, f"{cfg.name}: K7 did not launch")
+            want = fd.flash_decode_plain(q[:, 0], kc, vc, valid)
+            err_plain, ok_plain = logits_close(got, want, 3e-2)
+            rel_plain = rel_err(got, want)
+            err_sdpa, ok_sdpa = logits_close(got, einsum_out[:, 0], 3e-2)
+            check(ok_plain, f"{cfg.name}: K7 on layer 0's cache differs from plain ({err_plain})")
+            check(rel_plain <= REL_TOL, f"{cfg.name}: K7 on layer 0's cache: a head's relative "
+                  f"error {rel_plain} > {REL_TOL}")
+            check(ok_sdpa, f"{cfg.name}: K7 on layer 0's cache differs from sdpa ({err_sdpa})")
+            out.update(k7_shape=[b, sc.cache_len(cfg), cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.head_dim, valid],
+                       k7_group=cfg.num_heads // cfg.num_kv_heads, k7_vs_plain_max_err=err_plain,
+                       k7_vs_plain_rel_err=rel_plain, k7_vs_sdpa_max_err=err_sdpa)
+            del q, kc, vc, einsum_out, got, want
+        del captured
+        if cuda:
+            out["bf16_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
         # ---- the whole-model checks, on the same weights in f32 ------------- #
+        del params["layers"][nl:]
+        if cuda:
+            torch.cuda.empty_cache()
         params32 = _upcast(params)
         del params
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.empty_cache()
-        ref, _ = forward(params32, cfg32, tokens, flash=False)
-        out["bf16_prefill_flash_vs_f32"] = logits_stats(logits, ref, 0.05)
-        out["bf16_prefill_einsum_vs_f32"] = logits_stats(einsum_logits, ref, 0.05)
-        del logits, einsum_logits
-        flash32, _ = forward(params32, cfg32, tokens)
-        st = logits_stats(flash32, ref, 1e-4)
-        out["f32_prefill_vs_einsum"] = st
-        check(st["over_tol"] == 0, f"f32 prefill: flash logits differ from the einsum path's beyond 1e-4 ({st})")
-        del flash32, ref
+        if gqa:  # the flash forward against the einsum forward
+            with RouteRecorder() as ref_routes:
+                ref, _ = forward(params32, cfg32, tokens, flash=False)
+            if not moe:
+                out["bf16_prefill_flash_vs_f32"] = logits_stats(logits, ref, 0.05)
+                out["bf16_prefill_einsum_vs_f32"] = logits_stats(einsum_logits, ref, 0.05)
+                del logits, einsum_logits
+            with RouteRecorder() as flash_routes:
+                flash32, _ = forward(params32, cfg32, tokens)
+            diff = routing_diff(ref_routes.calls, flash_routes.calls, k)
+            cut = s if diff["cut"] is None else diff["cut"]
+            held = logits_stats(flash32[:, :cut], ref[:, :cut], 1e-4) if cut else None
+            out["f32_prefill_vs_einsum"] = dict(
+                routing=diff, tokens=s, positions_held=cut, held=held,
+                after_cut=logits_stats(flash32[:, cut:], ref[:, cut:], 1e-4) if cut < s else None,
+                dropped_choices=ref_routes.dropped())
+            check(not diff["not_near_ties"], f"{cfg.name} f32 prefill: routing moved away from a "
+                  f"near tie (margin > {NEAR_TIE}): {diff['not_near_ties']}")
+            check(held is None or held["over_tol"] == 0,
+                  f"{cfg.name} f32 prefill: flash logits differ from the einsum path's beyond 1e-4 "
+                  f"where routing agrees ({held})")
+            del flash32, ref
+
         set_flash(flash_env)
+        if moe:  # stepped decode against the forward where no expert can overflow
+            m = STEP_TOKENS - 1  # the stepped logits' positions
+            short = ServeConfig(batch_size=1, context_len=STEP_TOKENS)
+            check(capacity_of(cfg32, STEP_TOKENS) == STEP_TOKENS,
+                  f"{cfg.name}: capacity_of({STEP_TOKENS}) is {capacity_of(cfg32, STEP_TOKENS)}")
+            with RouteRecorder() as step_routes:
+                seq8, steps8 = greedy_generate(params32, cfg32, prompt[:1, :STEP_TOKENS // 2],
+                                               STEP_TOKENS // 2, short, return_logits=True)
+            with RouteRecorder() as fwd_routes:
+                full8, _ = forward(params32, cfg32, seq8)
+            per_step = [[step_routes.calls[i * nl + layer] for i in range(m)] for layer in range(nl)]
+            stepped = [dict(probs=torch.cat([c["probs"] for c in calls]),
+                            experts=torch.cat([c["experts"] for c in calls]),
+                            keep=torch.cat([c["keep"] for c in calls])) for calls in per_step]
+            fwd = [dict(probs=c["probs"][:m], experts=c["experts"][:m], keep=c["keep"][:m])
+                   for c in fwd_routes.calls]
+            diff = routing_diff(fwd, stepped, k)
+            cut = m if diff["cut"] is None else diff["cut"]
+            held = logits_stats(steps8[:, :cut], full8[:, :cut], 1e-4) if cut else None
+            dropped = step_routes.dropped() + fwd_routes.dropped()
+            out["f32_decode_vs_forward"] = dict(routing=diff, tokens=STEP_TOKENS, positions_held=cut,
+                                                held=held, dropped=dropped)
+            check(not diff["not_near_ties"], f"{cfg.name} f32 decode: routing moved away from a "
+                  f"near tie: {diff['not_near_ties']}")
+            check(dropped == 0, f"{cfg.name} f32 decode: a choice was dropped at {STEP_TOKENS} tokens")
+            check(held is None or held["over_tol"] == 0,
+                  f"{cfg.name} f32 decode: stepped logits differ from the forward's beyond 1e-4 ({held})")
+            del seq8, steps8, full8
+        # the whole B x (prompt + gen) run: held in a dense row, reported in a
+        # MoE row, whose forward may drop choices the stepped run keeps
         seq32, steps32 = greedy_generate(params32, cfg32, prompt, n, sc, return_logits=True)
         check(torch.equal(seq32[:, :p], prompt), "f32 serving lost the prompt")
-        full32, _ = forward(params32, cfg32, seq32)
+        with RouteRecorder() as routes:
+            full32, _ = forward(params32, cfg32, seq32)
         st = logits_stats(steps32, full32[:, :-1], 1e-4)
-        out["f32_decode_vs_forward"] = st
-        check(st["over_tol"] == 0, f"f32 decode parity: stepped logits differ from the forward's beyond 1e-4 ({st})")
-        if torch.equal(seq32, seq):
-            out["bf16_steps_vs_f32_forward"] = logits_stats(step_logits, full32[:, :-1], 0.05)
-        del full32, steps32, step_logits, params32
+        if moe:
+            out["f32_long_decode_vs_forward"] = dict(st, tokens=b * (p + n),
+                                                     forward_dropped_choices=routes.dropped())
+        else:
+            out["f32_decode_vs_forward"] = st
+            check(st["over_tol"] == 0, f"f32 decode parity: stepped logits differ from the "
+                  f"forward's beyond 1e-4 ({st})")
+            if torch.equal(seq32, seq):
+                out["bf16_steps_vs_f32_forward"] = logits_stats(step_logits, full32[:, :-1], 0.05)
+            del step_logits
+        del seq32, steps32, full32, params32
     finally:
         attention.sdpa = orig_sdpa
         set_flash(saved_env)
-    if device.type == "cuda":
+    if cuda:
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
-    log(f"[serve] {cfg.name} prefill S={s}: per-layer K6 max err {out['prefill_layer_max_err']:.3g} "
-        f"(worst tile's relative error {out['prefill_layer_max_rel_err']:.3g}); "
-        f"f32 flash vs einsum {out['f32_prefill_vs_einsum']['max_abs_err']:.3g}, "
-        f"decode parity {out['f32_decode_vs_forward']['max_abs_err']:.3g}; bf16 flash vs einsum "
-        f"{out['bf16_prefill_vs_einsum']['max_abs_err']:.3g}; K7 on the served cache (valid {valid}) "
-        f"vs plain {err_plain:.3g} (relative {rel_plain:.3g}), vs sdpa {err_sdpa:.3g}")
+    f32p, f32d = out.get("f32_prefill_vs_einsum"), out["f32_decode_vs_forward"]
+    log(f"[serve] {cfg.name} ({reduced}), prefill S={s}: {out['prefill_s']:.3f} s"
+        + (f" (bound {out['prefill_bound_ms']:.1f} ms, {out['prefill_bound_by']}), "
+           f"{out['prefill_dropped_choices']} of {out['prefill_choices']} choices dropped" if moe else "")
+        + f"; decode step {out['step_ms']:.1f} ms at B {b}"
+        + (f" (bound {out['step_bound_ms']:.1f} ms)" if moe else "")
+        + (f"; per-layer K6 max err {out['prefill_layer_max_err']:.3g} (worst tile's relative error "
+           f"{out['prefill_layer_max_rel_err']:.3g}); K7 (group {out['k7_group']}, valid "
+           f"{out['k7_shape'][-1]}) vs plain {out['k7_vs_plain_max_err']:.3g} (relative "
+           f"{out['k7_vs_plain_rel_err']:.3g}), vs sdpa {out['k7_vs_sdpa_max_err']:.3g}" if gqa else "")
+        + (f"; f32 flash vs einsum: {f32p['routing']['flips']} flips, "
+           f"{f32p['routing']['reorders']} reorders (+{f32p['routing']['downstream']} "
+           f"downstream), {f32p['positions_held']} of "
+           f"{f32p['tokens']} positions held at 1e-4, max err "
+           f"{(f32p['held'] or {}).get('max_abs_err')}" if f32p else "")
+        + (f"; f32 decode vs forward at {STEP_TOKENS} tokens: {f32d['routing']['flips']} flips, "
+           f"{f32d['routing']['reorders']} reorders, "
+           f"max err {(f32d['held'] or {}).get('max_abs_err')}" if moe
+           else f"; f32 decode parity {f32d['max_abs_err']:.3g}")
+        + (f"; bf16 flash vs einsum {out['bf16_prefill_vs_einsum']['max_abs_err']:.3g}" if not moe
+           else ""))
     log("[serve] " + json.dumps(out))
-    return out
+    return out, expect
 
 
 # --------------------------------------------------------------------------- #
@@ -1101,6 +1398,81 @@ def _kernel_groups(top):
                 else "other")
         groups[kind] = groups.get(kind, 0.0) + k["ms"]
     return groups
+
+
+def op_recorder():
+    """A ``TorchDispatchMode`` that logs every aten op run under it, the
+    backward's included (the autograd engine carries the mode to its
+    threads): its name, call index, whether it ran on the backward's
+    thread, each tensor input's dtype, shape, strides and ``data_ptr() %
+    256`` (the alignment cuBLAS picks kernels by), and a checksum of its
+    outputs' bytes computed on their device (two int64 sums, one weighted
+    by position; none for an op that only allocates), so the log costs one
+    read-back at the end."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    def describe(t):
+        try:
+            ptr = t.data_ptr() % 256
+        except RuntimeError:
+            ptr = None
+        return dict(dtype=str(t.dtype).replace("torch.", ""), shape=list(t.shape),
+                    stride=list(t.stride()), ptr256=ptr)
+
+    def checksum(t):
+        t = t.detach()
+        if t.numel() == 0 or t.is_sparse:
+            return torch.zeros(2, dtype=torch.int64, device=t.device)
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        if b.numel() % 4 == 0:
+            b = b.view(torch.int32)
+        b = b.to(torch.int64)
+        return torch.stack([b.sum(), (b * torch.arange(1, b.numel() + 1, device=b.device)).sum()])
+
+    class OpRecord(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.sums = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [describe(a) for a in tree_flatten((args, kwargs))[0] if torch.is_tensor(a)]
+            outs = [o for o in tree_flatten(out)[0] if torch.is_tensor(o)]
+            if "empty" in func.__name__:  # memory not yet written
+                outs = []
+            self.ops.append(dict(op=str(func), backward=torch._C._current_graph_task_id() != -1,
+                                 inputs=ins))
+            self.sums.append([checksum(o) for o in outs])
+            return out
+
+        def read(self):
+            """The checksums on the host: one list of (sum, weighted sum) per op."""
+            return [[tuple(int(v) for v in s.cpu()) for s in sums] for sums in self.sums]
+
+    return OpRecord()
+
+
+def first_moved_op(rec_a, rec_b, sums_a, sums_b):
+    """The first op whose outputs differ between two recorded runs of the
+    same program (``None`` if none does), with both runs' inputs, and how
+    many ops differ in all."""
+    if [o["op"] for o in rec_a.ops] != [o["op"] for o in rec_b.ops]:
+        k = next((i for i, (x, y) in enumerate(zip(rec_a.ops, rec_b.ops)) if x["op"] != y["op"]),
+                 min(len(rec_a.ops), len(rec_b.ops)))
+        return dict(index=k, ops=[len(rec_a.ops), len(rec_b.ops)], reason="the op sequences differ",
+                    first=rec_a.ops[k]["op"] if k < len(rec_a.ops) else None,
+                    second=rec_b.ops[k]["op"] if k < len(rec_b.ops) else None)
+    moved = [i for i, (x, y) in enumerate(zip(sums_a, sums_b)) if x != y]
+    if not moved:
+        return None
+    k = moved[0]
+    return dict(index=k, ops=len(sums_a), ops_moved=len(moved),
+                first_backward_op=next((i for i, o in enumerate(rec_a.ops) if o["backward"]), None),
+                op=rec_a.ops[k]["op"], backward=rec_a.ops[k]["backward"],
+                inputs_first=rec_a.ops[k]["inputs"], inputs_second=rec_b.ops[k]["inputs"],
+                next_moved=[dict(index=i, op=rec_a.ops[i]["op"]) for i in moved[1:4]])
 
 
 def train_loop_check(device, arch, f):
@@ -1126,18 +1498,29 @@ def train_loop_check(device, arch, f):
     cpu = torch.device("cpu")
     runs = []  # the device's two runs, the host's two on one thread, the pool's
     threads = torch.get_num_threads()
+    records = []  # the device's two runs, op by op
     for where, one_thread in ((device, False), (device, False), (cpu, True), (cpu, True),
                               (cpu, False)):
         if one_thread:
             torch.set_num_threads(1)
+        rec = op_recorder() if len(records) < 2 else contextlib.nullcontext()
         t0 = time.perf_counter()
         try:
-            st, losses = train_loop(cfg32, steps=f["steps"], batch_size=f["batch"],
-                                    seq_len=f["seq"], log_every=10**9, device=where)
+            with rec:
+                st, losses = train_loop(cfg32, steps=f["steps"], batch_size=f["batch"],
+                                        seq_len=f["seq"], log_every=10**9, device=where)
         finally:
             torch.set_num_threads(threads)
+        if len(records) < 2:
+            records.append((rec, rec.read()))
         params = [x.detach().cpu() for x in tree_leaves(st["params"])]
         runs.append((params, losses, time.perf_counter() - t0))
+    (rec1, sums1), (rec2, sums2) = records
+    moved = first_moved_op(rec1, rec2, sums1, sums2)
+    log(f"[train] (d) the device's two runs, op by op ({len(sums1)} ops, "
+        f"{sum(o['backward'] for o in rec1.ops)} in the backward): "
+        + ("every op's output bitwise equal" if moved is None
+           else "the first op whose output differs: " + json.dumps(moved)))
     (pd, ld, td), (pd2, _, _), (ph, lh, th), (ph2, _, _), (pool, _, _) = runs
     paths = [p for p, _ in _leaf_paths(st["params"])]
     loss_err = max(abs(a - c) / abs(c) for a, c in zip(ld, lh))
@@ -1163,7 +1546,7 @@ def train_loop_check(device, arch, f):
                host_repeat_bitwise=all(torch.equal(x, y) for x, y in zip(ph, ph2)),
                largest_gap=dict(leaf=paths[k], index=idx, device=float(pd[k].flatten()[idx]),
                                 host=float(ph[k].flatten()[idx])),
-               leaf_rel_l2=leaf_err)
+               leaf_rel_l2=leaf_err, ops_recorded=len(sums1), first_moved_op=moved)
     log(f"[train] (d) f32 train_loop, {device} vs the host: " + json.dumps(out))
     check(loss_err <= 1e-5, f"train (d): f32 losses {ld} on {device} vs {lh} on the host")
     check(tree_err <= 1e-5, f"train (d): f32 params {tree_err} apart (relative L2)")
@@ -2089,7 +2472,7 @@ def run(device, scale):
     lap_rows["wide"] = compare_lap_bid((1, wide, wide), device, gen_late)
     fused_rows["wide"] = compare_lap_bid_fused((1, wide, wide), device, gen_late, tb="zero")
     mig_small = compare_migration_cost(48, device, gen_late)  # (g)'s 48 GPUs
-    k6_rows = [compare_flash_attention(shape, device, seed=10 + i, long=i > 0)
+    k6_rows = [compare_flash_attention(shape, device, seed=10 + i, long=shape[1] > 8192)
                for i, shape in enumerate(serve["k6_shapes"])]
     k7_rows = [compare_flash_decode(shape, device, seed=20 + i)
                for i, shape in enumerate(serve["k7_shapes"])]
@@ -2178,18 +2561,23 @@ def run(device, scale):
     replay_fused_steps(fsim_rec.fused, device, 1, "fused sim")
     fused_tie_break_check(device)
 
-    # ---- phase 5: serving llama3-8b ---------------------------------------- #
-    zero_counts()
-    t0 = time.perf_counter()
-    serve_row = serve_phase(device, serve)
-    serve_launches = read_counts()
-    log(f"[serve path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(serve_launches)}")
-    if device.type == "cuda":  # K6 once per layer of every flash forward
-        want = serve_row["flash_forwards"] * serve_row["layers"]
-        check(serve_launches["flash_attention"] == want,
-              f"the serving path launched flash_attention {serve_launches['flash_attention']} "
-              f"times, wanted {want}")
-        check(serve_launches["flash_decode"] == 1, "flash_decode was not launched on the served cache")
+    # ---- phase 5: serving llama3-8b (e, f), then the MoE and MLA families --- #
+    serve_paths = {}  # path -> its launches
+    for path, row_scale in [("serve", serve)] + [("serve_" + r["arch"], r)
+                                                 for r in scale.get("serve_moe", SERVE_MOE_REHEARSAL)]:
+        zero_counts()
+        t0 = time.perf_counter()
+        row, expect = serve_row(device, row_scale)
+        got = read_counts()
+        log(f"[{path} path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(got)}")
+        if device.type == "cuda":
+            want = dict.fromkeys(counted, 0)
+            want.update(expect)
+            check(got == want, f"the {path} path launched {got}, wanted {want}")
+            if not row["mla"]:
+                check(got["flash_attention"] > 0 and got["flash_decode"] == 1,
+                      f"the {path} path launched {got}: K6 and K7 must have run")
+        serve_paths[path] = got
 
     # ---- phase 6: the evaluation harness ------------------------------------ #
     zero_counts()
@@ -2272,8 +2660,9 @@ def run(device, scale):
         row = rows[0]  # the serving path's shape
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=serve_launches[name],
-            launches_by_path={"serve": serve_launches[name], "train": train_launches[name]},
+            launches=sum(n[name] for n in serve_paths.values()) + train_launches[name],
+            launches_by_path={**{path: n[name] for path, n in serve_paths.items()},
+                              "train": train_launches[name]},
             max_abs_err=row["max_abs_err"], rel_err=row["rel_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"], share_of_bound=row["share_of_bound"],

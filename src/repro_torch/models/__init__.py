@@ -1,4 +1,5 @@
-"""Workload substrate of the port: the dense GQA decoder in PyTorch.
+"""Workload substrate of the port: the decoder with GQA or MLA attention and
+dense or MoE feed-forwards, in PyTorch.
 
 ``get_model(cfg)`` returns a functional model namespace with
 
@@ -19,6 +20,6 @@ def get_model(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} is an encoder-decoder, a later slice of the "
-            "port (ROADMAP, queue: the MoE/MLA/SSM/hybrid/encdec families)"
+            "port (ROADMAP, queue: the SSM/hybrid/encdec families)"
         )
     return transformer

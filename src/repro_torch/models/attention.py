@@ -1,9 +1,9 @@
 """GQA attention (llama / qwen / dbrx / nemotron), QK-norm (qwen3), M-RoPE
-(qwen2-vl), sliding-window decode and its KV cache.
+(qwen2-vl), MLA (deepseek-v2), sliding-window decode and the KV caches.
 
-PyTorch counterpart of the GQA half of the JAX package's
-``models/attention.py``; MLA is a later slice of the port.  The sharding
-hints (``constrain``) have no counterpart on one card and are dropped.
+PyTorch counterpart of the JAX package's ``models/attention.py``.  The
+sharding hints (``constrain``) have no counterpart on one card and are
+dropped.
 
 The scaled-dot-product core :func:`sdpa` has two branches, as in the
 reference: the flash kernel (``kernels/flash_attention.py``) for a causal
@@ -25,6 +25,14 @@ The flash branch routes query head ``h`` to KV head ``h // (H/KV)`` inside
 the kernel instead of repeating the KV heads, and reads q/k/v in their
 (B, S, heads, D) layout by strides, so the three transposes of the
 reference's flash branch are gone too.
+
+MLA's queries and keys have head dim ``qk_nope_dim + qk_rope_dim`` (192 in
+DeepSeek-V2) and its values ``v_head_dim`` (128).  No K6 instance takes
+the first, so ``sdpa`` routes MLA to the einsum path, which takes v's own
+head dim; ``REPRO_USE_FLASH=1`` raises there, as the reference's flash
+branch fails on q/k and v of different head dims (ROADMAP F7).  MLA's
+decode step is the reference's absorbed form over the latent cache, with
+the whole score path in f32.
 """
 
 from __future__ import annotations
@@ -69,6 +77,22 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
         p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
     return p
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    """DeepSeek-V2 multi-head latent attention parameters."""
+    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        # queries (undecomposed, as in the reference)
+        "wq": dense_init(gen, d, (h, qn + qr), dtype),
+        # compressed KV latent + decoupled rope key
+        "wkv_a": dense_init(gen, d, (r + qr,), dtype),
+        "kv_norm": torch.zeros((r,), dtype=dtype, device=gen.device),
+        # up-projection from the latent to per-head K_nope and V
+        "wkv_b": dense_init(gen, r, (h, qn + vd), dtype),
+        "wo": dense_init(gen, h * vd, d, dtype),
+    }
 
 
 # --------------------------------------------------------------------------- #
@@ -194,3 +218,88 @@ def gqa_decode_step(
     valid = torch.clamp(pos + 1, max=cache_len) if torch.is_tensor(pos) else min(pos + 1, cache_len)
     out = sdpa(q, cache["k"], cache["v"], causal=False, kv_valid_len=valid)
     return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------- #
+# MLA (deepseek-v2)
+# --------------------------------------------------------------------------- #
+def _mla_latent(p, cfg: ModelConfig, x, positions):
+    """Queries split into their no-rope and roped parts (B, S, H, qn / qr),
+    the normed KV latent (B, S, r) and the roped shared key (B, S, 1, qr)."""
+    b, s, d = x.shape
+    qn, r = cfg.qk_nope_dim, cfg.kv_lora_rank
+    q = (x @ p["wq"].reshape(d, -1)).view(b, s, *p["wq"].shape[1:])
+    q_nope, q_rope = q[..., :qn], apply_rope(q[..., qn:], positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"]  # (B, S, r + qr)
+    ckv = rms_norm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., None, r:], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_forward(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, D)
+    positions: torch.Tensor,  # (B, S)
+    mrope_positions=None,
+    causal: bool = True,
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    h, qn, qr, vd, r = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    q_nope, q_rope, ckv, k_rope = _mla_latent(p, cfg, x, positions)
+    kv_up = (ckv @ p["wkv_b"].reshape(r, -1)).view(b, s, h, qn + vd)
+    k_nope, v = kv_up[..., :qn], kv_up[..., qn:]
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, qr)], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    out = sdpa(qq, k, v, causal=causal)
+    return out.reshape(b, s, h * vd) @ p["wo"]
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -> Dict:
+    """MLA's memory win: the cache holds the r-dim latent and the rope key,
+    not per-head K/V: (r + qr) values per token against 2 * H * hd."""
+    return {
+        "ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+    }
+
+
+def mla_decode_step(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: Dict,
+    pos,  # int or 0-d tensor
+) -> Tuple[torch.Tensor, Dict]:
+    """One decode step of absorbed attention over the latent cache, written
+    into ``cache`` in place (slot ``pos % cache_len``) as
+    :func:`gqa_decode_step` does."""
+    b = x.shape[0]
+    h, qn, qr, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    positions = torch.as_tensor(pos, device=x.device).expand(b, 1)
+    q_nope, q_rope, ckv_new, k_rope_new = _mla_latent(p, cfg, x, positions)
+
+    cache_len = cache["ckv"].shape[1]
+    slot = pos % cache_len
+    cache["ckv"][:, slot] = ckv_new[:, 0]
+    cache["k_rope"][:, slot] = k_rope_new[:, 0, 0]
+    valid = torch.clamp(pos + 1, max=cache_len) if torch.is_tensor(pos) else min(pos + 1, cache_len)
+    ckv = cache["ckv"].float()
+
+    # Absorbed attention: score = q_nope^T (W_b^K ckv_t) + q_rope^T k_rope_t,
+    # the whole score path in f32 as in the reference (letting the absorbed
+    # intermediates round to bf16 loses prefill parity there).
+    wkb_k = p["wkv_b"][..., :qn].float()  # (r, H, qn)
+    q_latent = torch.einsum("bshe,rhe->bshr", q_nope.float(), wkb_k)  # (B, 1, H, r)
+    logits = torch.einsum("bshr,btr->bhst", q_latent, ckv)
+    logits = logits + torch.einsum("bshe,bte->bhst", q_rope.float(), cache["k_rope"].float())
+    logits = logits * (1.0 / ((qn + qr) ** 0.5))
+    mask = torch.arange(cache_len, device=x.device)[None, None, None, :] < valid
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    # out = probs @ V with V = W_b^V ckv, absorbed: the latent first
+    lat = torch.einsum("bhst,btr->bshr", probs, ckv)
+    out = torch.einsum("bshr,rhe->bshe", lat, p["wkv_b"][..., qn:].float())
+    out = out.to(x.dtype).reshape(b, 1, h * vd)
+    return out @ p["wo"], cache

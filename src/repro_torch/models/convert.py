@@ -4,6 +4,9 @@
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the port's params dict: the same nested keys and layouts, with the leading
 L axis of ``tree["layers"]`` un-stacked into a list of per-layer dicts.
+Every leaf keeps its dtype, so a MoE layer's ``moe`` dict arrives with its
+f32 router, its experts stacked on E and its ``shared`` FFN, and an MLA
+layer's ``attn`` with its latent projections and ``kv_norm``.
 ``train_state_from_jax(tree, cfg, device)`` does the same for a training
 state ``{"params", "opt": {"m", "v", "step"}}``.
 """

@@ -1,7 +1,7 @@
-"""Dense decoder-only transformer (the GQA families: llama, qwen3, qwen2-vl,
-deepseek-67b, nemotron).
+"""Decoder-only transformer: dense GQA (llama, qwen3, qwen2-vl, deepseek-67b,
+nemotron), MoE (dbrx) and MLA + MoE with shared experts (deepseek-v2).
 
-PyTorch counterpart of the dense path of the JAX package's
+PyTorch counterpart of the attention-layer path of the JAX package's
 ``models/transformer.py``.  Params are plain nested dicts of tensors in the
 reference's layouts, with one difference: ``params["layers"]`` is a Python
 list of per-layer dicts (the reference stacks them on a leading L axis for
@@ -16,9 +16,11 @@ Batch dict keys:
   image_embeds      (B, P, D)                 — vlm frontend stub (prepended)
   mrope_positions   (3, B, S_total) int       — optional (vlm)
 
-The MoE, MLA, SSM and hybrid families are later slices of the port
-(ROADMAP, queue: the MoE/MLA/SSM/hybrid/encdec families) and raise
-``NotImplementedError`` here.
+A layer holds ``"moe"`` or ``"ffn"`` and MLA or GQA attention, as in the
+reference; ``forward`` returns the MoE layers' aux losses summed over the
+layers.  The SSM and hybrid families are later slices of the port (ROADMAP,
+queue: the SSM/hybrid/encdec families) and raise ``NotImplementedError``
+here.
 """
 
 from __future__ import annotations
@@ -34,13 +36,11 @@ from repro_torch.models.layers import dtype_of, embed_init, dense_init, rms_norm
 from repro_torch.models.scan_util import remat
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type in ("ssm", "hybrid") or cfg.num_experts or cfg.use_mla:
+def _require_attention_layers(cfg: ModelConfig) -> None:
+    if cfg.arch_type in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"repro_torch: {cfg.name} needs the "
-            f"{'SSM/hybrid' if cfg.arch_type in ('ssm', 'hybrid') else 'MoE' if cfg.num_experts else 'MLA'}"
-            " layers, which are a later slice of the port (ROADMAP, queue: the "
-            "MoE/MLA/SSM/hybrid/encdec families)"
+            f"repro_torch: {cfg.name} needs the SSM/hybrid layers, which are a later "
+            "slice of the port (ROADMAP, queue: the SSM/hybrid/encdec families)"
         )
 
 
@@ -49,17 +49,21 @@ def _require_dense(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     zeros = dict(dtype=dtype, device=gen.device)
-    return {
+    p = {
         "norm1": torch.zeros((cfg.d_model,), **zeros),
         "norm2": torch.zeros((cfg.d_model,), **zeros),
-        "attn": attn_lib.init_gqa(gen, cfg, dtype),
-        "ffn": mlp_lib.init_ffn(gen, cfg, cfg.d_ff, dtype),
+        "attn": (attn_lib.init_mla if cfg.use_mla else attn_lib.init_gqa)(gen, cfg, dtype),
     }
+    if cfg.num_experts:
+        p["moe"] = mlp_lib.init_moe(gen, cfg, dtype)
+    else:
+        p["ffn"] = mlp_lib.init_ffn(gen, cfg, cfg.d_ff, dtype)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random params on ``gen``'s device (a seeded ``torch.Generator``)."""
-    _require_dense(cfg)
+    _require_attention_layers(cfg)
     dtype = dtype_of(cfg.dtype)
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
@@ -75,10 +79,15 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 # Layer body
 # --------------------------------------------------------------------------- #
 def _attn_layer(p, cfg: ModelConfig, x, positions, mrope_positions):
+    """(the layer's output, its aux loss: the MoE's, else None)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + attn_lib.gqa_forward(p["attn"], cfg, h, positions, mrope_positions)
+    attend = attn_lib.mla_forward if cfg.use_mla else attn_lib.gqa_forward
+    x = x + attend(p["attn"], cfg, h, positions, mrope_positions)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_lib.ffn(p["ffn"], cfg, h)
+    if "moe" in p:
+        f, aux = mlp_lib.moe_ffn(p["moe"], cfg, h)
+        return x + f, aux
+    return x + mlp_lib.ffn(p["ffn"], cfg, h), None
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -107,14 +116,19 @@ def embed_inputs(
 
 def forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S_total, V), aux_loss scalar)."""
-    _require_dense(cfg)
+    _require_attention_layers(cfg)
     x, positions, mrope_positions = embed_inputs(params, cfg, batch)
+    auxes = []
     for layer_p in params["layers"]:
         if _records(x, layer_p):
-            x = remat(_attn_layer, layer_p, cfg, x, positions, mrope_positions)
+            x, aux = remat(_attn_layer, layer_p, cfg, x, positions, mrope_positions)
         else:
-            x = _attn_layer(layer_p, cfg, x, positions, mrope_positions)
-    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _attn_layer(layer_p, cfg, x, positions, mrope_positions)
+        if aux is not None:
+            auxes.append(aux)
+    if not auxes:
+        return _head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, cfg, x), torch.stack(auxes).sum()
 
 
 def _records(x, layer_p) -> bool:
@@ -137,14 +151,11 @@ def _records(x, layer_p) -> bool:
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, device) -> Dict:
     """cache_len: serving context (for sliding-window archs pass the window)."""
-    _require_dense(cfg)
+    _require_attention_layers(cfg)
     dtype = dtype_of(cfg.dtype)
-    return {
-        "layers": [
-            attn_lib.init_gqa_cache(cfg, batch_size, cache_len, dtype, device)
-            for _ in range(cfg.num_layers)
-        ]
-    }
+    init_layer = attn_lib.init_mla_cache if cfg.use_mla else attn_lib.init_gqa_cache
+    return {"layers": [init_layer(cfg, batch_size, cache_len, dtype, device)
+                       for _ in range(cfg.num_layers)]}
 
 
 def decode_step(params, cfg: ModelConfig, batch, cache: Dict, pos) -> Tuple[torch.Tensor, Dict]:
@@ -153,12 +164,16 @@ def decode_step(params, cfg: ModelConfig, batch, cache: Dict, pos) -> Tuple[torc
     ``pos`` is the absolute position (cache slot = pos % cache_len for
     sliding-window ring buffers).  The cache is updated in place and
     returned."""
-    _require_dense(cfg)
+    _require_attention_layers(cfg)
     x = params["embed"][batch["tokens"]]  # (B, 1, D)
+    step = attn_lib.mla_decode_step if cfg.use_mla else attn_lib.gqa_decode_step
     for layer_p, layer_c in zip(params["layers"], cache["layers"]):
         h = rms_norm(x, layer_p["norm1"], cfg.norm_eps)
-        a, _ = attn_lib.gqa_decode_step(layer_p["attn"], cfg, h, layer_c, pos)
+        a, _ = step(layer_p["attn"], cfg, h, layer_c, pos)
         x = x + a
         h = rms_norm(x, layer_p["norm2"], cfg.norm_eps)
-        x = x + mlp_lib.ffn(layer_p["ffn"], cfg, h)
+        if "moe" in layer_p:
+            x = x + mlp_lib.moe_ffn(layer_p["moe"], cfg, h)[0]
+        else:
+            x = x + mlp_lib.ffn(layer_p["ffn"], cfg, h)
     return _head(params, cfg, x), cache

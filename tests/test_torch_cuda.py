@@ -774,7 +774,7 @@ def _cuda_attn(seed, b, s, h, kv, d, dtype, device):
     return q, k, v
 
 
-@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("g", [1, 4, 5, 6, 8])  # 5: qwen3-14b's 40/8, 6: dbrx's 48/8
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 256, 257, 1000, 4113])
@@ -844,7 +844,7 @@ _RING = {64: 4 * 64, 128: 3 * 64}  # slots in a full ring of the bf16 kernel
 
 
 @pytest.mark.parametrize("single_split", [True, False])
-@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("g", [1, 4, 5, 6, 8])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("valid", ["0", "1", "63", "64", "65", "ring+1", "2ring+1", "S"])
 def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
@@ -985,3 +985,106 @@ def test_checkpoint_round_trip_from_card_tensors(cuda, tmp_path):
     assert at == 1
     for (path_, g), (_, w) in zip(_paths(restored), _paths(state), strict=True):
         assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w), path_
+
+
+# --------------------------------------------------------------------------- #
+# MoE and MLA on the card against the same on the CPU (f32)
+# --------------------------------------------------------------------------- #
+def _routes_of(monkeypatch):
+    from repro_torch.models import mlp
+
+    routes, real = [], mlp.moe_route
+    monkeypatch.setattr(mlp, "moe_route", lambda *a: routes.append(real(*a)) or routes[-1])
+    return routes
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("groups", ["1", "2"])
+def test_moe_ffn_on_card_equals_cpu_in_f32(cuda, monkeypatch, arch, groups):
+    """The reduced config's MoE layer in f32 on tokens that overflow an
+    expert: the card routes exactly as the CPU (experts, slots, keep), and
+    its output is within 1e-5 of the CPU's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import mlp
+
+    monkeypatch.setenv("REPRO_MOE_GROUPS", groups)
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    p = mlp.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
+    g = torch.Generator().manual_seed(1)
+    r0 = p["router"][:, 0]
+    x = torch.randn((2, 48, cfg.d_model), generator=g) + 3 * cfg.d_model**0.5 * r0 / r0.norm()
+    routes = _routes_of(monkeypatch)
+    want, waux = mlp.moe_ffn(p, cfg, x)
+    on_card = {k: (v.to(cuda) if torch.is_tensor(v) else {kk: vv.to(cuda) for kk, vv in v.items()})
+               for k, v in p.items()}
+    got, gaux = mlp.moe_ffn(on_card, cfg, x.to(cuda))
+    host, card = routes
+    assert not bool(host["keep"].all())
+    for key in ("experts", "pos", "keep"):
+        assert torch.equal(card[key].cpu(), host[key]), key
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert abs(float(gaux) - float(waux)) <= 1e-6 * abs(float(waux))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-236b"])
+def test_moe_model_forward_and_decode_on_card_equal_cpu_in_f32(cuda, monkeypatch, arch):
+    """The reduced MoE / MLA model in f32: the card's forward logits within
+    1e-4 of the CPU's with every layer routed the same, and 6 decode steps
+    at batch 2 within 1e-4."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import get_model
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cfg)
+    card_params = _to(params, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(2))
+    routes = _routes_of(monkeypatch)
+    want, waux = model.forward(params, cfg, {"tokens": tokens})
+    got, gaux = model.forward(card_params, cfg, {"tokens": tokens.to(cuda)})
+    host, card = routes[:cfg.num_layers], routes[cfg.num_layers:]
+    for h, c in zip(host, card, strict=True):
+        for key in ("experts", "pos", "keep"):
+            assert torch.equal(c[key].cpu(), h[key]), key
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert abs(float(gaux) - float(waux)) <= 1e-6 * abs(float(waux))
+    hc, cc = model.init_cache(cfg, 2, 8, "cpu"), model.init_cache(cfg, 2, 8, cuda)
+    for i in range(6):
+        t = tokens[:, i:i + 1]
+        hl, hc = model.decode_step(params, cfg, {"tokens": t}, hc, i)
+        cl, cc = model.decode_step(card_params, cfg, {"tokens": t.to(cuda)}, cc, i)
+        torch.testing.assert_close(cl.cpu(), hl, rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+# --------------------------------------------------------------------------- #
+# the initial state train_loop draws on the host
+# --------------------------------------------------------------------------- #
+def test_host_init_draws_the_same_bits_at_every_address_and_thread_count():
+    """``train_loop`` draws its initial state on the host and moves it to
+    the card, so the draw must not depend on where the buffer lies or how
+    many threads fill it: the port's truncated normal, drawn from one seed
+    into buffers at 64 addresses 4 bytes apart and under 1, 2 and 8 intra-op
+    threads, gives the same bits every time.  Needs no card."""
+    from repro_torch.models.layers import trunc_normal_
+
+    n, threads = 256 * 4 * 64, torch.get_num_threads()
+    buf = torch.empty(n + 64)
+    first = trunc_normal_(buf[:n], torch.Generator().manual_seed(0)).clone()
+    for i in range(1, 64):
+        w = trunc_normal_(buf[i:i + n], torch.Generator().manual_seed(0))
+        assert torch.equal(w, first), f"address {buf[i:].data_ptr() % 256} mod 256"
+    try:
+        for t in (1, 2, 8):
+            torch.set_num_threads(t)
+            assert torch.equal(trunc_normal_(buf[:n], torch.Generator().manual_seed(0)), first), t
+    finally:
+        torch.set_num_threads(threads)

@@ -454,7 +454,7 @@ def test_ring_buffer_past_the_window_matches_jax():
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "dbrx-132b", "deepseek-v2-236b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
 def test_later_families_raise(arch):
     cfg = get_reduced(arch)
     with pytest.raises(NotImplementedError, match="later slice"):

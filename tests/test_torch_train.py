@@ -4,7 +4,8 @@ Inputs are made with numpy from a seed and handed to both packages; the
 JAX package's params and train state are carried into the port by
 ``params_from_jax`` / ``train_state_from_jax``.  Covered: the data
 pipeline (byte for byte), AdamW, the loss and one train step (microbatches
-1 and 2, the five dense archs' reduced configs, f32 and bf16), the remat
+1 and 2, the five dense archs' reduced configs, f32 and bf16, and in f32 the
+MoE and MLA archs, whose loss carries the routers' aux), the remat
 policies, checkpoint files in both directions, ``train_loop``, the routing
 rule that keeps the flash kernel off the autograd path (ROADMAP D8), the
 two knobs of the einsum ``sdpa``, and the launcher.  The training path
@@ -38,6 +39,8 @@ from repro_torch.train.optimizer import tree_leaves
 from tests.test_torch_round import _one_torch_thread  # noqa: F401  (autouse)
 
 DENSE = ["llama3-8b", "deepseek-67b", "qwen3-14b", "nemotron-4-340b", "qwen2-vl-2b"]
+#: MoE (dbrx) and MLA + MoE (deepseek-v2): their loss carries the routers' aux
+MOE = ["dbrx-132b", "deepseek-v2-236b"]
 F32_TOL = 1e-5  # relative L2, every leaf and metric, in f32
 BF16_TOL = 2e-2  # relative, the loss and grad norm in each arch's default bf16
 BATCH, SEQ = 2, 32
@@ -268,7 +271,7 @@ def _one_step_both(arch, dtype, microbatches):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_train_step_equals_jax_in_f32(arch, microbatches):
     """In f32: ``loss_fn`` on the initial params, and the step's loss, nll,
     z-loss and grad norm, every updated parameter and both moments within
