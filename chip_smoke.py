@@ -10,8 +10,9 @@ Tesserae round at 2048 GPUs (512 nodes x 4) through the entry points a
 user calls — ``TesseraeScheduler.decide`` and ``Simulator.run`` with
 ``lap_backend="auction_kernel"``, then the same with the fused migrate
 stage (``fused_fanout=True``) — serves Llama-3-8B at full width and
-depth (``transformer.forward`` prefill, ``greedy_generate``) and the MoE
-and MLA families at full width (DBRX-132B, DeepSeek-V2-236B), runs the
+depth (``transformer.forward`` prefill, ``greedy_generate``), the MoE
+and MLA families at full width (DBRX-132B, DeepSeek-V2-236B) and the SSM
+and hybrid families at full width and depth (Mamba2-780M, Zamba2-2.7B), runs the
 paper's evaluation harness (``repro_torch.benchmarks.evaluate`` and
 ``.scalability``), trains Llama-3-8B at full width (``make_train_step``,
 ``save_checkpoint``/``restore_checkpoint``, ``train_loop``), and checks what
@@ -19,9 +20,10 @@ comes out:
 
 1. environment: the card, torch/CUDA versions, the kernels' build time;
    what ``ptxas`` gave each attention kernel instance (registers, static
-   shared memory, spills), and the ``HGMMA`` (wgmma) instructions in the
-   SASS of the bf16 ``flash_attention`` instances (``cuobjdump -sass``),
-   which must not be zero;
+   shared memory, spills; the head-dim-80 instances must not spill), and
+   the ``HGMMA`` (wgmma) instructions in the SASS of the bf16
+   ``flash_attention`` instances (``cuobjdump -sass``), which must not be
+   zero;
 2. kernels vs their plain versions at the main path's shapes (exact,
    ``lap_bid_fused_batched`` bit for bit also on non-integer costs; the bid
    kernels also at 1x4096x4096, more than the L2 holds, and
@@ -45,7 +47,8 @@ comes out:
    "auction_kernel")`` at 64x6000 with scipy's cost;
    ``flash_attention`` and ``flash_decode`` in bf16 at 3e-2 and within 1e-2
    relative L2 error per 128-query tile / per head, at the serving path's
-   shapes and at ``prefill_32k`` / ``decode_32k``'s length), with
+   shapes, at ``prefill_32k`` / ``decode_32k``'s length and at zamba2's
+   head dim 80 (K6 also in f32 there, within 2e-5), with
    kernel / plain / bound / library times (and, for the attention kernels,
    the share of the bound and the ratio to the library call); a causal
    ``sdpa`` at head dim 192 (no flash instance) runs the einsum path on the
@@ -78,7 +81,14 @@ comes out:
    row its own path with the counters zeroed before and read after:
    ``llama3-8b`` at full width and depth, then the MoE and MLA families at
    full width, (e2) ``dbrx-132b`` on 8 of 40 layers and (e3)
-   ``deepseek-v2-236b`` on 6 of 60.  (e) a prefill forward of 8192 random
+   ``deepseek-v2-236b`` on 6 of 60, then the SSM and the hybrid at full
+   width and depth, (e4) ``mamba2-780m`` (no attention: no kernel may
+   launch) and (e5) ``zamba2-2.7b`` (K6 at head dim 80 once per
+   application of its shared block, 6 a forward; K7 on group 0's cache),
+   with 64 + 64 tokens served (one ``ssm_chunk``) and their f32 checks at
+   full depth (stepped decode against the forward; (e5)'s flash forward
+   against the einsum forward), which print the first block where the two
+   paths part if they miss 1e-4 (:func:`first_parting_block`).  (e) a prefill forward of 8192 random
    tokens (2048 for (e3)): GQA at D 128 on the flash branch (sdpa's default
    on CUDA; K6 launched once per layer, 48/8 heads in (e2)), each layer's
    K6 output held to the plain version on that layer's q/k/v (3e-2; 1e-2
@@ -184,10 +194,13 @@ FULL = dict(
         arch="llama3-8b", reduced=False, prefill_s=8192, batch=8, prompt=32, gen=32,
         context=8192,
         # kernel rows: (B, S, H, KV, D) for flash_attention, (B, S, H, KV, D,
-        # valid) for flash_decode; the first of each is the path's shape
-        k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128)],
+        # valid) for flash_decode; the first of each is the path's shape, the
+        # last zamba2's shared block (D 80, row (e5)); K6 in f32 at D 80 too
+        k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128),
+                   (1, 8192, 32, 32, 80)],
+        k6_f32_shapes=[(1, 8192, 32, 32, 80)],
         k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768),
-                   (8, 8192, 48, 8, 128, 63)],
+                   (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63)],
     ),
     # phase 5, rows (e2) and (e3): dbrx-132b (8 of 40 layers, 54.6 GB of bf16
     # weights) and deepseek-v2-236b (6 of 60 layers, 50.7 GB) at full width.
@@ -198,6 +211,15 @@ FULL = dict(
              gen=32, context=8192),
         dict(arch="deepseek-v2-236b", reduced=False, layers=6, prefill_s=2048, batch=8,
              prompt=32, gen=32, context=8192),
+    ],
+    # phase 5, rows (e4) and (e5): mamba2-780m (1.56 GB of bf16 weights) and
+    # zamba2-2.7b (4.8 GB) at full width and depth; prompt + gen is one
+    # ssm_chunk (128), so the forward over the generated tokens is legal
+    serve_ssm=[
+        dict(arch="mamba2-780m", reduced=False, prefill_s=8192, batch=8, prompt=64, gen=64,
+             context=8192),
+        dict(arch="zamba2-2.7b", reduced=False, prefill_s=8192, batch=8, prompt=64, gen=64,
+             context=8192),
     ],
     # phase 6: BENCH_endtoend.json's whole sweep, and the scalability
     # benchmark's Part 1 (256 GPUs) and Part 2 (up to 2048 GPUs)
@@ -220,7 +242,8 @@ SCALABILITY_REHEARSAL = dict(job_counts=[128], clusters=[(16, 4)])
 #: the CPU rehearsal's serve scale (reduced llama3-8b, S = 64)
 SERVE_REHEARSAL = dict(
     arch="llama3-8b", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64,
-    k6_shapes=[(1, 64, 4, 2, 64)], k7_shapes=[(2, 64, 4, 2, 64, 15)],
+    k6_shapes=[(1, 64, 4, 2, 64), (1, 64, 4, 4, 80)], k6_f32_shapes=[(1, 64, 4, 4, 80)],
+    k7_shapes=[(2, 64, 4, 2, 64, 15), (2, 64, 4, 4, 80, 15)],
 )
 
 
@@ -228,6 +251,13 @@ SERVE_REHEARSAL = dict(
 SERVE_MOE_REHEARSAL = [
     dict(arch=arch, reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64)
     for arch in ("dbrx-132b", "deepseek-v2-236b")
+]
+
+#: the CPU rehearsal's rows (e4) and (e5): the reduced mamba2 and zamba2
+#: (one 32-token ssm_chunk of prompt + gen)
+SERVE_SSM_REHEARSAL = [
+    dict(arch=arch, reduced=True, prefill_s=64, batch=2, prompt=16, gen=16, context=64)
+    for arch in ("mamba2-780m", "zamba2-2.7b")
 ]
 
 #: the CPU rehearsal's phase 7 (reduced llama3-8b)
@@ -770,10 +800,18 @@ def rel_err(got, want, group=1):
     return float((d2 / w2.clamp_min(1e-30)).sqrt().max())
 
 
-def compare_flash_attention(shape, device, seed, long=False):
-    """``flash_attention`` (K6) against its plain version on random bf16
-    q (B, S, H, D) and k/v (B, S, KV, D), causal, at 3e-2 and, per
-    128-query tile, within ``REL_TOL`` relative L2 error."""
+#: the attention kernels' absolute gate against the plain version, by dtype
+#: (f32 runs on CUDA cores, whose sums differ from the plain version's in
+#: order only)
+ATTN_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+
+
+def compare_flash_attention(shape, device, seed, long=False, dtype="bfloat16"):
+    """``flash_attention`` (K6) against its plain version on random q
+    (B, S, H, D) and k/v (B, S, KV, D) of ``dtype``, causal, at
+    ``ATTN_TOL`` and, per 128-query tile, within ``REL_TOL`` relative L2
+    error.  The bound counts bf16 work at the tensor cores' peak and f32
+    work at the CUDA cores' (the f32 instance's)."""
     import torch
     import torch.nn.functional as F
 
@@ -781,17 +819,19 @@ def compare_flash_attention(shape, device, seed, long=False):
 
     b, s, h, kv, d = shape
     gen = torch.Generator(device=device).manual_seed(seed)
+    tdtype, tol = getattr(torch, dtype), ATTN_TOL[dtype]
 
     def rand(*sh):
-        return torch.randn(sh, generator=gen, device=device).to(torch.bfloat16)
+        return torch.randn(sh, generator=gen, device=device).to(tdtype)
 
     q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
     got = flash_attention(q, k, v, causal=True)
     want = flash_attention_plain(q, k, v, causal=True)
-    err, ok = logits_close(got.reshape(b, s, -1), want.reshape(b, s, -1), 3e-2)
-    check(ok, f"flash_attention {shape}: differs from plain beyond 3e-2 (max {err})")
+    err, ok = logits_close(got.reshape(b, s, -1), want.reshape(b, s, -1), tol)
+    check(ok, f"flash_attention {shape} {dtype}: differs from plain beyond {tol} (max {err})")
     rel = rel_err(got, want, 128)
-    check(rel <= REL_TOL, f"flash_attention {shape}: a query tile's relative error {rel} > {REL_TOL}")
+    check(rel <= REL_TOL, f"flash_attention {shape} {dtype}: a query tile's relative error {rel} > "
+          f"{REL_TOL}")
 
     def library():
         return F.scaled_dot_product_attention(
@@ -803,14 +843,15 @@ def compare_flash_attention(shape, device, seed, long=False):
     if not long:  # the yardstick computes the same function
         lib_err, lib_ok = logits_close(library().transpose(1, 2).reshape(b, s, -1),
                                        want.reshape(b, s, -1), 3e-2)
-        check(lib_ok, f"flash_attention {shape}: scaled_dot_product_attention disagrees ({lib_err})")
+        check(lib_ok, f"flash_attention {shape} {dtype}: scaled_dot_product_attention disagrees "
+              f"({lib_err})")
     del got, want
     g = dict(reps=2, replays=1, warmup=1) if long else dict(reps=5, replays=2, warmup=2)
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)  # q, out; k, v (bf16)
+    nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kv * d)  # q, out; k, v
     ops = 4 * b * h * s * s * d // 2  # causal: half of the S x S products
-    bnd, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S)
+    bnd, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_F32_OPS_PER_S)
     row = dict(
-        shape=list(shape), dtype="bfloat16", causal=True, max_abs_err=err, rel_err=rel,
+        shape=list(shape), dtype=dtype, causal=True, max_abs_err=err, rel_err=rel,
         library_err=lib_err,
         ms=graph_ms(lambda: flash_attention(q, k, v, causal=True), device, **g),
         eager_ms=timed(lambda: flash_attention(q, k, v, causal=True), device, g["reps"], 1),
@@ -821,8 +862,8 @@ def compare_flash_attention(shape, device, seed, long=False):
     )
     row["tflops"] = ops / row["ms"] / 1e9
     row.update(share_of_bound=bnd / row["ms"], x_library=row["ms"] / row["library_ms"])
-    log(f"[kernel] flash_attention {shape}: within 3e-2 of plain, worst tile's relative error "
-        f"{rel:.3g} (limit {REL_TOL}); " + json.dumps(row))
+    log(f"[kernel] flash_attention {shape} {dtype}: within {tol} of plain, worst tile's relative "
+        f"error {rel:.3g} (limit {REL_TOL}); " + json.dumps(row))
     return row
 
 
@@ -1046,6 +1087,105 @@ def moe_row_bounds(cfg, s, batch, cache_len):
                 step_bound_ms=(weights + cache) / PEAK_BYTES_PER_S * 1e3, weight_bytes=weights)
 
 
+def attention_calls(cfg) -> int:
+    """Attention applications in one forward or decode step: every layer of
+    an attention model, the hybrid's shared block once per group of
+    ``hybrid_attn_every`` SSM layers, none in the SSM."""
+    if cfg.arch_type == "ssm":
+        return 0
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    return cfg.num_layers
+
+
+def ssm_row_bounds(cfg, s, batch, cache_len):
+    """The least time a prefill of B 1 x ``s`` tokens and a decode step at
+    ``batch`` of an SSM or hybrid row could take on the card.  The prefill's
+    operations are those the chunked SSD does as written (its full Q x Q
+    intra-chunk products, the chunk states, the inter-chunk read-out), the
+    weight GEMMs, the shared block's (the causal attention core at half of
+    S x S) and the head, at the bf16 peak; its bytes the weights read once.
+    A decode step reads every weight, reads and writes every layer's f32
+    recurrent state, and reads the shared caches' valid half at most."""
+    d, di, n, h, q = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_chunk
+    per_token = 2 * d * (2 * di + 2 * n + h) + 2 * di * d  # in_proj, out_proj
+    per_token += 2 * q * n + 2 * q * di + 4 * di * n  # scores, weights x, states, read-out
+    ops = cfg.num_layers * s * per_token + 2 * s * d * cfg.vocab_size
+    calls = attention_calls(cfg)
+    shared_cache = 0
+    if calls:
+        hd, heads, kv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        block = 2 * 2 * d * d + 2 * d * (heads + 2 * kv) * hd + 2 * heads * hd * d
+        block += 2 * cfg._ffn_params(cfg.d_ff)
+        ops += calls * (s * block + 4 * heads * s * s // 2 * hd)
+        shared_cache = calls * batch * cache_len * 2 * kv * hd * 2 // 2  # bf16 k, v; half valid
+    weights = 2 * cfg.param_count()
+    prefill = bound_ms(weights, ops, PEAK_BF16_OPS_PER_S)
+    state = cfg.num_layers * batch * h * cfg.ssm_head_dim * n * 4
+    return dict(prefill_bound_ms=prefill[0], prefill_bound_by=prefill[1], prefill_ops=ops,
+                step_bound_ms=(weights + 2 * state + shared_cache) / PEAK_BYTES_PER_S * 1e3,
+                weight_bytes=weights, state_bytes=state)
+
+
+class BlockRecorder:
+    """Records the output of every block a forward or decode step runs, in
+    order, while it is entered: each Mamba-2 block's and each application
+    of the hybrid's shared block (through their module attributes)."""
+
+    def __enter__(self):
+        import repro_torch.models.ssm as ssm
+        import repro_torch.models.transformer as tr
+
+        self.saved, self.calls = [], []
+        for mod, name in ((ssm, "mamba2_forward"), (ssm, "mamba2_decode_step"), (tr, "_shared_block")):
+            real = getattr(mod, name)
+
+            def recording(*a, _real=real, _name=name, **kw):
+                res = _real(*a, **kw)
+                self.calls.append((_name, (res[0] if isinstance(res, tuple) else res).detach().clone()))
+                return res
+
+            self.saved.append((mod, name, real))
+            setattr(mod, name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def first_parting_block(want, got, tol):
+    """Where two runs' recorded blocks (``BlockRecorder.calls`` of the same
+    blocks in the same order) first part: every block's max error up to the
+    first with an entry beyond ``tol + tol * |want|``, and that block."""
+    errs = []
+    for j, ((name, w), (_, g)) in enumerate(zip(want, got)):
+        diff = (g.float() - w.float()).abs()
+        errs.append(dict(block=j, name=name, max_abs_err=float(diff.max()),
+                         over_tol=int((diff > tol + tol * w.float().abs()).sum())))
+        if errs[-1]["over_tol"]:
+            return dict(first=errs[-1], blocks=errs)
+    return dict(first=None, blocks=errs)
+
+
+def decode_blocks(model, params, cfg, tokens):
+    """The blocks of a forward over ``tokens`` (B, T), recorded, and those
+    of T decode steps over them, each block's T outputs stacked, in the
+    forward's order."""
+    import torch
+
+    with BlockRecorder() as fwd:
+        model.forward(params, cfg, {"tokens": tokens})
+    cache = model.init_cache(cfg, tokens.shape[0], tokens.shape[1], tokens.device)
+    with BlockRecorder() as dec:
+        for i in range(tokens.shape[1]):
+            model.decode_step(params, cfg, {"tokens": tokens[:, i:i + 1]}, cache, i)
+    per = len(fwd.calls)
+    stepped = [(name, torch.cat([dec.calls[i * per + j][1] for i in range(tokens.shape[1])], dim=1))
+               for j, (name, _) in enumerate(fwd.calls)]
+    return fwd.calls, stepped
+
+
 #: a MoE row's f32 checks run on its first layers only, after the bf16
 #: model is freed: 8 dbrx layers upcast to f32 would be 109 GB
 F32_LAYERS = 2
@@ -1111,7 +1251,8 @@ def serve_row(device, scale):
     base = (get_reduced if scale["reduced"] else get_config)(scale["arch"])
     cfg = dataclasses.replace(base, num_layers=scale.get("layers") or base.num_layers)
     model = get_model(cfg)
-    gqa, moe = not cfg.use_mla, bool(cfg.num_experts)
+    calls = attention_calls(cfg)  # K6 launches per flash forward
+    gqa, moe, ssm = calls > 0 and not cfg.use_mla, bool(cfg.num_experts), cfg.arch_type in ("ssm", "hybrid")
     k = cfg.num_experts_per_token
     nl = min(F32_LAYERS, cfg.num_layers) if moe else cfg.num_layers
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=nl)
@@ -1120,8 +1261,12 @@ def serve_row(device, scale):
     out = dict(model=cfg.name, layers=cfg.num_layers, full_layers=base.num_layers, reduced=reduced,
                d_model=cfg.d_model, dtype=cfg.dtype, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
                experts=cfg.num_experts, top_k=k, shared_experts=cfg.num_shared_experts,
-               mla=cfg.use_mla, param_count=cfg.param_count(),
-               attention="flash (K6)" if gqa else "einsum (F7)")
+               mla=cfg.use_mla, param_count=cfg.param_count(), head_dim=cfg.head_dim,
+               attention_calls=calls,
+               attention="flash (K6)" if gqa else ("einsum (F7)" if cfg.use_mla else "none (SSM)"))
+    if ssm:
+        out.update(arch_type=cfg.arch_type, ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state,
+                   ssm_chunk=cfg.ssm_chunk, hybrid_attn_every=cfg.hybrid_attn_every)
     expect = dict(flash_attention=0, flash_decode=0)
     # on the card the flash branch is sdpa's default at D 128; the CPU
     # rehearsal forces it for GQA (MLA has no flash branch, F7)
@@ -1144,7 +1289,7 @@ def serve_row(device, scale):
         sync()
         dt = time.perf_counter() - t
         check(bool(torch.isfinite(logits).all()), f"{c.name} {c.dtype} forward: logits are not finite")
-        want = c.num_layers if (flash and gqa and cuda) else 0
+        want = attention_calls(c) if (flash and gqa and cuda) else 0
         expect["flash_attention"] += want
         if cuda:
             check(fa.flash_attention.launches - n0 == want,
@@ -1173,6 +1318,9 @@ def serve_row(device, scale):
             out.update(moe_row_bounds(cfg, s, scale["batch"], scale["context"]),
                        capacity=capacity_of(cfg, s), prefill_dropped_choices=routes.dropped(),
                        prefill_choices=s * k * cfg.num_layers)
+        if ssm:
+            out.update(ssm_row_bounds(cfg, s, scale["batch"], scale["context"]))
+        if moe or ssm:
             check(out["prefill_s"] * 1e3 >= out["prefill_bound_ms"],
                   f"{cfg.name}: a prefill of {out['prefill_s']} s is under its bound "
                   f"({out['prefill_bound_ms']} ms): it skipped work")
@@ -1190,8 +1338,8 @@ def serve_row(device, scale):
             attention.sdpa = checked_sdpa
             again, _ = forward(params, cfg, tokens)
             attention.sdpa = orig_sdpa
-            check(len(layer_errs) == cfg.num_layers,
-                  f"{cfg.name} prefill: attention ran in {len(layer_errs)} of {cfg.num_layers} layers")
+            check(len(layer_errs) == calls,
+                  f"{cfg.name} prefill: attention ran {len(layer_errs)} times, wanted {calls}")
             for i, (err, ok, rel) in enumerate(layer_errs):
                 check(ok, f"{cfg.name} prefill layer {i}: K6 differs from plain beyond 3e-2 ({err})")
                 check(rel <= REL_TOL, f"{cfg.name} prefill layer {i}: a query tile's relative "
@@ -1200,7 +1348,7 @@ def serve_row(device, scale):
             out["prefill_layer_max_rel_err"] = max(r for _, _, r in layer_errs)
             check(torch.equal(again, logits), f"{cfg.name} prefill: two flash forwards differ")
             del again
-        if moe:  # the bf16 logits are compared with nothing at a cut depth
+        if moe or not gqa:  # the bf16 logits are compared with nothing (a cut depth, no attention)
             del logits
         else:
             einsum_logits, out["prefill_einsum_s"] = forward(params, cfg, tokens, flash=False)
@@ -1211,7 +1359,7 @@ def serve_row(device, scale):
         b, p, n = scale["batch"], scale["prompt"], scale["gen"]
         prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=device)
         sc = ServeConfig(batch_size=b, context_len=scale["context"])
-        captured = collections.deque(maxlen=cfg.num_layers)  # the last step's layers (GQA)
+        captured = collections.deque(maxlen=max(calls, 1))  # the last step's attention calls (GQA)
 
         def recording_sdpa(q, k_, v, causal, q_offset=None, kv_valid_len=None):
             res = orig_sdpa(q, k_, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
@@ -1242,6 +1390,8 @@ def serve_row(device, scale):
             del step_logits
         del full
         cache = init_serving_cache(cfg, sc, device)
+        out["serving_cache_bytes"] = sum(t.numel() * t.element_size() for part in cache.values()
+                                         for c in part for t in c.values())
         serve_step = make_serve_step(cfg)
         out["profile_decode_3_steps"] = profile_window(
             lambda: [serve_step(params, seq[:, i:i + 1], cache, i) for i in range(steps - 3, steps)],
@@ -1298,6 +1448,15 @@ def serve_row(device, scale):
                 dropped_choices=ref_routes.dropped())
             check(not diff["not_near_ties"], f"{cfg.name} f32 prefill: routing moved away from a "
                   f"near tie (margin > {NEAR_TIE}): {diff['not_near_ties']}")
+            if held is not None and held["over_tol"] and ssm:  # the first block the two paths part at
+                with BlockRecorder() as ref_blocks:
+                    forward(params32, cfg32, tokens, flash=False)
+                with BlockRecorder() as flash_blocks:
+                    forward(params32, cfg32, tokens)
+                parting = first_parting_block(ref_blocks.calls, flash_blocks.calls, 1e-4)
+                out["f32_prefill_first_parting_block"] = parting
+                log(f"[serve] {cfg.name} f32 flash vs einsum prefill parts at " + json.dumps(parting))
+                del ref_blocks, flash_blocks
             check(held is None or held["over_tol"] == 0,
                   f"{cfg.name} f32 prefill: flash logits differ from the einsum path's beyond 1e-4 "
                   f"where routing agrees ({held})")
@@ -1344,6 +1503,11 @@ def serve_row(device, scale):
                                                      forward_dropped_choices=routes.dropped())
         else:
             out["f32_decode_vs_forward"] = st
+            if st["over_tol"] and ssm:  # where the recurrence and the chunked SSD part
+                out["f32_decode_first_parting_block"] = first_parting_block(
+                    *decode_blocks(model, params32, cfg32, seq32), 1e-4)
+                log(f"[serve] {cfg.name} f32 decode vs forward parts at "
+                    + json.dumps(out["f32_decode_first_parting_block"]))
             check(st["over_tol"] == 0, f"f32 decode parity: stepped logits differ from the "
                   f"forward's beyond 1e-4 ({st})")
             if torch.equal(seq32, seq):
@@ -1358,11 +1522,11 @@ def serve_row(device, scale):
         torch.cuda.empty_cache()
     f32p, f32d = out.get("f32_prefill_vs_einsum"), out["f32_decode_vs_forward"]
     log(f"[serve] {cfg.name} ({reduced}), prefill S={s}: {out['prefill_s']:.3f} s"
-        + (f" (bound {out['prefill_bound_ms']:.1f} ms, {out['prefill_bound_by']}), "
-           f"{out['prefill_dropped_choices']} of {out['prefill_choices']} choices dropped" if moe else "")
+        + (f" (bound {out['prefill_bound_ms']:.1f} ms, {out['prefill_bound_by']})" if moe or ssm else "")
+        + (f", {out['prefill_dropped_choices']} of {out['prefill_choices']} choices dropped" if moe else "")
         + f"; decode step {out['step_ms']:.1f} ms at B {b}"
-        + (f" (bound {out['step_bound_ms']:.1f} ms)" if moe else "")
-        + (f"; per-layer K6 max err {out['prefill_layer_max_err']:.3g} (worst tile's relative error "
+        + (f" (bound {out['step_bound_ms']:.1f} ms)" if moe or ssm else "")
+        + (f"; per-call K6 max err {out['prefill_layer_max_err']:.3g} (worst tile's relative error "
            f"{out['prefill_layer_max_rel_err']:.3g}); K7 (group {out['k7_group']}, valid "
            f"{out['k7_shape'][-1]}) vs plain {out['k7_vs_plain_max_err']:.3g} (relative "
            f"{out['k7_vs_plain_rel_err']:.3g}), vs sdpa {out['k7_vs_sdpa_max_err']:.3g}" if gqa else "")
@@ -1375,8 +1539,8 @@ def serve_row(device, scale):
            f"{f32d['routing']['reorders']} reorders, "
            f"max err {(f32d['held'] or {}).get('max_abs_err')}" if moe
            else f"; f32 decode parity {f32d['max_abs_err']:.3g}")
-        + (f"; bf16 flash vs einsum {out['bf16_prefill_vs_einsum']['max_abs_err']:.3g}" if not moe
-           else ""))
+        + (f"; bf16 flash vs einsum {out['bf16_prefill_vs_einsum']['max_abs_err']:.3g}"
+           if not moe and gqa else ""))
     log("[serve] " + json.dumps(out))
     return out, expect
 
@@ -2364,9 +2528,10 @@ def scalability_phase(device, scale):
 
 def build_report():
     """Phase 1's record of what was built: ``ptxas``'s registers, static
-    shared memory and spills for every attention kernel instance, and the
-    ``HGMMA`` instructions in the SASS of each bf16 ``flash_attention``
-    instance (it must be a tensor-core kernel: none is a failure)."""
+    shared memory and spills for every attention kernel instance (the D = 80
+    instances must not spill), and the ``HGMMA`` instructions in the SASS of
+    each bf16 ``flash_attention`` instance (it must be a tensor-core kernel:
+    none is a failure)."""
     from repro_torch.kernels import build
 
     ptxas = {}
@@ -2380,6 +2545,9 @@ def build_report():
             log(f"[build] {name}: {fn}: {r.get('registers')} registers, {r.get('smem')} B static "
                 f"shared memory, {r.get('spill_stores')} B spill stores, "
                 f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B stack")
+    d80 = {fn: r for fn, r in ptxas.items() if "Li80E" in fn}  # zamba2's head dim
+    check(d80 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in d80.values()),
+          f"the D = 80 attention instances spill (or were not built): {d80}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[build] cuobjdump not found: the SASS of the bf16 flash_attention instances was NOT checked")
@@ -2474,6 +2642,8 @@ def run(device, scale):
     mig_small = compare_migration_cost(48, device, gen_late)  # (g)'s 48 GPUs
     k6_rows = [compare_flash_attention(shape, device, seed=10 + i, long=shape[1] > 8192)
                for i, shape in enumerate(serve["k6_shapes"])]
+    k6_rows += [compare_flash_attention(shape, device, seed=30 + i, dtype="float32")
+                for i, shape in enumerate(serve.get("k6_f32_shapes", []))]
     k7_rows = [compare_flash_decode(shape, device, seed=20 + i)
                for i, shape in enumerate(serve["k7_shapes"])]
     routing_row = check_flash_routing(device)
@@ -2561,10 +2731,11 @@ def run(device, scale):
     replay_fused_steps(fsim_rec.fused, device, 1, "fused sim")
     fused_tie_break_check(device)
 
-    # ---- phase 5: serving llama3-8b (e, f), then the MoE and MLA families --- #
+    # ---- phase 5: serving llama3-8b (e, f), then the MoE and MLA families, -- #
+    # then the SSM and the hybrid
     serve_paths = {}  # path -> its launches
-    for path, row_scale in [("serve", serve)] + [("serve_" + r["arch"], r)
-                                                 for r in scale.get("serve_moe", SERVE_MOE_REHEARSAL)]:
+    later_rows = scale.get("serve_moe", SERVE_MOE_REHEARSAL) + scale.get("serve_ssm", SERVE_SSM_REHEARSAL)
+    for path, row_scale in [("serve", serve)] + [("serve_" + r["arch"], r) for r in later_rows]:
         zero_counts()
         t0 = time.perf_counter()
         row, expect = serve_row(device, row_scale)
@@ -2574,7 +2745,7 @@ def run(device, scale):
             want = dict.fromkeys(counted, 0)
             want.update(expect)
             check(got == want, f"the {path} path launched {got}, wanted {want}")
-            if not row["mla"]:
+            if row["attention"] == "flash (K6)":
                 check(got["flash_attention"] > 0 and got["flash_decode"] == 1,
                       f"the {path} path launched {got}: K6 and K7 must have run")
         serve_paths[path] = got
@@ -2667,8 +2838,8 @@ def run(device, scale):
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"], share_of_bound=row["share_of_bound"],
             x_library=row["x_library"],
-            other_shapes=[{key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "library_ms", "max_abs_err", "rel_err",
+            other_shapes=[{key: r[key] for key in ("shape", "dtype", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms", "max_abs_err", "rel_err",
                                                    "share_of_bound", "x_library")} for r in rows[1:]],
         ))
         if device.type == "cuda":

@@ -35,6 +35,16 @@
 //   wgmma that computes O += P V (V read MN-major, the transpose flag set).
 //   A warpgroup runs its tile's two GEMMs and softmax in turn; the two
 //   warpgroups drift apart, so one's softmax overlaps the other's GEMMs.
+//   A head dim that is not a whole number of panels (D = 80, zamba2's) is
+//   laid out at the padded width DP = 128, the D = 128 instance's shared
+//   memory, fragments and registers: the tensor maps keep the real D as
+//   their innermost dim, so TMA zero-fills columns D .. DP-1 of the second
+//   panel (out of the map's bounds even where memory runs on, as in a
+//   fused-qkv view; the transaction count is the whole box).  Q K^T runs
+//   only the D/16 k-steps that hold data; P V runs at n = DP, its columns
+//   past D come out zero and are not stored.  At D = 80 that wastes 48 of
+//   every 128 P V columns, 23 % of the tile's tensor-core work (a later
+//   redesign: an n80 P V, a 64 + 16 panel split).
 //   Registers bound the design: ptxas budgets 168 per thread (the block
 //   rounded up to three warpgroups) whatever setmaxnreg grants, and the S
 //   and O fragments (64 floats each at D = 128) and P (32) fit it only
@@ -47,7 +57,8 @@
 //   128 threads per (b*h, 64-query tile), two threads per query row, each
 //   holding an interleaved half of D of the scaled query and of the
 //   accumulator in registers; K and V tiles of 32 keys staged in shared
-//   memory as f32 and read as broadcast float4 loads.
+//   memory as f32 and read as broadcast float4 loads (D a multiple of 8:
+//   at D = 80 a row is 320 bytes, so every float4 stays 16-byte aligned).
 //
 // The wrapper (kernels/flash_attention.py, launch_plan) computes the
 // dynamic shared memory and the three tensor maps' dims, strides and boxes
@@ -115,6 +126,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S, int H,
                        int G, int causal, float scale, Strides st) {
+  static_assert(D % 8 == 0, "each thread's half of D is whole float4 chunks");
   constexpr int HD = D / 2;   // dims per thread
   constexpr int NC = HD / 4;  // float4 chunks per thread
   constexpr int VN = Vec<T>::N;
@@ -250,9 +262,12 @@ constexpr int CONSUMERS = 256;           // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // plus one producer warp
 constexpr int PANEL = 64;                // bf16 per 128-byte swizzled row
 
-// Dynamic shared memory: Q, then STAGES x (K, V), each a multiple of the
-// 1024-byte swizzle atom, then the mbarriers; 1024 bytes of slack to align
-// the base to the atom.
+// The width an instance lays a row of head dim d out at: whole panels.
+__host__ __device__ constexpr int padded(int d) { return (d + PANEL - 1) / PANEL * PANEL; }
+
+// Dynamic shared memory at row width D (a whole number of panels): Q, then
+// STAGES x (K, V), each a multiple of the 1024-byte swizzle atom, then the
+// mbarriers; 1024 bytes of slack to align the base to the atom.
 template <int D>
 struct Smem {
   static constexpr int Q = BM * D * 2;
@@ -394,9 +409,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// S (64 x BN) = Q K^T for this warpgroup's 64 rows: D/16 k-steps, 4 per
-// 64-wide panel; both operands K-major, the k-step advances 32 bytes
-// inside the swizzled 128-byte rows.
+// S (64 x BN) = Q K^T for this warpgroup's 64 rows: D/16 k-steps (the
+// real head dim's; padded columns are zero and skipped), 4 per 64-wide
+// panel; both operands K-major, the k-step advances 32 bytes inside the
+// swizzled 128-byte rows.
 template <int D>
 __device__ __forceinline__ void qk(float* s, uint32_t sq_wg, uint32_t sk) {
 #pragma unroll
@@ -410,7 +426,8 @@ __device__ __forceinline__ void qk(float* s, uint32_t sq_wg, uint32_t sk) {
 
 // O += P V: P (64 x BN) in bf16 registers, V key-major with D contiguous
 // (MN-major B): 8 keys are a 1024-byte atom (stride byte offset), the next
-// 64 columns of D the next panel (leading byte offset).
+// 64 columns of D the next panel (leading byte offset).  D here is the
+// padded width.
 template <int D>
 __device__ __forceinline__ void pv(float* acc, const uint32_t* pa, uint32_t sv) {
 #pragma unroll
@@ -474,9 +491,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
                       int H, int G, int causal, float scale_log2) {
-  constexpr int NP = D / PANEL;           // 64-wide panels per row
-  constexpr int Q_BYTES = Smem<D>::Q, T_BYTES = Smem<D>::TILE;
-  constexpr int NACC = D / 2;             // O fragment: 64 x D over 128 threads
+  static_assert(D % 16 == 0, "a k-step of Q K^T takes 16 columns");
+  constexpr int DP = padded(D);           // the row's laid-out width
+  constexpr int NP = DP / PANEL;          // 64-wide panels per row
+  constexpr int Q_BYTES = Smem<DP>::Q, T_BYTES = Smem<DP>::TILE;
+  constexpr int NACC = DP / 2;            // O fragment: 64 x DP over 128 threads
   constexpr int NS = BN / 2;              // S fragment: 64 x BN over 128 threads
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -553,7 +572,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
       softmax(s, m0, m1, l0, l1, alpha0, alpha1, t == ntiles - 1, t * BN, r0, cq, S, causal,
               scale_log2);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         acc[4 * j] *= alpha0;
         acc[4 * j + 1] *= alpha0;
         acc[4 * j + 2] *= alpha1;
@@ -566,7 +585,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
       for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
       fence_all<NACC>(acc);
       wgmma_fence();
-      pv<D>(acc, pa, sk + T_BYTES);
+      pv<DP>(acc, pa, sk + T_BYTES);
       wgmma_commit();
       wgmma_wait_all();
       fence_all<NACC>(acc);
@@ -581,7 +600,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
     __nv_bfloat16* o0 = o + (((long long)b * S + r0) * H + h) * D + cq;
     __nv_bfloat16* o1 = o0 + 8LL * H * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {  // the real columns only
       if (r0 < S) {
         *reinterpret_cast<uint32_t*>(o0 + 8 * j) = pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
       }
@@ -635,11 +654,12 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                    int KV, int causal, const unsigned long long* maps, int smem,
                    cudaStream_t stream) {
-  if (smem != Smem<D>::BYTES) return cudaErrorInvalidValue;  // the plan and this file disagree
+  constexpr int BYTES = Smem<padded(D)>::BYTES;
+  if (smem != BYTES) return cudaErrorInvalidValue;  // the plan and this file disagree
   // Opt in to the shared memory once per instance (not a stream operation,
   // so legal before any graph capture that later replays the launch).
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (opt_in != cudaSuccess) return opt_in;
   CUtensorMap tq, tk, tv;
   cudaError_t e = encode(&tq, q, maps);
@@ -647,7 +667,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (e == cudaSuccess) e = encode(&tv, v, maps + 22);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (S + BM - 1) / BM);
-  flash_attention_wgmma<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+  flash_attention_wgmma<D><<<grid, THREADS, BYTES, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, S, H, H / KV, causal, 1.4426950408889634f / sqrtf((float)D));
   return cudaGetLastError();
 }
@@ -671,8 +691,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   const cc::Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh};
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && D == 64) return (int)cc::launch<float, 64>(q, k, v, o, B, S, H, KV, causal, st, s);
+  if (dtype == 0 && D == 80) return (int)cc::launch<float, 80>(q, k, v, o, B, S, H, KV, causal, st, s);
   if (dtype == 0 && D == 128) return (int)cc::launch<float, 128>(q, k, v, o, B, S, H, KV, causal, st, s);
   if (dtype == 1 && D == 64) return (int)tc::launch<64>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
+  if (dtype == 1 && D == 80) return (int)tc::launch<80>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   if (dtype == 1 && D == 128) return (int)tc::launch<128>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   return (int)cudaErrorInvalidValue;
 }

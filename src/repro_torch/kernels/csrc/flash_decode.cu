@@ -24,14 +24,16 @@
 // Two partial kernels:
 //
 // * bf16 (ring::): K and V stay bf16 in shared memory, fed by cp.async.cg
-//   16-byte copies into a ring of STAGES tiles (3 at D = 128, 4 at D = 64:
+//   16-byte copies into a ring of STAGES tiles (3 at D = 128, 4 at D = 64, 80:
 //   at most ~110 KB, so two blocks fit on an SM), with one block barrier per
 //   tile.  Warp w serves heads w, w + 4, ... of the group with their scaled
 //   queries in registers; a cache row is read by D/8 lanes, 16 bytes each,
-//   and the dot is reduced across them with shuffles, so a warp scores 2
-//   (D = 128) or 4 (D = 64) rows at once, each lane group keeping its own
-//   online softmax (chunks of 8 rows per update, exp2 on log2-scaled
-//   scores) that the warp merges with shuffles at the end.
+//   in a lane group of the next power of two (8, 16; 16 at D = 80, where
+//   lanes 10-15 of a group load nothing and add 0), and the dot is reduced
+//   across the group with xor shuffles, so a warp scores 2 (D = 80, 128) or
+//   4 (D = 64) rows at once, each lane group keeping its own online softmax
+//   (chunks of 8 rows per update, exp2 on log2-scaled scores) that the warp
+//   merges with shuffles at the end.
 // * f32 (flash_decode_partial): tiles staged as f32 (K row-padded to D+1
 //   floats so the score loop is bank-conflict free), scores and the update
 //   through shared memory with four block barriers per tile.
@@ -240,9 +242,11 @@ flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid_ptr,
                           long long valid_host, float* __restrict__ part, int S, int KV, int G,
                           int tiles_per_split, float scale_log2, Strides st) {
+  static_assert(D % 8 == 0 && D <= 256, "a cache row is whole 16-byte chunks, at most 32");
   constexpr int NST = stages<D>();
-  constexpr int LPR = D / 8;        // lanes per cache row, 16 bytes each
-  constexpr int RPW = 32 / LPR;     // rows a warp scores at once
+  constexpr int LPR = D / 8;        // lanes that load a cache row, 16 bytes each
+  constexpr int LG = LPR <= 8 ? 8 : (LPR <= 16 ? 16 : 32);  // lanes per row group
+  constexpr int RPW = 32 / LG;      // rows a warp scores at once
   constexpr int ROWB = D * 2;       // bytes per cache row
   constexpr int TILEB = DBK * ROWB;
   constexpr int CHUNK = 8;          // rows per lane group per softmax update
@@ -256,14 +260,24 @@ flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   const int valid = valid_of(valid_ptr, valid_host, S);
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, (valid + DBK - 1) / DBK);
-  const int grp = lane / LPR, cl = lane - (lane / LPR) * LPR;  // row group, 16-byte chunk
+  const int grp = lane / LG, cl = lane % LG;  // row group, 16-byte chunk
+  const bool loads = LPR == LG || cl < LPR;   // a lane past the row loads nothing
+  // 16 bytes of a cache row in smem into floats (zeros for a lane past the row)
+  auto row_chunk = [&](const uint8_t* tile, int j, float* f) {
+    if (loads) {
+      unpack8(*reinterpret_cast<const uint4*>(tile + j * ROWB + cl * 16), f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = 0.f;
+    }
+  };
 
   float qr[HPW][8], acc[HPW][8], m[HPW], l[HPW];
 #pragma unroll
   for (int i = 0; i < HPW; ++i) {
     const int g = warp + WARPS * i;
     float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (g < G) {
+    if (g < G && loads) {
       unpack8(__ldg(reinterpret_cast<const uint4*>(q + b * st.qb + (long long)(kvh * G + g) * st.qh + cl * 8)), f);
     }
 #pragma unroll
@@ -312,14 +326,14 @@ flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       for (int u = 0; u < CHUNK; ++u) {
         const int j = (c0 + u) * RPW + grp;
         float kf[8];
-        unpack8(*reinterpret_cast<const uint4*>(ks + j * ROWB + cl * 16), kf);
+        row_chunk(ks, j, kf);
 #pragma unroll
         for (int i = 0; i < HPW; ++i) {
           float dot = 0.f;
 #pragma unroll
           for (int e = 0; e < 8; ++e) dot = fmaf(qr[i][e], kf[e], dot);
 #pragma unroll
-          for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          for (int off = LG / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
           sc[i][u] = t * DBK + j < valid ? dot : -INFINITY;
         }
       }
@@ -345,7 +359,7 @@ flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       for (int u = 0; u < CHUNK; ++u) {
         const int j = (c0 + u) * RPW + grp;
         float vf[8];
-        unpack8(*reinterpret_cast<const uint4*>(vs + j * ROWB + cl * 16), vf);
+        row_chunk(vs, j, vf);
 #pragma unroll
         for (int i = 0; i < HPW; ++i) {
 #pragma unroll
@@ -362,7 +376,7 @@ flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
 #pragma unroll
   for (int i = 0; i < HPW; ++i) {
 #pragma unroll
-    for (int off = LPR; off < 32; off <<= 1) {
+    for (int off = LG; off < 32; off <<= 1) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
       const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
       const float mx = fmaxf(m[i], mo);
@@ -496,10 +510,14 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   float* pt = (float*)part;
   if (dtype == 0 && D == 64)
     return (int)launch<float, 64>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
+  if (dtype == 0 && D == 80)
+    return (int)launch<float, 80>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   if (dtype == 0 && D == 128)
     return (int)launch<float, 128>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   if (dtype == 1 && D == 64)
     return (int)launch<__nv_bfloat16, 64>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
+  if (dtype == 1 && D == 80)
+    return (int)launch<__nv_bfloat16, 80>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   if (dtype == 1 && D == 128)
     return (int)launch<__nv_bfloat16, 128>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   return (int)cudaErrorInvalidValue;

@@ -26,8 +26,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-#: head dims with a kernel instance (reduced and full GQA configs)
-HEAD_DIMS = (64, 128)
+#: head dims with a kernel instance (reduced and full GQA configs; 80 is
+#: zamba2's shared block)
+HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the bf16 tensor-core instance (csrc/flash_attention.cu, namespace tc):
 #: query rows per CTA, keys per K/V tile, ring stages, bf16 per 128-byte
@@ -95,9 +96,12 @@ def tensor_map(shape, strides, box_rows: int, elem_bytes: int = 2) -> dict:
     """The 4-D TMA map of one (B, S, heads, D) operand: dims innermost first
     (D, heads, S, B), the byte strides of heads, S and B, and a box of
     ``TC_PANEL`` x 1 x ``box_rows`` x 1 (a 128-byte swizzled row holds 64
-    bf16, so a D = 128 row takes two boxes).  A dim of size 1 gets the
-    stride it would have contiguous: its stride is never used, and TMA wants
-    every stride a non-zero multiple of 16 bytes."""
+    bf16, so a D = 128 row takes two boxes).  The innermost dim stays the
+    real D where the instance pads it (D = 80 takes two boxes too): TMA
+    zero-fills the box's columns past D, even where memory runs on (a
+    fused-qkv view).  A dim of size 1 gets the stride it would have
+    contiguous: its stride is never used, and TMA wants every stride a
+    non-zero multiple of 16 bytes."""
     b, s, heads, d = shape
     natural = (d * elem_bytes, heads * d * elem_bytes, s * heads * d * elem_bytes)
     sizes = (heads, s, b)
@@ -107,10 +111,18 @@ def tensor_map(shape, strides, box_rows: int, elem_bytes: int = 2) -> dict:
     return dict(dims=(d, heads, s, b), strides=byte_strides, box=(TC_PANEL, 1, box_rows, 1))
 
 
+def tc_padded_dim(d: int) -> int:
+    """The width the bf16 instance lays a row of head dim ``d`` out at in
+    shared memory (``tc::padded``): whole 64-wide panels, 128 for D = 80."""
+    return -(-d // TC_PANEL) * TC_PANEL
+
+
 def _tc_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of the bf16 instance (``tc::Smem<D>::BYTES``):
-    1 KB to align to the swizzle atom, Q, the K/V ring, its mbarriers."""
-    return 1024 + 2 * TC_BLOCK_Q * d + TC_STAGES * 2 * 2 * TC_BLOCK_K * d + 8 * (1 + 2 * TC_STAGES)
+    """Dynamic shared memory of the bf16 instance for head dim ``d``
+    (``tc::Smem<padded(D)>::BYTES``): 1 KB to align to the swizzle atom, Q,
+    the K/V ring, its mbarriers."""
+    dp = tc_padded_dim(d)
+    return 1024 + 2 * TC_BLOCK_Q * dp + TC_STAGES * 2 * 2 * TC_BLOCK_K * dp + 8 * (1 + 2 * TC_STAGES)
 
 
 def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v_strides=None) -> dict:

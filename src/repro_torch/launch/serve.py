@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --batch 4 --prompt-len 16 --gen 32 [--device cpu]
 
-Every attention-layer family runs: dense GQA, MoE (``--arch dbrx-132b``) and
-MLA + MoE (``--arch deepseek-v2-236b``).  Runs on CUDA unless ``--device
+Every decoder family runs: dense GQA, MoE (``--arch dbrx-132b``), MLA + MoE
+(``--arch deepseek-v2-236b``), the Mamba-2 SSM (``--arch mamba2-780m``,
+whose cache is the recurrent state) and the SSM + shared-attention hybrid
+(``--arch zamba2-2.7b``).  Runs on CUDA unless ``--device
 cpu`` is given; the weights are random, drawn from a ``torch.Generator``
 seeded with ``--seed`` on the device.
 """

@@ -1,5 +1,6 @@
-"""Workload substrate of the port: the decoder with GQA or MLA attention and
-dense or MoE feed-forwards, in PyTorch.
+"""Workload substrate of the port in PyTorch: the decoder with GQA or MLA
+attention and dense or MoE feed-forwards, the Mamba-2 SSM and the SSM +
+shared-attention hybrid.
 
 ``get_model(cfg)`` returns a functional model namespace with
 
@@ -20,6 +21,6 @@ def get_model(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} is an encoder-decoder, a later slice of the "
-            "port (ROADMAP, queue: the SSM/hybrid/encdec families)"
+            "port (ROADMAP, queue 1: the encoder-decoder family)"
         )
     return transformer

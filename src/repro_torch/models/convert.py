@@ -5,8 +5,11 @@ leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the port's params dict: the same nested keys and layouts, with the leading
 L axis of ``tree["layers"]`` un-stacked into a list of per-layer dicts.
 Every leaf keeps its dtype, so a MoE layer's ``moe`` dict arrives with its
-f32 router, its experts stacked on E and its ``shared`` FFN, and an MLA
-layer's ``attn`` with its latent projections and ``kv_norm``.
+f32 router, its experts stacked on E and its ``shared`` FFN, an MLA layer's
+``attn`` with its latent projections and ``kv_norm``, and an SSM layer's
+``mamba`` dict with its f32 ``a_log``, ``d_skip`` and ``dt_bias``.  Every
+other top-level entry — the hybrid's weight-shared block ``shared_attn``
+among them — is not stacked and carries across as it is.
 ``train_state_from_jax(tree, cfg, device)`` does the same for a training
 state ``{"params", "opt": {"m", "v", "step"}}``.
 """

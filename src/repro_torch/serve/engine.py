@@ -6,7 +6,9 @@ against a cache of ``cache_len`` positions (a ring buffer of the window
 length for sliding-window archs).  ``greedy_generate`` prefills by stepping
 the prompt token by token, exactly as the reference does, then decodes
 greedily; the argmax stays on the device.  A step runs whatever layers the
-model has (GQA or MLA attention, a dense or MoE feed-forward): a MoE step
+model has (GQA or MLA attention, a dense or MoE feed-forward, Mamba-2
+layers with their recurrent state, the hybrid's shared block with one
+full-context GQA cache per application): a MoE step
 routes its B tokens with a capacity of ``capacity_of(cfg, B)``, as the
 reference's decode step does, so stepped logits equal a full forward's
 only where no expert overflows in either.

@@ -683,9 +683,12 @@ def test_sdpa_defaults_to_the_flash_kernel_on_cuda(cuda, monkeypatch):
 
 @pytest.mark.parametrize("d", [80, 192])
 def test_sdpa_at_a_head_dim_without_a_kernel_runs_the_einsum_path(cuda, monkeypatch, d):
-    """Unset, a causal sdpa at a head dim K6 has no instance for runs the
-    einsum path on the card and matches the CPU's (2e-5, f32);
-    ``REPRO_USE_FLASH=1`` asks for the kernel there and raises."""
+    """Unset, a causal sdpa at head dim 192 (nemotron's; K6 has no instance)
+    runs the einsum path on the card and matches the CPU's (2e-5, f32), and
+    ``REPRO_USE_FLASH=1`` asks for the kernel there and raises.  At 80
+    (zamba2's shared block) K6 has its padded instance: unset, sdpa launches
+    it, in bf16 within 3e-2 of the einsum path and in f32 within 2e-5 of the
+    CPU's."""
     from repro_torch.models.attention import sdpa
 
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
@@ -693,8 +696,16 @@ def test_sdpa_at_a_head_dim_without_a_kernel_runs_the_einsum_path(cuda, monkeypa
     want = sdpa(q, k, v, causal=True)
     before = flash_attention.launches
     got = sdpa(q.to(cuda), k.to(cuda), v.to(cuda), causal=True)
-    assert flash_attention.launches == before
+    assert flash_attention.launches == before + (d == 80)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    if d == 80:
+        qb, kb, vb = (t.to(cuda, torch.bfloat16) for t in (q, k, v))
+        flash = sdpa(qb, kb, vb, causal=True)
+        assert flash_attention.launches == before + 2
+        monkeypatch.setenv("REPRO_USE_FLASH", "0")
+        einsum = sdpa(qb, kb, vb, causal=True)
+        torch.testing.assert_close(flash.float(), einsum.float(), rtol=3e-2, atol=3e-2)
+        return
     monkeypatch.setenv("REPRO_USE_FLASH", "1")
     with pytest.raises(ValueError, match=f"head dim {d}"):
         sdpa(q.to(cuda), k.to(cuda), v.to(cuda), causal=True)
@@ -775,13 +786,14 @@ def _cuda_attn(seed, b, s, h, kv, d, dtype, device):
 
 
 @pytest.mark.parametrize("g", [1, 4, 5, 6, 8])  # 5: qwen3-14b's 40/8, 6: dbrx's 48/8
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 256, 257, 1000, 4113])
 def test_flash_attention_bf16_tile_edges(cuda, s, causal, d, g):
     """S on both sides of the 128-row query and key tiles (TMA zero-fills
     past S; those keys are masked from their indices), D over one or two
-    64-wide swizzled panels, G query heads per KV head at B = 2."""
+    64-wide swizzled panels (80: the second panel zero-filled past column
+    80), G query heads per KV head at B = 2."""
     q, k, v = _cuda_attn(s * 7 + d + g, 2, s, 2 * g, 2, d, torch.bfloat16, cuda)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal)
@@ -791,7 +803,7 @@ def test_flash_attention_bf16_tile_edges(cuda, s, causal, d, g):
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("s", [257, 1000])
 def test_flash_attention_bf16_reads_fused_qkv_views(cuda, s, d):
     """q, k and v as strided views of one (B, S, H + 2 KV, D) projection:
@@ -826,7 +838,7 @@ def test_flash_attention_bf16_rescale_when_the_max_is_in_the_last_tile(cuda, cau
     assert bool((scores.argmax(-1) == keys).all())  # the maximum does sit there
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("s,causal", [(65, True), (257, False), (1000, True)])
 def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
     """f32 inputs stay on the f32 CUDA-core instance, within 2e-5 of the
@@ -840,12 +852,12 @@ def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
-_RING = {64: 4 * 64, 128: 3 * 64}  # slots in a full ring of the bf16 kernel
+_RING = {64: 4 * 64, 80: 4 * 64, 128: 3 * 64}  # slots in a full ring of the bf16 kernel
 
 
 @pytest.mark.parametrize("single_split", [True, False])
 @pytest.mark.parametrize("g", [1, 4, 5, 6, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("valid", ["0", "1", "63", "64", "65", "ring+1", "2ring+1", "S"])
 def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
     """valid_len at 0, one slot, both sides of a 64-slot tile, one and two
@@ -877,6 +889,93 @@ def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
     k2[:, n:] = 1e4
     v2[:, n:] = -1e4
     torch.testing.assert_close(fd._launch(q, k2, v2, n, plan), got, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# K6 / K7 at head dim 80 (zamba2's shared block): the padded bf16 instance
+# of K6, K7's 16-lane row groups of which 10 lanes load
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 200, 8192])
+def test_flash_attention_d80_matches_plain(cuda, s, causal, g, dtype):
+    """f32 within 2e-5 of the plain version; bf16 within 3e-2 and, per
+    128-query tile, within 1e-2 relative L2 error (the smoke's gate)."""
+    q, k, v = _cuda_attn(s + g + causal, 1, s, 2 * g, 2, 80, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        d2 = (got.float() - want.float()).square().sum((2, 3))
+        w2 = want.float().square().sum((2, 3))
+        pad = (-s) % 128
+        d2, w2 = (torch.nn.functional.pad(x, (0, pad)).reshape(1, -1, 128).sum(-1) for x in (d2, w2))
+        assert float((d2 / w2.clamp_min(1e-30)).sqrt().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,valid", [(8, 32, 32, 8192, 63), (2, 8, 2, 1000, 0), (2, 8, 2, 1000, 1),
+                                            (3, 4, 4, 300, 257), (1, 16, 4, 4096, 4001),
+                                            (2, 6, 2, 640, 640)])
+def test_flash_decode_d80_matches_plain(cuda, dtype, b, h, kv, s, valid):
+    """valid_len 0 (zeros), one slot, ragged lengths and the whole cache,
+    the first row the zamba2 serving shape; slots past valid_len unread."""
+    q, k, v = (t.to(cuda) for t in _decode_inputs(s + valid + h, b, h, kv, s, 80, dtype))
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, torch.tensor(valid, device=cuda))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    want = flash_decode_plain(q, k, v, valid)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if valid == 0:
+        assert not got.any()
+    k2, v2 = k.clone(), v.clone()
+    k2[:, valid:] = 1e4
+    v2[:, valid:] = -1e4
+    torch.testing.assert_close(flash_decode(q, k2, v2, valid), got, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# the SSM and hybrid families on the card
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_and_hybrid_forward_and_decode_on_card_equal_cpu_in_f32(cuda, monkeypatch, arch):
+    """The reduced mamba2 / zamba2 in f32, env unset: the card's forward
+    logits within 1e-4 of the CPU's (zamba2's shared block on K6's f32
+    instance, once per application; mamba2 launches nothing), and 8 decode
+    steps at batch 2 within 1e-4, with both cache parts."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import get_model
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cfg)
+    card_params = _to(params, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2 * cfg.ssm_chunk),
+                           generator=torch.Generator().manual_seed(2))
+    want, _ = model.forward(params, cfg, {"tokens": tokens})
+    before = flash_attention.launches
+    got, _ = model.forward(card_params, cfg, {"tokens": tokens.to(cuda)})
+    applications = cfg.num_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    assert flash_attention.launches - before == applications
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    hc, cc = model.init_cache(cfg, 2, 16, "cpu"), model.init_cache(cfg, 2, 16, cuda)
+    for i in range(8):
+        t = tokens[:, i:i + 1]
+        hl, hc = model.decode_step(params, cfg, {"tokens": t}, hc, i)
+        cl, cc = model.decode_step(card_params, cfg, {"tokens": t.to(cuda)}, cc, i)
+        torch.testing.assert_close(cl.cpu(), hl, rtol=1e-4, atol=1e-4)
+    for part in ("layers", "shared"):
+        for h_, c_ in zip(hc.get(part, []), cc.get(part, []), strict=True):
+            for key in h_:
+                torch.testing.assert_close(c_[key].cpu(), h_[key], rtol=1e-5, atol=1e-5)
 
 
 # --------------------------------------------------------------------------- #

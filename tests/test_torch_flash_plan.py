@@ -25,7 +25,7 @@ LIMIT = 232_448  # shared memory one block may use on an H100
 # --------------------------------------------------------------------------- #
 # K6 flash_attention
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("dtype,instance", [(torch.bfloat16, "tc_bf16"), (torch.float32, "cc_f32")])
 def test_k6_instance_follows_dtype(dtype, instance, d):
     plan = fa.launch_plan((2, 300, 8, d), 2, dtype)
@@ -49,14 +49,33 @@ def test_k6_tiles_and_grid(shape, kv):
     assert fa.launch_plan(shape, kv, torch.float32)["grid"] == (b * h, -(-s // 64))
 
 
-@pytest.mark.parametrize("d,dynamic", [(64, 115_768), (128, 230_456)])
+@pytest.mark.parametrize("d,dynamic", [(64, 115_768), (80, 230_456), (128, 230_456)])
 def test_k6_shared_memory_fits(d, dynamic):
     """Q + three K/V stages + alignment slack + seven mbarriers, under the
-    227 KB a block may use; the f32 instance has none dynamic."""
+    227 KB a block may use, at the padded row width (D = 80 is laid out as
+    128, the D = 128 instance's bytes); the f32 instance has none dynamic."""
     tc = fa.launch_plan((1, 256, 2, d), 1, torch.bfloat16)
-    assert tc["dynamic_smem_bytes"] == dynamic == 1024 + 2 * 128 * d + 3 * 2 * 2 * 128 * d + 8 * 7
+    dp = fa.tc_padded_dim(d)
+    assert tc["dynamic_smem_bytes"] == dynamic == 1024 + 2 * 128 * dp + 3 * 2 * 2 * 128 * dp + 8 * 7
     assert tc["dynamic_smem_bytes"] <= LIMIT
     assert fa.launch_plan((1, 256, 2, d), 1, torch.float32)["dynamic_smem_bytes"] == 0
+
+
+@pytest.mark.parametrize("d,dp", [(64, 64), (80, 128), (128, 128)])
+def test_k6_padded_width_is_whole_panels(d, dp):
+    assert fa.tc_padded_dim(d) == dp and dp % fa.TC_PANEL == 0
+
+
+def test_k6_tensor_maps_at_head_dim_80_keep_the_real_width():
+    """zamba2's shared block: the maps' innermost dim is the real 80 (TMA
+    zero-fills the second 64-wide box past it), the box stays one 128-byte
+    swizzled row, and the strides are those of the 160-byte rows."""
+    plan = fa.launch_plan((1, 8192, 32, 80), 32, torch.bfloat16)
+    for name in ("q", "k", "v"):
+        assert plan["maps"][name] == dict(
+            dims=(80, 32, 8192, 1), strides=(160, 32 * 160, 8192 * 32 * 160), box=(64, 1, 128, 1)
+        )
+    assert -(-80 // plan["maps"]["q"]["box"][0]) == fa.tc_padded_dim(80) // fa.TC_PANEL == 2
 
 
 def test_k6_tensor_maps_of_contiguous_operands():
@@ -70,7 +89,7 @@ def test_k6_tensor_maps_of_contiguous_operands():
         )
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_k6_tensor_maps_of_fused_qkv_views(d):
     """q/k/v as views of one (B, S, H + 2 KV, D) projection: every map walks
     the fused row (S stride (H + 2 KV) D), each from its own base pointer."""
@@ -93,7 +112,8 @@ def test_k6_tensor_map_gives_size_one_dims_their_contiguous_stride():
     assert m == dict(dims=(64, 1, 100, 1), strides=(128, 128, 100 * 128), box=(64, 1, 128, 1))
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 3, 64), (1, 130, 4, 128), (3, 1, 2, 64)])
+@pytest.mark.parametrize("shape", [(2, 5, 3, 64), (1, 130, 4, 128), (3, 1, 2, 64), (2, 5, 3, 80),
+                                   (1, 130, 32, 80)])
 def test_k6_tensor_map_strides_are_tma_legal(shape):
     x = torch.empty(shape, dtype=torch.bfloat16)
     for view in (x, x[:, :, :1], x.transpose(1, 2).contiguous().transpose(1, 2)):
@@ -118,7 +138,7 @@ def test_k6_maps_argument_layout():
 # --------------------------------------------------------------------------- #
 # K7 flash_decode
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("d,stages", [(64, 4), (128, 3)])
+@pytest.mark.parametrize("d,stages", [(64, 4), (80, 4), (128, 3)])
 def test_k7_bf16_ring_depth_and_shared_memory(d, stages):
     """As many 64-slot K+V tiles as fit in ~110 KB (two blocks per SM), at
     most four."""
@@ -183,6 +203,8 @@ def test_plans_match_the_cuda_sources():
     assert _constant(tc, "BN") == str(fa.TC_BLOCK_K)
     assert _constant(tc, "STAGES") == str(fa.TC_STAGES)
     assert _constant(tc, "PANEL") == str(fa.TC_PANEL)
+    assert "padded(int d) { return (d + PANEL - 1) / PANEL * PANEL; }" in tc
+    assert "Smem<padded(D)>::BYTES" in tc
     cc = attn[attn.index("namespace cc {"):attn.index("namespace tc {")]
     assert _constant(cc, "BQ") == str(fa.CC_BLOCK_Q)
     dec = (CSRC / "flash_decode.cu").read_text()

@@ -28,10 +28,12 @@ def _models(arch, dtype="float32", seed=1):
     return cfg, params, params_from_jax(jax.tree.map(np.asarray, params), cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch,context", [("llama3-8b", 64), ("qwen3-14b", 64), ("llama3-8b", 12)])
+@pytest.mark.parametrize("arch,context", [("llama3-8b", 64), ("qwen3-14b", 64), ("llama3-8b", 12),
+                                          ("mamba2-780m", 64), ("zamba2-2.7b", 12)])
 def test_greedy_generate_tokens_equal_jax(arch, context):
     """f32, batch 3, a 6-token prompt and 10 new tokens; context 12 runs the
-    ring buffer past its end (cache_len 12 < 16 positions)."""
+    ring buffer past its end (cache_len 12 < 16 positions), for zamba2 its
+    shared block's cache; mamba2's cache is its recurrent state."""
     cfg, jparams, tparams = _models(arch)
     prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (3, 6)).astype(np.int32)
     want = jax_engine.greedy_generate(jparams, cfg, jnp.asarray(prompt), 10,

@@ -5,7 +5,8 @@ JAX package's params and train state are carried into the port by
 ``params_from_jax`` / ``train_state_from_jax``.  Covered: the data
 pipeline (byte for byte), AdamW, the loss and one train step (microbatches
 1 and 2, the five dense archs' reduced configs, f32 and bf16, and in f32 the
-MoE and MLA archs, whose loss carries the routers' aux), the remat
+MoE and MLA archs, whose loss carries the routers' aux, and the SSM and
+hybrid archs), the remat
 policies, checkpoint files in both directions, ``train_loop``, the routing
 rule that keeps the flash kernel off the autograd path (ROADMAP D8), the
 two knobs of the einsum ``sdpa``, and the launcher.  The training path
@@ -41,6 +42,8 @@ from tests.test_torch_round import _one_torch_thread  # noqa: F401  (autouse)
 DENSE = ["llama3-8b", "deepseek-67b", "qwen3-14b", "nemotron-4-340b", "qwen2-vl-2b"]
 #: MoE (dbrx) and MLA + MoE (deepseek-v2): their loss carries the routers' aux
 MOE = ["dbrx-132b", "deepseek-v2-236b"]
+#: the SSM (mamba2) and the hybrid (zamba2): trained on the CPU only so far
+SSM = ["mamba2-780m", "zamba2-2.7b"]
 F32_TOL = 1e-5  # relative L2, every leaf and metric, in f32
 BF16_TOL = 2e-2  # relative, the loss and grad norm in each arch's default bf16
 BATCH, SEQ = 2, 32
@@ -271,11 +274,13 @@ def _one_step_both(arch, dtype, microbatches):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_train_step_equals_jax_in_f32(arch, microbatches):
     """In f32: ``loss_fn`` on the initial params, and the step's loss, nll,
     z-loss and grad norm, every updated parameter and both moments within
-    1e-5 relative L2 of the JAX package's."""
+    1e-5 relative L2 of the JAX package's (the SSM layers under remat as
+    the attention layers are, the hybrid's shared block outside it, as in
+    the reference)."""
     cfg, jstate, jm, tstate, tm, loss, tm0 = _one_step_both(arch, "float32", microbatches)
     if microbatches == 1:  # the step's metrics are loss_fn's on the whole batch
         assert _rel(loss, jm["loss"]) <= F32_TOL
