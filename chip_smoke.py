@@ -11,8 +11,10 @@ user calls — ``TesseraeScheduler.decide`` and ``Simulator.run`` with
 ``lap_backend="auction_kernel"``, then the same with the fused migrate
 stage (``fused_fanout=True``) — serves Llama-3-8B at full width and
 depth (``transformer.forward`` prefill, ``greedy_generate``), the MoE
-and MLA families at full width (DBRX-132B, DeepSeek-V2-236B) and the SSM
-and hybrid families at full width and depth (Mamba2-780M, Zamba2-2.7B), runs the
+and MLA families at full width (DBRX-132B, DeepSeek-V2-236B), the SSM
+and hybrid families at full width and depth (Mamba2-780M, Zamba2-2.7B) and
+the other dense configs (Nemotron-4-340B at full width on K6/K7 at head dim
+192, Qwen3-14B and Qwen2-VL-2B at full width and depth), runs the
 paper's evaluation harness (``repro_torch.benchmarks.evaluate`` and
 ``.scalability``), trains Llama-3-8B at full width (``make_train_step``,
 ``save_checkpoint``/``restore_checkpoint``, ``train_loop``), and checks what
@@ -20,7 +22,8 @@ comes out:
 
 1. environment: the card, torch/CUDA versions, the kernels' build time;
    what ``ptxas`` gave each attention kernel instance (registers, static
-   shared memory, spills; the head-dim-80 instances must not spill), and
+   shared memory, spills; the head-dim-80 instances and the bf16 K6
+   instance at head dim 192 must not spill), and
    the ``HGMMA`` (wgmma) instructions in the SASS of the bf16
    ``flash_attention`` instances (``cuobjdump -sass``), which must not be
    zero;
@@ -47,12 +50,14 @@ comes out:
    "auction_kernel")`` at 64x6000 with scipy's cost;
    ``flash_attention`` and ``flash_decode`` in bf16 at 3e-2 and within 1e-2
    relative L2 error per 128-query tile / per head, at the serving path's
-   shapes, at ``prefill_32k`` / ``decode_32k``'s length and at zamba2's
-   head dim 80 (K6 also in f32 there, within 2e-5), with
+   shapes, at ``prefill_32k`` / ``decode_32k``'s length, at zamba2's
+   head dim 80 and nemotron-4's 192 (K6 also in f32 at both, within 2e-5)
+   and at deepseek-67b's 64 / 8 heads, with
    kernel / plain / bound / library times (and, for the attention kernels,
    the share of the bound and the ratio to the library call); a causal
-   ``sdpa`` at head dim 192 (no flash instance) runs the einsum path on the
-   card, equal to the CPU's at 2e-5, and raises under ``REPRO_USE_FLASH=1``;
+   ``sdpa`` at head dim 96 (no flash instance) and at MLA's widths (q/k
+   192, v 128) runs the einsum path on the card, equal to the CPU's at
+   2e-5, and raises under ``REPRO_USE_FLASH=1``;
 3. the round's path: (a) ``decide()`` x3 on 512 synthetic jobs (cold, with
    the previous plan, warm), as the scalability benchmark does, and (b)
    ``Simulator.run(stop_after_rounds=6)`` on a 2048-job shockwave trace
@@ -88,13 +93,20 @@ comes out:
    with 64 + 64 tokens served (one ``ssm_chunk``) and their f32 checks at
    full depth (stepped decode against the forward; (e5)'s flash forward
    against the einsum forward), which print the first block where the two
-   paths part if they miss 1e-4 (:func:`first_parting_block`).  (e) a prefill forward of 8192 random
-   tokens (2048 for (e3)): GQA at D 128 on the flash branch (sdpa's default
+   paths part if they miss 1e-4 (:func:`first_parting_block`); then the
+   other dense configs at full width, (e7) ``nemotron-4-340b`` on 4 of 96
+   layers (K6 and K7 at head dim 192, group 12; its bf16 einsum forward at
+   S 2048 and its f32 checks on 1 layer at S 2048, to fit the card),
+   (e8) ``qwen3-14b`` at full depth (qk-norm, group 5; f32 checks on the
+   first 19 layers, as many as fit) and (e9) ``qwen2-vl-2b`` at full depth (M-RoPE; the prefill
+   carries the vision stub's 256 image positions before 7936 tokens).  (e) a prefill forward of 8192 random
+   tokens (2048 for (e3)): GQA on the flash branch (sdpa's default
    on CUDA; K6 launched once per layer, 48/8 heads in (e2)), each layer's
    K6 output held to the plain version on that layer's q/k/v (3e-2; 1e-2
-   relative per query tile); MLA's head dim 192 has no K6 instance (F7),
-   so (e3) runs the einsum path and launches no kernel; a MoE prefill must
-   not beat its bound; the dense row also runs the einsum path's forward.
+   relative per query tile); MLA's v head dim differs from its q/k head
+   dim (F7), so (e3) runs the einsum path and launches no kernel; no
+   prefill may beat its bound; a dense row also runs the einsum path's
+   forward.
    (f) ``greedy_generate`` with batch 8, a 32-token prompt and 32 new
    tokens against an 8192-slot cache, and one forward of the 64 tokens;
    then, for GQA, K7 launched on layer 0's final cache with the last step's
@@ -102,8 +114,10 @@ comes out:
    (3e-2; 1e-2 relative per head) and to the einsum ``sdpa`` (3e-2).  The
    whole-model comparisons — flash forward vs einsum forward, stepped
    logits vs the forward's — are enforced on the same weights upcast to
-   f32 (1e-4): the dense row at full depth; a MoE row on its first 2
-   layers, after the bf16 model is freed, and they see the routing: each
+   f32 (1e-4): a dense or SSM row on as many layers and prefill tokens
+   as fit the card (:func:`check_cuts`; all of llama3-8b's); a MoE row on
+   its first 2 layers, after the bf16 model is freed, and they see the
+   routing: each
    layer's expert choices are recorded on both paths, every flip must sit
    at a near tie (margin <= 1e-4, printed), and the logits are held before
    the first token routed differently; stepped decode is held at B 1 x 8
@@ -194,13 +208,24 @@ FULL = dict(
         arch="llama3-8b", reduced=False, prefill_s=8192, batch=8, prompt=32, gen=32,
         context=8192,
         # kernel rows: (B, S, H, KV, D) for flash_attention, (B, S, H, KV, D,
-        # valid) for flash_decode; the first of each is the path's shape, the
-        # last zamba2's shared block (D 80, row (e5)); K6 in f32 at D 80 too
+        # valid) for flash_decode; the first of each is the path's shape, then
+        # decode_32k's length, dbrx's 48/8 heads (e2), zamba2's shared block
+        # (D 80, row (e5)), nemotron-4's 96/8 heads at D 192 (e7) and
+        # deepseek-67b's 64/8 heads (group 8, a K7 warp holds 2 heads; its
+        # path has no whole-model row), seamless-m4t-medium's 16 heads at
+        # D 64 (the encoder-decoder's, not served yet: the D 64 instance's
+        # time); K6 in f32 at D 80 and D 192 too; K7
+        # at D 192 over a whole 32768-slot cache at group 12 and, on the
+        # same bytes, at group 1: a twelfth of the scoring, so its time
+        # says whether the 2-stage ring hides the copies
         k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128),
-                   (1, 8192, 32, 32, 80)],
-        k6_f32_shapes=[(1, 8192, 32, 32, 80)],
+                   (1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192), (1, 8192, 64, 8, 128),
+                   (1, 8192, 16, 16, 64)],
+        k6_f32_shapes=[(1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192)],
         k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768),
-                   (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63)],
+                   (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63),
+                   (8, 8192, 96, 8, 192, 63), (8, 8192, 64, 8, 128, 63),
+                   (8, 32768, 96, 8, 192, 32768), (8, 32768, 8, 8, 192, 32768)],
     ),
     # phase 5, rows (e2) and (e3): dbrx-132b (8 of 40 layers, 54.6 GB of bf16
     # weights) and deepseek-v2-236b (6 of 60 layers, 50.7 GB) at full width.
@@ -219,6 +244,24 @@ FULL = dict(
         dict(arch="mamba2-780m", reduced=False, prefill_s=8192, batch=8, prompt=64, gen=64,
              context=8192),
         dict(arch="zamba2-2.7b", reduced=False, prefill_s=8192, batch=8, prompt=64, gen=64,
+             context=8192),
+    ],
+    # phase 5, rows (e7)-(e9): the dense configs not run before.
+    # nemotron-4-340b (4 of 96 layers, 46.5 GB of bf16 weights) at head dim
+    # 192, qwen3-14b (29.5 GB, full depth; qk-norm, group 5) and
+    # qwen2-vl-2b (3.55 GB, full depth; M-RoPE), which prefills 256 image
+    # positions of the vision stub before its tokens.  :func:`check_cuts`
+    # fits their einsum and f32 checks to the card: nemotron's einsum
+    # forward at S 8192 would build a 25.8 GB f32 score tensor and as much
+    # again of probabilities, so it checks S 2048 on 1 layer (51.6 GB in
+    # f32 with the embedding and head); qwen3 at full depth would be 59 GB
+    # in f32
+    serve_dense=[
+        dict(arch="nemotron-4-340b", reduced=False, layers=4, prefill_s=8192, batch=8, prompt=32,
+             gen=32, context=8192),
+        dict(arch="qwen3-14b", reduced=False, prefill_s=8192, batch=8, prompt=32, gen=32,
+             context=8192),
+        dict(arch="qwen2-vl-2b", reduced=False, prefill_s=8192 - 256, batch=8, prompt=32, gen=32,
              context=8192),
     ],
     # phase 6: BENCH_endtoend.json's whole sweep, and the scalability
@@ -242,8 +285,9 @@ SCALABILITY_REHEARSAL = dict(job_counts=[128], clusters=[(16, 4)])
 #: the CPU rehearsal's serve scale (reduced llama3-8b, S = 64)
 SERVE_REHEARSAL = dict(
     arch="llama3-8b", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64,
-    k6_shapes=[(1, 64, 4, 2, 64), (1, 64, 4, 4, 80)], k6_f32_shapes=[(1, 64, 4, 4, 80)],
-    k7_shapes=[(2, 64, 4, 2, 64, 15), (2, 64, 4, 4, 80, 15)],
+    k6_shapes=[(1, 64, 4, 2, 64), (1, 64, 4, 4, 80), (1, 64, 12, 1, 192)],
+    k6_f32_shapes=[(1, 64, 4, 4, 80), (1, 64, 12, 1, 192)],
+    k7_shapes=[(2, 64, 4, 2, 64, 15), (2, 64, 4, 4, 80, 15), (2, 64, 12, 1, 192, 15)],
 )
 
 
@@ -259,6 +303,24 @@ SERVE_SSM_REHEARSAL = [
     dict(arch=arch, reduced=True, prefill_s=64, batch=2, prompt=16, gen=16, context=64)
     for arch in ("mamba2-780m", "zamba2-2.7b")
 ]
+
+
+
+def serve_dense_rehearsal():
+    """The CPU rehearsal's rows (e7)-(e9): the reduced nemotron widened to
+    its full head dim 192 (its reduced config keeps 64; widened, the
+    rehearsal reaches the D 192 code), the reduced qwen3 and qwen2-vl (16
+    image positions)."""
+    from repro_torch.configs import get_reduced
+
+    nemotron = dataclasses.replace(get_reduced("nemotron-4-340b"), head_dim=192)
+    return [
+        dict(arch="nemotron-4-340b", config=nemotron, prefill_s=64, batch=2, prompt=8, gen=8,
+             context=64),
+        dict(arch="qwen3-14b", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64),
+        dict(arch="qwen2-vl-2b", reduced=True, prefill_s=48, batch=2, prompt=8, gen=8, context=64),
+    ]
+
 
 #: the CPU rehearsal's phase 7 (reduced llama3-8b)
 TRAIN_REHEARSAL = dict(arch="llama3-8b", reduced=True, layers=None, batch=2, seq=64, timed_steps=2,
@@ -670,44 +732,55 @@ def wide_rows(device, gen, square=True):
 
 
 def check_flash_routing(device):
-    """P2: unset ``REPRO_USE_FLASH``, a causal ``sdpa`` at a head dim the
-    flash kernel has no instance for runs the einsum path on the card and
-    matches the CPU's einsum path (2e-5, f32); ``REPRO_USE_FLASH=1`` asks for
-    the kernel there and raises."""
+    """P2 and F7: unset ``REPRO_USE_FLASH``, a causal ``sdpa`` at a head dim
+    the flash kernel has no instance for (96) runs the einsum path on the
+    card and matches the CPU's einsum path (2e-5, f32); ``REPRO_USE_FLASH=1``
+    asks for the kernel there and raises.  MLA's widths, q/k at 192 (which
+    has an instance) and v at 128, launch nothing either, and ``=1`` raises
+    there on the k/v shapes, as the reference's flash branch fails."""
     import torch
 
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.models.attention import sdpa
 
-    d = 192  # nemotron-4-340b's head dim
+    d = 96  # no configuration's head dim, and no instance
+    cases = {"no_instance": (d, d), "mla": (192, 128)}  # (q/k head dim, v head dim)
+    raise_msg = {"no_instance": f"head dim {d}", "mla": "k/v shapes differ"}
     saved = os.environ.pop("REPRO_USE_FLASH", None)
+    rows = {}
     try:
-        gen = torch.Generator().manual_seed(5)
-        q, k, v = (torch.randn((1, 512, h, d), generator=gen) for h in (8, 2, 2))
-        want = sdpa(q, k, v, causal=True)
-        before = fa.flash_attention.launches
-        got = sdpa(q.to(device), k.to(device), v.to(device), causal=True).cpu()
-        check(fa.flash_attention.launches == before, f"sdpa at head dim {d} launched the flash kernel")
-        err = float((got - want).abs().max())
-        check(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
-              f"sdpa at head dim {d} on {device} differs from the CPU's einsum path ({err})")
-        raised = None
-        if device.type == "cuda":
-            os.environ["REPRO_USE_FLASH"] = "1"
-            try:
-                sdpa(q.to(device), k.to(device), v.to(device), causal=True)
-            except ValueError as exc:
-                raised = str(exc)
-            check(raised is not None and f"head dim {d}" in raised,
-                  f"REPRO_USE_FLASH=1 at head dim {d} did not raise")
+        for name, (dq, dv) in cases.items():
+            gen = torch.Generator().manual_seed(5)
+            q, k = (torch.randn((1, 512, h, dq), generator=gen) for h in (8, 2))
+            v = torch.randn((1, 512, 2, dv), generator=gen)
+            os.environ.pop("REPRO_USE_FLASH", None)
+            want = sdpa(q, k, v, causal=True)
+            before = fa.flash_attention.launches
+            got = sdpa(q.to(device), k.to(device), v.to(device), causal=True).cpu()
+            check(fa.flash_attention.launches == before,
+                  f"sdpa at head dims {dq}/{dv} launched the flash kernel")
+            err = float((got - want).abs().max())
+            check(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
+                  f"sdpa at head dims {dq}/{dv} on {device} differs from the CPU's einsum path ({err})")
+            raised = None
+            if device.type == "cuda":
+                os.environ["REPRO_USE_FLASH"] = "1"
+                try:
+                    sdpa(q.to(device), k.to(device), v.to(device), causal=True)
+                except ValueError as exc:
+                    raised = str(exc)
+                check(raised is not None and raise_msg[name] in raised,
+                      f"REPRO_USE_FLASH=1 at head dims {dq}/{dv} did not raise ({raised})")
+                check(fa.flash_attention.launches == before, f"head dims {dq}/{dv}: a forced call launched")
+            rows[name] = dict(qk_head_dim=dq, v_head_dim=dv, shape=[1, 512, 8, 2, dq],
+                              max_abs_err=err, forced_raises=raised)
+            log(f"[check] sdpa at head dims {dq}/{dv}, env unset: the einsum path on {device}, max err "
+                f"{err:.3g} vs the CPU's; REPRO_USE_FLASH=1 raises: {raised}")
     finally:
         os.environ.pop("REPRO_USE_FLASH", None)
         if saved is not None:
             os.environ["REPRO_USE_FLASH"] = saved
-    row = dict(head_dim=d, shape=[1, 512, 8, 2, d], max_abs_err=err, forced_raises=raised)
-    log(f"[check] sdpa at head dim {d}, env unset: the einsum path on {device}, max err {err:.3g} "
-        f"vs the CPU's; REPRO_USE_FLASH=1 raises: {raised}")
-    return row
+    return rows
 
 
 def compare_migration_cost(u, device, gen, reps=20):
@@ -956,11 +1029,15 @@ def profile_window(fn, device, top=8):
 
 
 def _upcast(tree):
-    if isinstance(tree, dict):
-        return {k: _upcast(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_upcast(v) for v in tree]
-    return tree.float()
+    """``tree`` (nested dicts and lists of tensors) upcast to f32 in place:
+    each leaf is replaced by its f32 copy, which frees the bf16 leaf, so the
+    peak is the f32 tree and one bf16 leaf, not both trees."""
+    for key, leaf in list(tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(leaf, (dict, list)):
+            _upcast(leaf)
+        else:
+            tree[key] = leaf.float()
+    return tree
 
 
 # --------------------------------------------------------------------------- #
@@ -1087,6 +1164,25 @@ def moe_row_bounds(cfg, s, batch, cache_len):
                 step_bound_ms=(weights + cache) / PEAK_BYTES_PER_S * 1e3, weight_bytes=weights)
 
 
+def dense_row_bounds(cfg, s, batch, valid):
+    """The least time a prefill of B 1 x ``s`` positions and a decode step
+    at ``batch`` of a dense GQA row could take on the card: the prefill's
+    operations (the weight GEMMs, the causal attention core at half of
+    S x S, the head) at the bf16 peak, its bytes the weights read once; a
+    decode step reads every weight but the embedding table (a few rows of
+    it) and the ``valid`` slots of every layer's K and V cache (bytes)."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_token = 2 * (2 * d * h * hd + 2 * d * kv * hd) + 2 * cfg._ffn_params(cfg.d_ff)
+    ops = cfg.num_layers * (s * per_token + 4 * h * s * s // 2 * hd) + 2 * s * d * cfg.vocab_size
+    weights = 2 * cfg.param_count()
+    prefill = bound_ms(weights, ops, PEAK_BF16_OPS_PER_S)
+    step_bytes = weights - (0 if cfg.tie_embeddings else 2 * cfg.vocab_size * d)
+    step_bytes += cfg.num_layers * batch * valid * 2 * kv * hd * 2
+    return dict(prefill_bound_ms=prefill[0], prefill_bound_by=prefill[1], prefill_ops=ops,
+                step_bound_ms=step_bytes / PEAK_BYTES_PER_S * 1e3, step_bytes=step_bytes,
+                weight_bytes=weights)
+
+
 def attention_calls(cfg) -> int:
     """Attention applications in one forward or decode step: every layer of
     an attention model, the hybrid's shared block once per group of
@@ -1190,6 +1286,52 @@ def decode_blocks(model, params, cfg, tokens):
 #: model is freed: 8 dbrx layers upcast to f32 would be 109 GB
 F32_LAYERS = 2
 
+#: the bytes of the card's memory :func:`check_cuts` leaves to what its
+#: reckoning does not see (the forward's other transients, the
+#: allocator's slack): nemotron-4's f32 checks on 1 layer at S 2048 peaked
+#: at 71.0 GB on the H100, 9.9 GB above their 61.1 GB reckoned
+CHECK_HEADROOM = 16e9
+
+
+def check_cuts(cfg, s, memory):
+    """The depth of a dense or SSM row's f32 checks and the tokens of its
+    einsum and f32 prefills, fitted to ``memory`` bytes (None: no cut): the
+    longest of ``s``, s/2, s/4, ... at which the bf16 model and its einsum
+    forward fit, and the f32 model at one layer and its; then the most
+    layers whose f32 weights fit beside that forward.  A forward of T
+    positions (a VLM's image positions with its tokens) is reckoned as its
+    f32 scores and probabilities (1 x H x T x T each) and three f32
+    logits (T x vocab)."""
+    if memory is None:
+        return cfg.num_layers, s
+    n_img = cfg.frontend_len if cfg.frontend == "vision" else 0
+
+    def need(layers, width, cs):
+        t = n_img + cs
+        weights = width * dataclasses.replace(cfg, num_layers=layers).param_count()
+        return weights + 8 * cfg.num_heads * t * t + 12 * t * cfg.vocab_size
+
+    cs = s
+    while cs > 1 and max(need(cfg.num_layers, 2, cs), need(1, 4, cs)) > memory:
+        cs //= 2
+    nl = max((n for n in range(1, cfg.num_layers + 1) if need(n, 4, cs) <= memory), default=1)
+    return nl, cs
+
+
+def row_bounds(cfg, scale):
+    """A serving row's prefill and decode-step bounds by its family: a MoE
+    row's :func:`moe_row_bounds`, an SSM or hybrid row's
+    :func:`ssm_row_bounds` (the hybrid's shared attention included), else
+    :func:`dense_row_bounds` (a VLM's prefill over its image positions
+    too)."""
+    s, b = scale["prefill_s"], scale["batch"]
+    if cfg.num_experts:
+        return moe_row_bounds(cfg, s, b, scale["context"])
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return ssm_row_bounds(cfg, s, b, scale["context"])
+    n_img = cfg.frontend_len if cfg.frontend == "vision" else 0
+    return dense_row_bounds(cfg, n_img + s, b, scale["prompt"] + scale["gen"] - 1)
+
 #: a MoE row holds stepped decode to the forward on one sequence of this
 #: many tokens (half prompt, half generated), where ``capacity_of`` equals
 #: the token count and no expert can overflow on either path
@@ -1199,27 +1341,33 @@ STEP_TOKENS = 8
 def serve_row(device, scale):
     """Serve one config of phase 5 in bf16 on random weights from a seeded
     ``torch.Generator`` on the card, at full width and ``scale["layers"]``
-    of its layers (all when unset).  Returns the row and the kernel
-    launches it expects.
+    of its layers (all when unset) of ``scale["config"]`` where given, else
+    of ``scale["arch"]``'s full or reduced config.  Returns the row and the
+    kernel launches it expects.
 
-    (e) A prefill forward of B 1 x ``prefill_s`` tokens.  GQA at D 128 takes
-    the flash branch (sdpa's default on CUDA): K6 in every layer, each
+    (e) A prefill forward of B 1 x ``prefill_s`` tokens, after the vision
+    stub's ``frontend_len`` image positions in a VLM row.  GQA takes the
+    flash branch (sdpa's default on CUDA): K6 in every layer, each
     layer's output held to the plain version on that layer's own q/k/v
     (3e-2; 1e-2 relative per query tile), and two flash forwards bitwise
-    equal.  MLA takes the einsum path (F7), no kernel.  A MoE row's prefill
-    must not beat its bound (:func:`moe_row_bounds`); a dense row also runs
-    the einsum path's forward (``REPRO_USE_FLASH=0``).  (f)
+    equal.  MLA takes the einsum path (F7), no kernel.  No prefill may
+    beat its bound (:func:`row_bounds`); a dense row also runs the einsum
+    path's forward (``REPRO_USE_FLASH=0``) on the first tokens that
+    :func:`check_cuts` fits to the card, against the same positions of the
+    flash logits.  (f)
     ``greedy_generate`` at B ``batch``, ``prompt`` + ``gen`` tokens, and one
     forward of them; for GQA, K7 launched on layer 0's final cache with the
     last step's q, held to its plain version and to the einsum ``sdpa``
     (3e-2).
 
     The whole-model checks run on the same weights upcast to f32, where
-    rounding does not swamp them: a dense row at full depth, a MoE row on
-    its first ``F32_LAYERS`` layers.  They see the routing: each MoE layer's
-    expert choices are recorded on both paths, every flip must be a near
-    tie (:func:`routing_diff`), and the logits are held at 1e-4 before the
-    first token routed differently (everywhere, in a dense row).  The flash
+    rounding does not swamp them: a MoE row on its first ``F32_LAYERS``
+    layers, a dense or SSM row on as many layers and prefill tokens as
+    :func:`check_cuts` fits to the card (all of both where they fit).
+    They see the routing: each MoE layer's expert choices are recorded on
+    both paths, every flip must be a near tie (:func:`routing_diff`), and
+    the logits are held at 1e-4 before the first token routed differently
+    (everywhere, in a dense row).  The flash
     forward is held to the einsum forward (GQA).  Stepped decode is held to
     the forward where no expert can overflow: the whole B x (prompt + gen)
     run of a dense row; for a MoE row one sequence of ``STEP_TOKENS``
@@ -1248,21 +1396,29 @@ def serve_row(device, scale):
         if cuda:
             torch.cuda.synchronize()
 
-    base = (get_reduced if scale["reduced"] else get_config)(scale["arch"])
+    base = scale.get("config") or (get_reduced if scale["reduced"] else get_config)(scale["arch"])
     cfg = dataclasses.replace(base, num_layers=scale.get("layers") or base.num_layers)
     model = get_model(cfg)
     calls = attention_calls(cfg)  # K6 launches per flash forward
     gqa, moe, ssm = calls > 0 and not cfg.use_mla, bool(cfg.num_experts), cfg.arch_type in ("ssm", "hybrid")
     k = cfg.num_experts_per_token
-    nl = min(F32_LAYERS, cfg.num_layers) if moe else cfg.num_layers
+    s = scale["prefill_s"]
+    if moe:
+        nl, cs = min(F32_LAYERS, cfg.num_layers), s
+    else:  # cs: the tokens of the einsum and f32 prefills
+        memory = torch.cuda.get_device_properties(device).total_memory - CHECK_HEADROOM if cuda else None
+        nl, cs = check_cuts(cfg, s, memory)
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=nl)
-    reduced = (f"{cfg.num_layers} of {base.num_layers} layers" if cfg.num_layers < base.num_layers
-               else "full depth") + (f"; the f32 checks on the first {nl}" if nl < cfg.num_layers else "")
+    # the bf16 logits are held to the f32 forward only where it is the same model on the same tokens
+    whole32 = nl == cfg.num_layers and cs == s
+    reduced = ((f"{cfg.num_layers} of {base.num_layers} layers" if cfg.num_layers < base.num_layers
+                else "full depth") + (f"; the f32 checks on the first {nl}" if nl < cfg.num_layers else "")
+               + (f"; the einsum and f32 prefills on the first {cs} tokens" if cs < s else ""))
     out = dict(model=cfg.name, layers=cfg.num_layers, full_layers=base.num_layers, reduced=reduced,
                d_model=cfg.d_model, dtype=cfg.dtype, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
                experts=cfg.num_experts, top_k=k, shared_experts=cfg.num_shared_experts,
                mla=cfg.use_mla, param_count=cfg.param_count(), head_dim=cfg.head_dim,
-               attention_calls=calls,
+               attention_calls=calls, qk_norm=cfg.qk_norm, mrope=cfg.mrope, mlp=cfg.mlp_type,
                attention="flash (K6)" if gqa else ("einsum (F7)" if cfg.use_mla else "none (SSM)"))
     if ssm:
         out.update(arch_type=cfg.arch_type, ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state,
@@ -1279,13 +1435,15 @@ def serve_row(device, scale):
         else:
             os.environ["REPRO_USE_FLASH"] = value
 
-    def forward(p, c, tokens, flash=True):
-        """Logits and seconds of one forward; K6's launches checked."""
+    def forward(p, c, tokens, flash=True, images=None):
+        """Logits and seconds of one forward (``images`` the vision stub's
+        embeddings, prepended); K6's launches checked."""
         set_flash(flash_env if flash else "0")
         n0 = fa.flash_attention.launches
+        batch = {"tokens": tokens} if images is None else {"tokens": tokens, "image_embeds": images}
         sync()
         t = time.perf_counter()
-        logits, _ = model.forward(p, c, {"tokens": tokens})
+        logits, _ = model.forward(p, c, batch)
         sync()
         dt = time.perf_counter() - t
         check(bool(torch.isfinite(logits).all()), f"{c.name} {c.dtype} forward: logits are not finite")
@@ -1308,22 +1466,24 @@ def serve_row(device, scale):
     orig_sdpa = attention.sdpa
     try:
         # ---- (e) prefill ---------------------------------------------------- #
-        s = scale["prefill_s"]
         tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=device)
+        image, n_img = None, 0
+        if cfg.frontend == "vision":  # the stub's patch embeddings: rows of the embedding table
+            n_img = cfg.frontend_len
+            image = params["embed"][torch.randint(0, cfg.vocab_size, (1, n_img), generator=gen,
+                                                  device=device)]
+            out.update(image_positions=n_img)
         with RouteRecorder() as routes:
-            logits, out["prefill_s"] = forward(params, cfg, tokens)
-        out["prefill_tokens_per_s"] = s / out["prefill_s"]
-        check(tuple(logits.shape) == (1, s, cfg.vocab_size), f"prefill logits {tuple(logits.shape)}")
+            logits, out["prefill_s"] = forward(params, cfg, tokens, images=image)
+        out["prefill_tokens_per_s"] = (n_img + s) / out["prefill_s"]
+        check(tuple(logits.shape) == (1, n_img + s, cfg.vocab_size), f"prefill logits {tuple(logits.shape)}")
+        out.update(row_bounds(cfg, scale))
         if moe:
-            out.update(moe_row_bounds(cfg, s, scale["batch"], scale["context"]),
-                       capacity=capacity_of(cfg, s), prefill_dropped_choices=routes.dropped(),
+            out.update(capacity=capacity_of(cfg, s), prefill_dropped_choices=routes.dropped(),
                        prefill_choices=s * k * cfg.num_layers)
-        if ssm:
-            out.update(ssm_row_bounds(cfg, s, scale["batch"], scale["context"]))
-        if moe or ssm:
-            check(out["prefill_s"] * 1e3 >= out["prefill_bound_ms"],
-                  f"{cfg.name}: a prefill of {out['prefill_s']} s is under its bound "
-                  f"({out['prefill_bound_ms']} ms): it skipped work")
+        check(out["prefill_s"] * 1e3 >= out["prefill_bound_ms"],
+              f"{cfg.name}: a prefill of {out['prefill_s']} s is under its bound "
+              f"({out['prefill_bound_ms']} ms): it skipped work")
         if gqa:
             layer_errs = []
 
@@ -1336,7 +1496,7 @@ def serve_row(device, scale):
                 return res
 
             attention.sdpa = checked_sdpa
-            again, _ = forward(params, cfg, tokens)
+            again, _ = forward(params, cfg, tokens, images=image)
             attention.sdpa = orig_sdpa
             check(len(layer_errs) == calls,
                   f"{cfg.name} prefill: attention ran {len(layer_errs)} times, wanted {calls}")
@@ -1351,9 +1511,13 @@ def serve_row(device, scale):
         if moe or not gqa:  # the bf16 logits are compared with nothing (a cut depth, no attention)
             del logits
         else:
-            einsum_logits, out["prefill_einsum_s"] = forward(params, cfg, tokens, flash=False)
-            out["bf16_prefill_vs_einsum"] = logits_stats(logits, einsum_logits, 0.05)
-        out["profile_prefill"] = profile_window(lambda: forward(params, cfg, tokens), device)
+            einsum_logits, out["prefill_einsum_s"] = forward(params, cfg, tokens[:, :cs], flash=False,
+                                                             images=image)
+            out["bf16_prefill_vs_einsum"] = dict(logits_stats(logits[:, :n_img + cs], einsum_logits, 0.05),
+                                                 tokens=cs)
+            if not whole32:  # the f32 forward is another model or other tokens
+                del logits, einsum_logits
+        out["profile_prefill"] = profile_window(lambda: forward(params, cfg, tokens, images=image), device)
 
         # ---- (f) greedy serving --------------------------------------------- #
         b, p, n = scale["batch"], scale["prompt"], scale["gen"]
@@ -1431,28 +1595,30 @@ def serve_row(device, scale):
         if cuda:
             torch.cuda.empty_cache()
         if gqa:  # the flash forward against the einsum forward
+            tokens32 = tokens[:, :cs]
             with RouteRecorder() as ref_routes:
-                ref, _ = forward(params32, cfg32, tokens, flash=False)
-            if not moe:
+                ref, _ = forward(params32, cfg32, tokens32, flash=False, images=image)
+            if not moe and whole32:
                 out["bf16_prefill_flash_vs_f32"] = logits_stats(logits, ref, 0.05)
                 out["bf16_prefill_einsum_vs_f32"] = logits_stats(einsum_logits, ref, 0.05)
                 del logits, einsum_logits
             with RouteRecorder() as flash_routes:
-                flash32, _ = forward(params32, cfg32, tokens)
+                flash32, _ = forward(params32, cfg32, tokens32, images=image)
             diff = routing_diff(ref_routes.calls, flash_routes.calls, k)
-            cut = s if diff["cut"] is None else diff["cut"]
+            n32 = n_img + cs  # positions of the f32 prefill
+            cut = n32 if diff["cut"] is None else diff["cut"]
             held = logits_stats(flash32[:, :cut], ref[:, :cut], 1e-4) if cut else None
             out["f32_prefill_vs_einsum"] = dict(
-                routing=diff, tokens=s, positions_held=cut, held=held,
-                after_cut=logits_stats(flash32[:, cut:], ref[:, cut:], 1e-4) if cut < s else None,
+                routing=diff, tokens=n32, positions_held=cut, held=held,
+                after_cut=logits_stats(flash32[:, cut:], ref[:, cut:], 1e-4) if cut < n32 else None,
                 dropped_choices=ref_routes.dropped())
             check(not diff["not_near_ties"], f"{cfg.name} f32 prefill: routing moved away from a "
                   f"near tie (margin > {NEAR_TIE}): {diff['not_near_ties']}")
             if held is not None and held["over_tol"] and ssm:  # the first block the two paths part at
                 with BlockRecorder() as ref_blocks:
-                    forward(params32, cfg32, tokens, flash=False)
+                    forward(params32, cfg32, tokens32, flash=False)
                 with BlockRecorder() as flash_blocks:
-                    forward(params32, cfg32, tokens)
+                    forward(params32, cfg32, tokens32)
                 parting = first_parting_block(ref_blocks.calls, flash_blocks.calls, 1e-4)
                 out["f32_prefill_first_parting_block"] = parting
                 log(f"[serve] {cfg.name} f32 flash vs einsum prefill parts at " + json.dumps(parting))
@@ -1460,7 +1626,7 @@ def serve_row(device, scale):
             check(held is None or held["over_tol"] == 0,
                   f"{cfg.name} f32 prefill: flash logits differ from the einsum path's beyond 1e-4 "
                   f"where routing agrees ({held})")
-            del flash32, ref
+            del flash32, ref, tokens32
 
         set_flash(flash_env)
         if moe:  # stepped decode against the forward where no expert can overflow
@@ -1510,7 +1676,7 @@ def serve_row(device, scale):
                     + json.dumps(out["f32_decode_first_parting_block"]))
             check(st["over_tol"] == 0, f"f32 decode parity: stepped logits differ from the "
                   f"forward's beyond 1e-4 ({st})")
-            if torch.equal(seq32, seq):
+            if nl == cfg.num_layers and torch.equal(seq32, seq):
                 out["bf16_steps_vs_f32_forward"] = logits_stats(step_logits, full32[:, :-1], 0.05)
             del step_logits
         del seq32, steps32, full32, params32
@@ -1521,11 +1687,11 @@ def serve_row(device, scale):
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
     f32p, f32d = out.get("f32_prefill_vs_einsum"), out["f32_decode_vs_forward"]
-    log(f"[serve] {cfg.name} ({reduced}), prefill S={s}: {out['prefill_s']:.3f} s"
-        + (f" (bound {out['prefill_bound_ms']:.1f} ms, {out['prefill_bound_by']})" if moe or ssm else "")
+    log(f"[serve] {cfg.name} ({reduced}), prefill S={n_img + s}: {out['prefill_s']:.3f} s"
+        + f" (bound {out['prefill_bound_ms']:.1f} ms, {out['prefill_bound_by']})"
         + (f", {out['prefill_dropped_choices']} of {out['prefill_choices']} choices dropped" if moe else "")
         + f"; decode step {out['step_ms']:.1f} ms at B {b}"
-        + (f" (bound {out['step_bound_ms']:.1f} ms)" if moe or ssm else "")
+        + f" (bound {out['step_bound_ms']:.1f} ms)"
         + (f"; per-call K6 max err {out['prefill_layer_max_err']:.3g} (worst tile's relative error "
            f"{out['prefill_layer_max_rel_err']:.3g}); K7 (group {out['k7_group']}, valid "
            f"{out['k7_shape'][-1]}) vs plain {out['k7_vs_plain_max_err']:.3g} (relative "
@@ -2529,7 +2695,8 @@ def scalability_phase(device, scale):
 def build_report():
     """Phase 1's record of what was built: ``ptxas``'s registers, static
     shared memory and spills for every attention kernel instance (the D = 80
-    instances must not spill), and the ``HGMMA`` instructions in the SASS of
+    instances and the bf16 K6 instance at D = 192 must not spill), and the
+    ``HGMMA`` instructions in the SASS of
     each bf16 ``flash_attention`` instance (it must be a tensor-core kernel:
     none is a failure)."""
     from repro_torch.kernels import build
@@ -2548,6 +2715,9 @@ def build_report():
     d80 = {fn: r for fn, r in ptxas.items() if "Li80E" in fn}  # zamba2's head dim
     check(d80 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in d80.values()),
           f"the D = 80 attention instances spill (or were not built): {d80}")
+    d192 = {fn: r for fn, r in ptxas.items() if "flash_attention_wgmmaILi192E" in fn}  # nemotron-4's
+    check(d192 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in d192.values()),
+          f"the bf16 D = 192 attention instance spills (or was not built): {d192}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[build] cuobjdump not found: the SASS of the bf16 flash_attention instances was NOT checked")
@@ -2732,9 +2902,10 @@ def run(device, scale):
     fused_tie_break_check(device)
 
     # ---- phase 5: serving llama3-8b (e, f), then the MoE and MLA families, -- #
-    # then the SSM and the hybrid
+    # then the SSM and the hybrid, then the other dense configs
     serve_paths = {}  # path -> its launches
-    later_rows = scale.get("serve_moe", SERVE_MOE_REHEARSAL) + scale.get("serve_ssm", SERVE_SSM_REHEARSAL)
+    later_rows = (scale.get("serve_moe", SERVE_MOE_REHEARSAL) + scale.get("serve_ssm", SERVE_SSM_REHEARSAL)
+                  + (scale.get("serve_dense") or serve_dense_rehearsal()))
     for path, row_scale in [("serve", serve)] + [("serve_" + r["arch"], r) for r in later_rows]:
         zero_counts()
         t0 = time.perf_counter()

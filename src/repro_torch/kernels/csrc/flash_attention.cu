@@ -50,6 +50,14 @@
 //   and O fragments (64 floats each at D = 128) and P (32) fit it only
 //   while S(t+1) is not issued before P(t) V(t) completes (FA3's overlap
 //   inside a warpgroup spills and serialises its wgmma here).
+//   Past a 128-wide row (D = 192, nemotron-4's: three whole panels) the
+//   K/V tile is 64 keys instead of 128 (block_k): O is 96 floats a thread,
+//   S 32 and P 16, 144 in all where 128-key tiles would need 192; and Q
+//   (48 KB) plus three stages of 64-key K and V (144 KB) fit the 227 KB of
+//   shared memory, where 128-key stages (288 KB) would not.  Q K^T is then
+//   m64n64k16, P V one m64n192k16 over the three V panels, and a causal
+//   128-row query tile's last two key tiles reach above its diagonal, so
+//   both are masked.
 //   TMA fills rows past S with zeros, so keys >= S are masked from their
 //   indices, not by their contents.
 // * f32 (namespace cc): the CUDA-core kernel (the f32 path must stay
@@ -256,7 +264,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 namespace tc {
 
 constexpr int BM = 128;                  // query rows per CTA (two warpgroups of 64)
-constexpr int BN = 128;                  // keys per K/V tile
+constexpr int BN = 128;                  // keys per K/V tile up to a 128-wide row
+constexpr int BN_WIDE = 64;              // keys per K/V tile past it (D = 192)
 constexpr int STAGES = 3;                // K/V ring depth
 constexpr int CONSUMERS = 256;           // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // plus one producer warp
@@ -265,13 +274,17 @@ constexpr int PANEL = 64;                // bf16 per 128-byte swizzled row
 // The width an instance lays a row of head dim d out at: whole panels.
 __host__ __device__ constexpr int padded(int d) { return (d + PANEL - 1) / PANEL * PANEL; }
 
+// Keys per K/V tile at laid-out row width dp: registers and shared memory
+// (see the header) allow 128 keys up to dp = 128 and 64 past it.
+__host__ __device__ constexpr int block_k(int dp) { return dp > 128 ? BN_WIDE : BN; }
+
 // Dynamic shared memory at row width D (a whole number of panels): Q, then
 // STAGES x (K, V), each a multiple of the 1024-byte swizzle atom, then the
 // mbarriers; 1024 bytes of slack to align the base to the atom.
 template <int D>
 struct Smem {
   static constexpr int Q = BM * D * 2;
-  static constexpr int TILE = BN * D * 2;
+  static constexpr int TILE = block_k(D) * D * 2;
   static constexpr int BARRIERS = 8 * (1 + 2 * STAGES);
   static constexpr int BYTES = 1024 + Q + STAGES * 2 * TILE + BARRIERS;
 };
@@ -354,6 +367,7 @@ __device__ __forceinline__ void fence_all(float* x) {
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define ACC32(d) ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
 #define ACC64(d) ACC32(d), ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+#define ACC96(d) ACC64(d), ACC8(d, 64), ACC8(d, 72), ACC8(d, 80), ACC8(d, 88)
 
 // D (64 x 128, f32) = A (64 x 16) * B (128 x 16)^T [+ D], A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
@@ -369,6 +383,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 64, f32) = A (64 x 16) * B (64 x 16)^T [+ D], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S = Q K^T at BK keys: m64n128k16 or m64n64k16.
+template <int BK>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (BK == 128) {
+    wgmma_ss_n128(d, da, db, accumulate);
+  } else {
+    wgmma_ss_n64(d, da, db, accumulate);
+  }
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
@@ -380,6 +416,23 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 192, f32) += A (64 x 16, bf16 in registers) * B (16 x 192), B MN-major in shared memory
+// (three 64-wide panels, leading byte offset apart).
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : ACC96(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -397,7 +450,9 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
 
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 128) {
+  if constexpr (D == 192) {
+    wgmma_rs_n192(d, a, db);
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a, db);
   } else {
     wgmma_rs_n64(d, a, db);
@@ -409,44 +464,46 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// S (64 x BN) = Q K^T for this warpgroup's 64 rows: D/16 k-steps (the
+// S (64 x BK) = Q K^T for this warpgroup's 64 rows: D/16 k-steps (the
 // real head dim's; padded columns are zero and skipped), 4 per 64-wide
 // panel; both operands K-major, the k-step advances 32 bytes inside the
 // swizzled 128-byte rows.
-template <int D>
+template <int D, int BK>
 __device__ __forceinline__ void qk(float* s, uint32_t sq_wg, uint32_t sk) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int p = kk / 4, c = kk % 4;
     const uint64_t da = desc_sw128(sq_wg + p * BM * 128 + c * 32, 16, 1024);
-    const uint64_t db = desc_sw128(sk + p * BN * 128 + c * 32, 16, 1024);
-    wgmma_ss_n128(s, da, db, kk > 0);
+    const uint64_t db = desc_sw128(sk + p * BK * 128 + c * 32, 16, 1024);
+    wgmma_ss<BK>(s, da, db, kk > 0);
   }
 }
 
-// O += P V: P (64 x BN) in bf16 registers, V key-major with D contiguous
+// O += P V: P (64 x BK) in bf16 registers, V key-major with D contiguous
 // (MN-major B): 8 keys are a 1024-byte atom (stride byte offset), the next
 // 64 columns of D the next panel (leading byte offset).  D here is the
 // padded width.
-template <int D>
+template <int D, int BK>
 __device__ __forceinline__ void pv(float* acc, const uint32_t* pa, uint32_t sv) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    wgmma_rs<D>(acc, pa + 4 * kk, desc_sw128(sv + kk * 16 * 128, BN * 128, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    wgmma_rs<D>(acc, pa + 4 * kk, desc_sw128(sv + kk * 16 * 128, BK * 128, 1024));
   }
 }
 
-// Online-softmax step on the S fragment of one tile (rows r0 and r0 + 8 of
-// this thread, columns 8j + cq, +1): mask it if it is the last tile (the
-// only one with keys >= S or above the diagonal), update the running max m
-// and this thread's share of the row sums l, overwrite S with P (f32), and
-// return the factors alpha by which the accumulator must be rescaled.
+// Online-softmax step on the S fragment of one BK-key tile (rows r0 and
+// r0 + 8 of this thread, columns 8j + cq, +1): mask it if it is one of the
+// last tiles (the only ones with keys >= S or above the diagonal), update
+// the running max m and this thread's share of the row sums l, overwrite S
+// with P (f32), and return the factors alpha by which the accumulator must
+// be rescaled.
+template <int BK>
 __device__ __forceinline__ void softmax(float* s, float& m0, float& m1, float& l0, float& l1,
                                         float& alpha0, float& alpha1, bool last, int k0, int r0,
                                         int cq, int S, int causal, float scale_log2) {
   if (last) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + cq + (e & 1);
@@ -457,7 +514,7 @@ __device__ __forceinline__ void softmax(float* s, float& m0, float& m1, float& l
   }
   float mx0 = m0, mx1 = m1;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -474,7 +531,7 @@ __device__ __forceinline__ void softmax(float* s, float& m0, float& m1, float& l
   m1 = mx1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     s[4 * j] = exp2f(fmaf(s[4 * j], scale_log2, -sub0));
     s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -sub0));
     s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -sub1));
@@ -494,9 +551,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
   static_assert(D % 16 == 0, "a k-step of Q K^T takes 16 columns");
   constexpr int DP = padded(D);           // the row's laid-out width
   constexpr int NP = DP / PANEL;          // 64-wide panels per row
+  constexpr int BK = block_k(DP);         // keys per K/V tile
   constexpr int Q_BYTES = Smem<DP>::Q, T_BYTES = Smem<DP>::TILE;
   constexpr int NACC = DP / 2;            // O fragment: 64 x DP over 128 threads
-  constexpr int NS = BN / 2;              // S fragment: 64 x BN over 128 threads
+  constexpr int NS = BK / 2;              // S fragment: 64 x BK over 128 threads
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -508,7 +566,11 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
   const int b = bh / H, h = bh - (bh / H) * H, kvh = h / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest tiles first
   const int key_end = causal ? min(q0 + BM, S) : S;
-  const int ntiles = (key_end + BN - 1) / BN;
+  const int ntiles = (key_end + BK - 1) / BK;
+  // the tiles that may hold keys >= S or above a row's diagonal: the last
+  // one, and with BK < BM under causality every tile of the query tile's
+  // own BM keys
+  const int first_masked = ntiles - (causal ? BM / BK : 1);
   const int warp = threadIdx.x >> 5;
 
   if (threadIdx.x == 0) {
@@ -532,8 +594,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
         mbar_wait(empty0 + 8 * st, ((t / STAGES) & 1) ^ 1);  // the first pass is free
         mbar_expect_tx(full0 + 8 * st, 2 * T_BYTES);
         for (int p = 0; p < NP; ++p) {
-          tma_load(sk + p * BN * 128, &tk, full0 + 8 * st, p * PANEL, kvh, t * BN, b);
-          tma_load(sv + p * BN * 128, &tv, full0 + 8 * st, p * PANEL, kvh, t * BN, b);
+          tma_load(sk + p * BK * 128, &tk, full0 + 8 * st, p * PANEL, kvh, t * BK, b);
+          tma_load(sv + p * BK * 128, &tv, full0 + 8 * st, p * PANEL, kvh, t * BK, b);
         }
       }
     }
@@ -563,14 +625,15 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
       fence_all<NS>(s);
       fence_all<NACC>(acc);
       wgmma_fence();
-      qk<D>(s, sq_wg, sk);
+      qk<D, BK>(s, sq_wg, sk);
       wgmma_commit();
       wgmma_wait_all();
       fence_all<NS>(s);
 
       float alpha0, alpha1;
-      softmax(s, m0, m1, l0, l1, alpha0, alpha1, t == ntiles - 1, t * BN, r0, cq, S, causal,
-              scale_log2);
+      softmax<BK>(s, m0, m1, l0, l1, alpha0, alpha1,
+                  t >= first_masked, t * BK, r0, cq, S, causal,
+                  scale_log2);
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         acc[4 * j] *= alpha0;
@@ -580,12 +643,12 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
       }
       // P in bf16: the pairs of the fragment, in order, are the A fragments
       // of the k16 steps of P V (step kk = keys 16kk .. 16kk + 15)
-      uint32_t pa[BN / 4];
+      uint32_t pa[BK / 4];
 #pragma unroll
-      for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < BK / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
       fence_all<NACC>(acc);
       wgmma_fence();
-      pv<DP>(acc, pa, sk + T_BYTES);
+      pv<DP, BK>(acc, pa, sk + T_BYTES);
       wgmma_commit();
       wgmma_wait_all();
       fence_all<NACC>(acc);
@@ -655,7 +718,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    int KV, int causal, const unsigned long long* maps, int smem,
                    cudaStream_t stream) {
   constexpr int BYTES = Smem<padded(D)>::BYTES;
-  if (smem != BYTES) return cudaErrorInvalidValue;  // the plan and this file disagree
+  constexpr unsigned long long BK = block_k(padded(D));
+  // the plan and this file disagree: shared memory, or a box's rows (maps
+  // hold dims[4], strides[3], box[4] per operand; box[2] is the rows)
+  if (smem != BYTES || maps[9] != BM || maps[20] != BK || maps[31] != BK) return cudaErrorInvalidValue;
   // Opt in to the shared memory once per instance (not a stream operation,
   // so legal before any graph capture that later replays the launch).
   static const cudaError_t opt_in = cudaFuncSetAttribute(
@@ -693,8 +759,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   if (dtype == 0 && D == 64) return (int)cc::launch<float, 64>(q, k, v, o, B, S, H, KV, causal, st, s);
   if (dtype == 0 && D == 80) return (int)cc::launch<float, 80>(q, k, v, o, B, S, H, KV, causal, st, s);
   if (dtype == 0 && D == 128) return (int)cc::launch<float, 128>(q, k, v, o, B, S, H, KV, causal, st, s);
+  if (dtype == 0 && D == 192) return (int)cc::launch<float, 192>(q, k, v, o, B, S, H, KV, causal, st, s);
   if (dtype == 1 && D == 64) return (int)tc::launch<64>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   if (dtype == 1 && D == 80) return (int)tc::launch<80>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   if (dtype == 1 && D == 128) return (int)tc::launch<128>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
+  if (dtype == 1 && D == 192) return (int)tc::launch<192>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   return (int)cudaErrorInvalidValue;
 }

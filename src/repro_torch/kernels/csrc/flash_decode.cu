@@ -24,16 +24,18 @@
 // Two partial kernels:
 //
 // * bf16 (ring::): K and V stay bf16 in shared memory, fed by cp.async.cg
-//   16-byte copies into a ring of STAGES tiles (3 at D = 128, 4 at D = 64, 80:
-//   at most ~110 KB, so two blocks fit on an SM), with one block barrier per
-//   tile.  Warp w serves heads w, w + 4, ... of the group with their scaled
-//   queries in registers; a cache row is read by D/8 lanes, 16 bytes each,
-//   in a lane group of the next power of two (8, 16; 16 at D = 80, where
-//   lanes 10-15 of a group load nothing and add 0), and the dot is reduced
-//   across the group with xor shuffles, so a warp scores 2 (D = 80, 128) or
-//   4 (D = 64) rows at once, each lane group keeping its own online softmax
-//   (chunks of 8 rows per update, exp2 on log2-scaled scores) that the warp
-//   merges with shuffles at the end.
+//   16-byte copies into a ring of STAGES tiles (2 at D = 192, 3 at D = 128,
+//   4 at D = 64, 80: at most ~110 KB, so two blocks fit on an SM), with one
+//   block barrier per tile.  Warp w serves heads w, w + 4, ... of the group
+//   with their scaled queries in registers; a cache row is read by D/8
+//   lanes, 16 bytes each, in a lane group of the next power of two (8, 16,
+//   32; 16 at D = 80, where lanes 10-15 of a group load nothing and add 0,
+//   and 32 at D = 192, where lanes 24-31 do), and the dot is reduced across
+//   the group with xor shuffles, so a warp scores 1 (D = 192), 2 (D = 80,
+//   128) or 4 (D = 64) rows at once, each lane group keeping its own online
+//   softmax (chunks of 8 rows per update, exp2 on log2-scaled scores) that
+//   the warp merges with shuffles at the end.  With two stages the copy of
+//   tile t + 1 is in flight while tile t is scored.
 // * f32 (flash_decode_partial): tiles staged as f32 (K row-padded to D+1
 //   floats so the score loop is bank-conflict free), scores and the update
 //   through shared memory with four block barriers per tile.
@@ -514,11 +516,15 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
     return (int)launch<float, 80>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   if (dtype == 0 && D == 128)
     return (int)launch<float, 128>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
+  if (dtype == 0 && D == 192)
+    return (int)launch<float, 192>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   if (dtype == 1 && D == 64)
     return (int)launch<__nv_bfloat16, 64>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   if (dtype == 1 && D == 80)
     return (int)launch<__nv_bfloat16, 80>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   if (dtype == 1 && D == 128)
     return (int)launch<__nv_bfloat16, 128>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
+  if (dtype == 1 && D == 192)
+    return (int)launch<__nv_bfloat16, 192>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   return (int)cudaErrorInvalidValue;
 }

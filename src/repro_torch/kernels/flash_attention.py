@@ -27,13 +27,16 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 #: head dims with a kernel instance (reduced and full GQA configs; 80 is
-#: zamba2's shared block)
-HEAD_DIMS = (64, 80, 128)
+#: zamba2's shared block, 192 nemotron-4's)
+HEAD_DIMS = (64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the bf16 tensor-core instance (csrc/flash_attention.cu, namespace tc):
 #: query rows per CTA, keys per K/V tile, ring stages, bf16 per 128-byte
 #: swizzled TMA box row
 TC_BLOCK_Q, TC_BLOCK_K, TC_STAGES, TC_PANEL = 128, 128, 3, 64
+#: keys per K/V tile past a 128-wide row (``tc::BN_WIDE``, D = 192): O, S and
+#: P fit ptxas's 168 registers, and Q plus the ring the 227 KB of shared memory
+TC_BLOCK_K_WIDE = 64
 #: the f32 CUDA-core instance (namespace cc): query rows per tile
 CC_BLOCK_Q = 64
 
@@ -117,31 +120,40 @@ def tc_padded_dim(d: int) -> int:
     return -(-d // TC_PANEL) * TC_PANEL
 
 
+def tc_block_k(d: int) -> int:
+    """Keys per K/V tile of the bf16 instance for head dim ``d``
+    (``tc::block_k``): 128 up to a 128-wide row, 64 past it."""
+    return TC_BLOCK_K_WIDE if tc_padded_dim(d) > 128 else TC_BLOCK_K
+
+
 def _tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of the bf16 instance for head dim ``d``
     (``tc::Smem<padded(D)>::BYTES``): 1 KB to align to the swizzle atom, Q,
     the K/V ring, its mbarriers."""
     dp = tc_padded_dim(d)
-    return 1024 + 2 * TC_BLOCK_Q * dp + TC_STAGES * 2 * 2 * TC_BLOCK_K * dp + 8 * (1 + 2 * TC_STAGES)
+    return 1024 + 2 * TC_BLOCK_Q * dp + TC_STAGES * 2 * 2 * tc_block_k(d) * dp + 8 * (1 + 2 * TC_STAGES)
 
 
 def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v_strides=None) -> dict:
     """What a launch of ``flash_attention`` on q (B, S, H, D) and k/v
     (B, S, ``kv_heads``, D) of ``dtype`` hands the C entry or checks before
     it: the instance, the grid (checked against one launch's limits), the
-    dynamic shared memory (the C entry checks it against its own) and the
-    bf16 instance's tensor maps.  Strides (elements, default contiguous)
-    matter only to the maps."""
+    dynamic shared memory and the bf16 instance's keys per K/V tile and
+    tensor maps (the C entry checks the bytes and the maps' box rows against
+    its own).  Strides (elements, default contiguous) matter only to the
+    maps."""
     b, s, h, d = q_shape
     if dtype == torch.bfloat16:
         kv_shape = (b, s, kv_heads, d)
         contiguous = (s * h * d, h * d, d, 1), (s * kv_heads * d, kv_heads * d, d, 1)
+        bk = tc_block_k(d)
         return dict(
             instance="tc_bf16", grid=(b * h, -(-s // TC_BLOCK_Q)), dynamic_smem_bytes=_tc_smem_bytes(d),
+            block_k=bk,
             maps=dict(
                 q=tensor_map(q_shape, q_strides or contiguous[0], TC_BLOCK_Q),
-                k=tensor_map(kv_shape, k_strides or contiguous[1], TC_BLOCK_K),
-                v=tensor_map(kv_shape, v_strides or contiguous[1], TC_BLOCK_K),
+                k=tensor_map(kv_shape, k_strides or contiguous[1], bk),
+                v=tensor_map(kv_shape, v_strides or contiguous[1], bk),
             ),
         )
     if dtype == torch.float32:

@@ -32,8 +32,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 #: head dims with a kernel instance (reduced and full GQA configs; 80 is
-#: zamba2's shared block)
-HEAD_DIMS = (64, 80, 128)
+#: zamba2's shared block, 192 nemotron-4's)
+HEAD_DIMS = (64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: cache slots per kernel tile (csrc/flash_decode.cu DBK)
 TILE = 64

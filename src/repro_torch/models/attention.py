@@ -11,9 +11,10 @@ self-attention over the whole sequence, and an einsum path for everything
 else (decode against a cache, an offset query block).  ``REPRO_USE_FLASH=1``
 forces the flash branch where it applies and ``=0`` forces the einsum path;
 unset, the kernel runs exactly when the tensors are on CUDA, the head dim
-has a kernel instance (``flash_attention.HEAD_DIMS``) and autograd is not
-recording through q/k/v; every other case takes the einsum path, the
-reference's default for every head dim (ROADMAP D6, D8).  An explicit
+has a kernel instance (``flash_attention.HEAD_DIMS``), v's head dim is
+q's and autograd is not recording through q/k/v; every other case takes
+the einsum path, the reference's default for every head dim (ROADMAP D6,
+D8).  An explicit
 ``=1`` raises where the kernel cannot serve: at a head dim it lacks, and
 under autograd, since the kernel has no backward (the reference's
 ``jax.grad`` through its Pallas kernel fails too).  The reference's two
@@ -27,10 +28,12 @@ the kernel instead of repeating the KV heads, and reads q/k/v in their
 reference's flash branch are gone too.
 
 MLA's queries and keys have head dim ``qk_nope_dim + qk_rope_dim`` (192 in
-DeepSeek-V2) and its values ``v_head_dim`` (128).  No K6 instance takes
-the first, so ``sdpa`` routes MLA to the einsum path, which takes v's own
-head dim; ``REPRO_USE_FLASH=1`` raises there, as the reference's flash
-branch fails on q/k and v of different head dims (ROADMAP F7).  MLA's
+DeepSeek-V2) and its values ``v_head_dim`` (128).  K6 has an instance at
+192 (nemotron-4's GQA head dim), but it takes q, k and v of one head dim,
+so ``sdpa`` routes by v's head dim too and sends MLA to the einsum path,
+which takes v's own; ``REPRO_USE_FLASH=1`` raises there, as the
+reference's flash branch fails on q/k and v of different head dims
+(ROADMAP F7).  MLA's
 decode step is the reference's absorbed form over the latent cache, with
 the whole score path in f32.
 """
@@ -48,18 +51,20 @@ from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_n
 NEG_INF = -1e30
 
 
-def use_flash(device: torch.device, head_dim: int, grad: bool = False) -> bool:
+def use_flash(device: torch.device, head_dim: int, v_head_dim: int, grad: bool = False) -> bool:
     """The flash branch: ``REPRO_USE_FLASH`` when set ("1" on, "0" off),
     else on exactly when the tensors are on CUDA, the kernel has an
-    instance for ``head_dim`` and ``grad`` (autograd records through the
-    inputs) is False: the kernel has no backward, so training takes the
-    einsum path, the reference's only trainable one (ROADMAP D8)."""
+    instance for ``head_dim`` (q's and k's), v's head dim ``v_head_dim`` is
+    the same — MLA's 192 / 128 is not (F7) — and ``grad`` (autograd records
+    through the inputs) is False: the kernel has no backward, so training
+    takes the einsum path, the reference's only trainable one (ROADMAP
+    D8)."""
     env = os.environ.get("REPRO_USE_FLASH")
     if env is not None:
         return env == "1"
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
-    return device.type == "cuda" and head_dim in HEAD_DIMS and not grad
+    return device.type == "cuda" and head_dim in HEAD_DIMS and v_head_dim == head_dim and not grad
 
 
 # --------------------------------------------------------------------------- #
@@ -111,7 +116,8 @@ def sdpa(
     g = h // kvh
 
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if causal and s == t and q_offset is None and kv_valid_len is None and use_flash(q.device, d, grad):
+    if (causal and s == t and q_offset is None and kv_valid_len is None
+            and use_flash(q.device, d, v.shape[-1], grad)):
         from repro_torch.kernels import flash_attention
 
         return flash_attention.flash_attention(q, k, v, causal=True)

@@ -681,24 +681,25 @@ def test_sdpa_defaults_to_the_flash_kernel_on_cuda(cuda, monkeypatch):
     torch.testing.assert_close(flash.float(), einsum.float(), rtol=3e-2, atol=3e-2)
 
 
-@pytest.mark.parametrize("d", [80, 192])
+@pytest.mark.parametrize("d", [80, 96, 192])
 def test_sdpa_at_a_head_dim_without_a_kernel_runs_the_einsum_path(cuda, monkeypatch, d):
-    """Unset, a causal sdpa at head dim 192 (nemotron's; K6 has no instance)
-    runs the einsum path on the card and matches the CPU's (2e-5, f32), and
+    """Unset, a causal sdpa at head dim 96 (K6 has no instance) runs the
+    einsum path on the card and matches the CPU's (2e-5, f32), and
     ``REPRO_USE_FLASH=1`` asks for the kernel there and raises.  At 80
-    (zamba2's shared block) K6 has its padded instance: unset, sdpa launches
-    it, in bf16 within 3e-2 of the einsum path and in f32 within 2e-5 of the
-    CPU's."""
+    (zamba2's shared block, the padded instance) and 192 (nemotron-4's) K6
+    has an instance: unset, sdpa launches it, in bf16 within 3e-2 of the
+    einsum path and in f32 within 2e-5 of the CPU's."""
     from repro_torch.models.attention import sdpa
 
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    kernel = d != 96
     q, k, v = _attn_inputs(4, 1, 96, 4, 2, d, torch.float32)
     want = sdpa(q, k, v, causal=True)
     before = flash_attention.launches
     got = sdpa(q.to(cuda), k.to(cuda), v.to(cuda), causal=True)
-    assert flash_attention.launches == before + (d == 80)
+    assert flash_attention.launches == before + kernel
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
-    if d == 80:
+    if kernel:
         qb, kb, vb = (t.to(cuda, torch.bfloat16) for t in (q, k, v))
         flash = sdpa(qb, kb, vb, causal=True)
         assert flash_attention.launches == before + 2
@@ -786,14 +787,15 @@ def _cuda_attn(seed, b, s, h, kv, d, dtype, device):
 
 
 @pytest.mark.parametrize("g", [1, 4, 5, 6, 8])  # 5: qwen3-14b's 40/8, 6: dbrx's 48/8
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 256, 257, 1000, 4113])
 def test_flash_attention_bf16_tile_edges(cuda, s, causal, d, g):
     """S on both sides of the 128-row query and key tiles (TMA zero-fills
-    past S; those keys are masked from their indices), D over one or two
-    64-wide swizzled panels (80: the second panel zero-filled past column
-    80), G query heads per KV head at B = 2."""
+    past S; those keys are masked from their indices; at D = 192 the key
+    tiles are 64 wide), D over one, two or three 64-wide swizzled panels
+    (80: the second panel zero-filled past column 80), G query heads per KV
+    head at B = 2."""
     q, k, v = _cuda_attn(s * 7 + d + g, 2, s, 2 * g, 2, d, torch.bfloat16, cuda)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal)
@@ -803,7 +805,7 @@ def test_flash_attention_bf16_tile_edges(cuda, s, causal, d, g):
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
 
 
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("s", [257, 1000])
 def test_flash_attention_bf16_reads_fused_qkv_views(cuda, s, d):
     """q, k and v as strided views of one (B, S, H + 2 KV, D) projection:
@@ -817,14 +819,16 @@ def test_flash_attention_bf16_reads_fused_qkv_views(cuda, s, d):
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("d", [128, 192])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_bf16_rescale_when_the_max_is_in_the_last_tile(cuda, causal):
+def test_flash_attention_bf16_rescale_when_the_max_is_in_the_last_tile(cuda, causal, d):
     """Query rows that find their maximum only in the last key tile they
-    see (the second of two): the running max jumps there, and the
-    accumulator of the first tile must be rescaled by it.  Non-causal: rows
-    of the first query tile against keys 128 later; causal: rows of the
-    second query tile against their own (diagonal) key."""
-    s, d = 256, 128
+    see (the second of two at D 128, the fourth of four 64-key tiles at D
+    192): the running max jumps there, and the accumulator of the earlier
+    tiles must be rescaled by it.  Non-causal: rows of the first query tile
+    against keys 128 later; causal: rows of the second query tile against
+    their own (diagonal) key."""
+    s = 256
     q, k, v = _cuda_attn(5, 1, s, 2, 1, d, torch.bfloat16, cuda)
     rows = torch.arange(120, 128, device=cuda) + (128 if causal else 0)
     keys = rows if causal else rows + 128
@@ -838,7 +842,7 @@ def test_flash_attention_bf16_rescale_when_the_max_is_in_the_last_tile(cuda, cau
     assert bool((scores.argmax(-1) == keys).all())  # the maximum does sit there
 
 
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("s,causal", [(65, True), (257, False), (1000, True)])
 def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
     """f32 inputs stay on the f32 CUDA-core instance, within 2e-5 of the
@@ -852,12 +856,12 @@ def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
-_RING = {64: 4 * 64, 80: 4 * 64, 128: 3 * 64}  # slots in a full ring of the bf16 kernel
+_RING = {64: 4 * 64, 80: 4 * 64, 128: 3 * 64, 192: 2 * 64}  # slots in a full ring of the bf16 kernel
 
 
 @pytest.mark.parametrize("single_split", [True, False])
-@pytest.mark.parametrize("g", [1, 4, 5, 6, 8])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 4, 5, 6, 8, 12])  # 12: nemotron-4's 96/8
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("valid", ["0", "1", "63", "64", "65", "ring+1", "2ring+1", "S"])
 def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
     """valid_len at 0, one slot, both sides of a 64-slot tile, one and two
@@ -939,6 +943,111 @@ def test_flash_decode_d80_matches_plain(cuda, dtype, b, h, kv, s, valid):
     k2[:, valid:] = 1e4
     v2[:, valid:] = -1e4
     torch.testing.assert_close(flash_decode(q, k2, v2, valid), got, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# K6 / K7 at head dim 192 (nemotron-4-340b): K6's bf16 instance with 64-key
+# K/V tiles and an n192 P V, K7's 32-lane row groups of which 24 lanes load
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 12])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 200, 8192])
+def test_flash_attention_d192_matches_plain(cuda, s, causal, g, dtype):
+    """f32 within 2e-5 of the plain version; bf16 within 3e-2 and, per
+    128-query tile, within 1e-2 relative L2 error (the smoke's gate); G 12
+    is nemotron-4's group."""
+    q, k, v = _cuda_attn(s + g + causal + 192, 1, s, g, 1, 192, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        d2 = (got.float() - want.float()).square().sum((2, 3))
+        w2 = want.float().square().sum((2, 3))
+        pad = (-s) % 128
+        d2, w2 = (torch.nn.functional.pad(x, (0, pad)).reshape(1, -1, 128).sum(-1) for x in (d2, w2))
+        assert float((d2 / w2.clamp_min(1e-30)).sqrt().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,valid", [(8, 96, 8, 8192, 63), (2, 24, 2, 1000, 0), (2, 24, 2, 1000, 1),
+                                            (3, 12, 1, 300, 257), (1, 4, 4, 4096, 4001),
+                                            (2, 2, 2, 640, 640)])
+def test_flash_decode_d192_matches_plain(cuda, dtype, b, h, kv, s, valid):
+    """Group 12 (nemotron-4's, three heads a warp) and group 1; valid_len 0
+    (zeros), one slot, ragged lengths and the whole cache, the first row the
+    (e7) serving shape; slots past valid_len unread."""
+    q, k, v = (t.to(cuda) for t in _decode_inputs(s + valid + h, b, h, kv, s, 192, dtype))
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, torch.tensor(valid, device=cuda))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    want = flash_decode_plain(q, k, v, valid)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if valid == 0:
+        assert not got.any()
+    k2, v2 = k.clone(), v.clone()
+    k2[:, valid:] = 1e4
+    v2[:, valid:] = -1e4
+    torch.testing.assert_close(flash_decode(q, k2, v2, valid), got, rtol=0, atol=0)
+
+
+def test_nemotron_at_head_dim_192_on_card_equals_cpu_in_f32(cuda, monkeypatch):
+    """The reduced nemotron-4 at its full head dim 192, f32, env unset: the
+    card's forward (K6's f32 instance at D 192 in both layers) within 1e-4
+    of the CPU's einsum forward, and 8 decode steps at batch 2 within 1e-4,
+    with the caches."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import get_model
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    cfg = dataclasses.replace(get_reduced("nemotron-4-340b"), head_dim=192, dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cfg)
+    card_params = _to(params, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(3))
+    want, _ = model.forward(params, cfg, {"tokens": tokens})
+    before = flash_attention.launches
+    got, _ = model.forward(card_params, cfg, {"tokens": tokens.to(cuda)})
+    assert flash_attention.launches - before == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    hc, cc = model.init_cache(cfg, 2, 16, "cpu"), model.init_cache(cfg, 2, 16, cuda)
+    for i in range(8):
+        t = tokens[:, i:i + 1]
+        hl, hc = model.decode_step(params, cfg, {"tokens": t}, hc, i)
+        cl, cc = model.decode_step(card_params, cfg, {"tokens": t.to(cuda)}, cc, i)
+        torch.testing.assert_close(cl.cpu(), hl, rtol=1e-4, atol=1e-4)
+    for h_, c_ in zip(hc["layers"], cc["layers"], strict=True):
+        for key in h_:
+            torch.testing.assert_close(c_[key].cpu(), h_[key], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_widths_launch_nothing_on_card(cuda, monkeypatch, dtype):
+    """q/k at head dim 192 and v at 128 (MLA's): K6 has an instance at 192,
+    but v's head dim differs, so unset, sdpa takes the einsum path on the
+    card (no launch; equal to the CPU's in f32 at 2e-5), and
+    ``REPRO_USE_FLASH=1`` raises as the reference does (F7)."""
+    from repro_torch.models.attention import sdpa
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    g = torch.Generator().manual_seed(6)
+    q, k = (torch.randn((1, 96, 4, 192), generator=g) for _ in range(2))
+    v = torch.randn((1, 96, 4, 128), generator=g)
+    before = flash_attention.launches
+    got = sdpa(*(t.to(cuda, dtype) for t in (q, k, v)), causal=True)
+    assert flash_attention.launches == before and got.shape == (1, 96, 4, 128)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), sdpa(q, k, v, causal=True), rtol=2e-5, atol=2e-5)
+    monkeypatch.setenv("REPRO_USE_FLASH", "1")
+    with pytest.raises(ValueError, match="k/v shapes differ"):
+        sdpa(*(t.to(cuda, dtype) for t in (q, k, v)), causal=True)
+    assert flash_attention.launches == before
 
 
 # --------------------------------------------------------------------------- #

@@ -25,7 +25,7 @@ LIMIT = 232_448  # shared memory one block may use on an H100
 # --------------------------------------------------------------------------- #
 # K6 flash_attention
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("dtype,instance", [(torch.bfloat16, "tc_bf16"), (torch.float32, "cc_f32")])
 def test_k6_instance_follows_dtype(dtype, instance, d):
     plan = fa.launch_plan((2, 300, 8, d), 2, dtype)
@@ -49,19 +49,21 @@ def test_k6_tiles_and_grid(shape, kv):
     assert fa.launch_plan(shape, kv, torch.float32)["grid"] == (b * h, -(-s // 64))
 
 
-@pytest.mark.parametrize("d,dynamic", [(64, 115_768), (80, 230_456), (128, 230_456)])
+@pytest.mark.parametrize("d,dynamic", [(64, 115_768), (80, 230_456), (128, 230_456), (192, 197_688)])
 def test_k6_shared_memory_fits(d, dynamic):
     """Q + three K/V stages + alignment slack + seven mbarriers, under the
     227 KB a block may use, at the padded row width (D = 80 is laid out as
-    128, the D = 128 instance's bytes); the f32 instance has none dynamic."""
+    128, the D = 128 instance's bytes) and the instance's keys per K/V tile
+    (64 at D = 192: 128-key stages would take 345,144 bytes); the f32
+    instance has none dynamic."""
     tc = fa.launch_plan((1, 256, 2, d), 1, torch.bfloat16)
-    dp = fa.tc_padded_dim(d)
-    assert tc["dynamic_smem_bytes"] == dynamic == 1024 + 2 * 128 * dp + 3 * 2 * 2 * 128 * dp + 8 * 7
+    dp, bk = fa.tc_padded_dim(d), fa.tc_block_k(d)
+    assert tc["dynamic_smem_bytes"] == dynamic == 1024 + 2 * 128 * dp + 3 * 2 * 2 * bk * dp + 8 * 7
     assert tc["dynamic_smem_bytes"] <= LIMIT
     assert fa.launch_plan((1, 256, 2, d), 1, torch.float32)["dynamic_smem_bytes"] == 0
 
 
-@pytest.mark.parametrize("d,dp", [(64, 64), (80, 128), (128, 128)])
+@pytest.mark.parametrize("d,dp", [(64, 64), (80, 128), (128, 128), (192, 192)])
 def test_k6_padded_width_is_whole_panels(d, dp):
     assert fa.tc_padded_dim(d) == dp and dp % fa.TC_PANEL == 0
 
@@ -78,6 +80,39 @@ def test_k6_tensor_maps_at_head_dim_80_keep_the_real_width():
     assert -(-80 // plan["maps"]["q"]["box"][0]) == fa.tc_padded_dim(80) // fa.TC_PANEL == 2
 
 
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_k6_plans_up_to_a_128_wide_row_keep_128_key_tiles(d):
+    """The D 64/80/128 instances as they were before D = 192 came: 128-key
+    K/V tiles, so their maps' boxes, shared memory and grid are unchanged."""
+    plan = fa.launch_plan((2, 1000, 8, d), 2, torch.bfloat16)
+    assert fa.tc_block_k(d) == fa.TC_BLOCK_K == plan["block_k"] == 128
+    assert plan["grid"] == (16, 8)
+    for name in ("q", "k", "v"):
+        assert plan["maps"][name]["box"] == (64, 1, 128, 1)
+    assert plan["dynamic_smem_bytes"] == {64: 115_768, 80: 230_456, 128: 230_456}[d]
+
+
+def test_k6_plan_at_head_dim_192():
+    """nemotron-4's (1, 8192, 96 / 8 heads, 192): three whole 64-wide panels,
+    no padding; 128-row query tiles (the q map's box) and 64-key K/V tiles
+    (the k/v maps' boxes); 197,688 bytes of shared memory, under the limit;
+    one CTA per (head, query tile)."""
+    plan = fa.launch_plan((1, 8192, 96, 192), 8, torch.bfloat16)
+    assert fa.tc_padded_dim(192) == 192 and fa.tc_block_k(192) == fa.TC_BLOCK_K_WIDE == 64
+    assert plan["instance"] == "tc_bf16" and plan["block_k"] == 64
+    assert plan["grid"] == (96, 64)
+    assert plan["dynamic_smem_bytes"] == 1024 + 49_152 + 3 * 2 * 24_576 + 56 == 197_688 <= LIMIT
+    assert plan["maps"]["q"] == dict(dims=(192, 96, 8192, 1), strides=(384, 96 * 384, 8192 * 96 * 384),
+                                     box=(64, 1, 128, 1))
+    for name in ("k", "v"):
+        assert plan["maps"][name] == dict(dims=(192, 8, 8192, 1), strides=(384, 8 * 384, 8192 * 8 * 384),
+                                          box=(64, 1, 64, 1))
+    arg = list(fa._maps_arg(plan["maps"]))
+    assert (arg[9], arg[20], arg[31]) == (128, 64, 64)  # the box rows the C entry checks
+    f32 = fa.launch_plan((1, 8192, 96, 192), 8, torch.float32)
+    assert f32["instance"] == "cc_f32" and f32["grid"] == (96, 128)
+
+
 def test_k6_tensor_maps_of_contiguous_operands():
     plan = fa.launch_plan((1, 8192, 32, 128), 8, torch.bfloat16)
     assert plan["maps"]["q"] == dict(
@@ -89,7 +124,7 @@ def test_k6_tensor_maps_of_contiguous_operands():
         )
 
 
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 def test_k6_tensor_maps_of_fused_qkv_views(d):
     """q/k/v as views of one (B, S, H + 2 KV, D) projection: every map walks
     the fused row (S stride (H + 2 KV) D), each from its own base pointer."""
@@ -98,8 +133,9 @@ def test_k6_tensor_maps_of_fused_qkv_views(d):
     q, k, v = x[:, :, :h], x[:, :, h:h + kv], x[:, :, h + kv:]
     plan = fa.launch_plan(q.shape, kv, torch.bfloat16, q.stride(), k.stride(), v.stride())
     row = (h + 2 * kv) * d * 2
+    bk = fa.tc_block_k(d)
     assert plan["maps"]["q"] == dict(dims=(d, h, s, b), strides=(2 * d, row, s * row), box=(64, 1, 128, 1))
-    assert plan["maps"]["k"] == dict(dims=(d, kv, s, b), strides=(2 * d, row, s * row), box=(64, 1, 128, 1))
+    assert plan["maps"]["k"] == dict(dims=(d, kv, s, b), strides=(2 * d, row, s * row), box=(64, 1, bk, 1))
     assert plan["maps"]["v"] == plan["maps"]["k"]
     for t in (q, k, v):
         assert fa._tma_view(t) is t  # aligned views are read in place
@@ -113,7 +149,7 @@ def test_k6_tensor_map_gives_size_one_dims_their_contiguous_stride():
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 3, 64), (1, 130, 4, 128), (3, 1, 2, 64), (2, 5, 3, 80),
-                                   (1, 130, 32, 80)])
+                                   (1, 130, 32, 80), (2, 130, 12, 192)])
 def test_k6_tensor_map_strides_are_tma_legal(shape):
     x = torch.empty(shape, dtype=torch.bfloat16)
     for view in (x, x[:, :, :1], x.transpose(1, 2).contiguous().transpose(1, 2)):
@@ -138,7 +174,7 @@ def test_k6_maps_argument_layout():
 # --------------------------------------------------------------------------- #
 # K7 flash_decode
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("d,stages", [(64, 4), (80, 4), (128, 3)])
+@pytest.mark.parametrize("d,stages", [(64, 4), (80, 4), (128, 3), (192, 2)])
 def test_k7_bf16_ring_depth_and_shared_memory(d, stages):
     """As many 64-slot K+V tiles as fit in ~110 KB (two blocks per SM), at
     most four."""
@@ -154,6 +190,24 @@ def test_k7_heads_per_warp(g, hpw):
     plan = fd.launch_plan((2, 2 * g, 128), (2, 512, 2, 128), torch.bfloat16)
     assert plan["heads_per_warp"] == hpw
     assert plan["part_floats"] == 2 * 2 * plan["splits"] * g * 130
+
+
+def test_k7_plan_at_head_dim_192():
+    """nemotron-4's decode (B 8, 96 / 8 heads, 8192 slots, D 192): a ring of
+    2 stages (98,304 bytes), three heads a warp at group 12 (one at group
+    1), the f32 instance's shared memory under the limit too."""
+    plan = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.bfloat16)
+    assert plan["instance"] == "ring_bf16" and fd.ring_stages(192) == 2
+    assert plan["heads_per_warp"] == 3
+    assert plan["smem_bytes"] == 2 * 2 * 64 * 192 * 2 == 98_304 <= fd.SMEM_LIMIT
+    assert (plan["splits"], plan["tiles_per_split"]) == (9, 15)
+    assert plan["part_floats"] == 8 * 8 * 9 * 12 * 194
+    assert fd.launch_plan((2, 4, 192), (2, 512, 4, 192), torch.bfloat16)["heads_per_warp"] == 1
+    f32 = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.float32)
+    g = 12
+    assert f32["smem_bytes"] == 4 * (64 * 193 + 64 * 192 + 2 * g * 192 + g * 64 + 3 * g) == 120_208
+    assert f32["smem_bytes"] <= fd.SMEM_LIMIT
+    assert 192 in fd.HEAD_DIMS
 
 
 def test_k7_f32_instance_keeps_its_shared_memory():
@@ -201,6 +255,8 @@ def test_plans_match_the_cuda_sources():
     tc = attn[attn.index("namespace tc {"):]
     assert _constant(tc, "BM") == str(fa.TC_BLOCK_Q)
     assert _constant(tc, "BN") == str(fa.TC_BLOCK_K)
+    assert _constant(tc, "BN_WIDE") == str(fa.TC_BLOCK_K_WIDE)
+    assert "block_k(int dp) { return dp > 128 ? BN_WIDE : BN; }" in tc
     assert _constant(tc, "STAGES") == str(fa.TC_STAGES)
     assert _constant(tc, "PANEL") == str(fa.TC_PANEL)
     assert "padded(int d) { return (d + PANEL - 1) / PANEL * PANEL; }" in tc

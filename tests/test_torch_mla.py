@@ -3,9 +3,10 @@ JAX package on the CPU, on ``deepseek-v2-236b``'s reduced config.
 
 Inputs are made with numpy from a seed and handed to both packages; the
 JAX params are carried into the port.  MLA's q/k head dim (192 at full
-size, 48 reduced) has no K6 instance, so ``sdpa`` takes the einsum path
-with v's own head dim, and forcing the flash branch raises, as it fails in
-the reference (ROADMAP F7).  The whole-model MoE + MLA checks are in
+size, 48 reduced) differs from v's (128, 32 reduced); K6 has an instance at
+192 but takes q, k and v of one head dim, so ``sdpa`` routes by v's head
+dim too and takes the einsum path with v's own head dim, and forcing the
+flash branch raises, as it fails in the reference (ROADMAP F7).  The whole-model MoE + MLA checks are in
 ``test_torch_moe.py``.
 """
 
@@ -59,11 +60,17 @@ def test_init_mla_has_the_reference_layouts():
 
 
 def test_the_full_config_routes_mla_to_the_einsum_path(monkeypatch):
+    """K6 has an instance at MLA's q/k head dim 192 (nemotron-4's), so the
+    route turns on v's head dim: 128 sends MLA to the einsum path on a CUDA
+    device, while GQA at 192 (v 192) takes the kernel."""
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
     cfg = get_config("deepseek-v2-236b")
-    assert cfg.qk_nope_dim + cfg.qk_rope_dim == 192 and cfg.v_head_dim == 128
-    assert 192 not in HEAD_DIMS
-    assert not attention.use_flash(torch.device("cuda"), 192)
+    qk, vd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    assert qk == 192 and vd == 128
+    assert qk in HEAD_DIMS
+    cuda = torch.device("cuda")
+    assert attention.use_flash(cuda, qk, vd) is False
+    assert attention.use_flash(cuda, qk, qk) is True
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -237,15 +237,15 @@ def test_flash_branch_matches_jax_flash_branch(flash_env, s):
 
 def test_flash_default_follows_the_device(monkeypatch):
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
-    assert attention.use_flash(torch.device("cuda"), 128) is True
-    assert attention.use_flash(torch.device("cpu"), 128) is False
+    assert attention.use_flash(torch.device("cuda"), 128, 128) is True
+    assert attention.use_flash(torch.device("cpu"), 128, 128) is False
     monkeypatch.setenv("REPRO_USE_FLASH", "0")
-    assert attention.use_flash(torch.device("cuda"), 128) is False
+    assert attention.use_flash(torch.device("cuda"), 128, 128) is False
     monkeypatch.setenv("REPRO_USE_FLASH", "1")
-    assert attention.use_flash(torch.device("cpu"), 128) is True
+    assert attention.use_flash(torch.device("cpu"), 128, 128) is True
 
 
-@pytest.mark.parametrize("d,kernel", [(64, True), (128, True), (80, True), (192, False)])
+@pytest.mark.parametrize("d,kernel", [(64, True), (128, True), (80, True), (192, True), (96, False)])
 def test_flash_branch_routes_by_head_dim(monkeypatch, d, kernel):
     """Unset, CUDA tensors take the kernel only at a head dim it has an
     instance for; every other head dim takes the einsum path, as the
@@ -253,20 +253,21 @@ def test_flash_branch_routes_by_head_dim(monkeypatch, d, kernel):
     any head dim (on the card an unsupported one raises there), and the CPU
     never takes the kernel unasked."""
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
-    assert attention.use_flash(torch.device("cuda"), d) is kernel
-    assert attention.use_flash(torch.device("cpu"), d) is False
+    assert attention.use_flash(torch.device("cuda"), d, d) is kernel
+    assert attention.use_flash(torch.device("cpu"), d, d) is False
     assert (d in HEAD_DIMS) is kernel
     monkeypatch.setenv("REPRO_USE_FLASH", "1")
-    assert attention.use_flash(torch.device("cuda"), d) is True
+    assert attention.use_flash(torch.device("cuda"), d, d) is True
     monkeypatch.setenv("REPRO_USE_FLASH", "0")
-    assert attention.use_flash(torch.device("cuda"), d) is False
+    assert attention.use_flash(torch.device("cuda"), d, d) is False
 
 
-@pytest.mark.parametrize("d", [80, 192])
+@pytest.mark.parametrize("d", [80, 96, 192])
 def test_sdpa_at_a_head_dim_without_a_kernel_is_the_reference_einsum(monkeypatch, d):
-    """nemotron-4's 192, which K6 has no instance for, and zamba2's 80,
-    which it has (the card launches it): unset, the CPU's sdpa at either
-    is the reference's default einsum path (2e-5, f32), with no launch."""
+    """96, which K6 has no instance for, and zamba2's 80 and nemotron-4's
+    192, which it has (the card launches them): unset, the CPU's sdpa at
+    each is the reference's default einsum path (2e-5, f32), with no
+    launch."""
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
     q, k, v = _qkv(d, 1, 48, 48, 4, 2, d)
     want = jax_attn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)

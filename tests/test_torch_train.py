@@ -484,9 +484,9 @@ def test_train_loop_draws_its_initial_state_on_the_host():
 def test_flash_is_off_under_grad_when_unset(monkeypatch):
     monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
     cuda = torch.device("cuda")
-    assert attention.use_flash(cuda, 128) is True
-    assert attention.use_flash(cuda, 128, grad=True) is False
-    assert attention.use_flash(torch.device("cpu"), 128, grad=True) is False
+    assert attention.use_flash(cuda, 128, 128) is True
+    assert attention.use_flash(cuda, 128, 128, grad=True) is False
+    assert attention.use_flash(torch.device("cpu"), 128, 128, grad=True) is False
 
 
 def _qkv(seed, b=2, s=17, h=4, kv=2, d=32):
