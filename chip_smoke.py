@@ -12,7 +12,8 @@ user calls — ``TesseraeScheduler.decide`` and ``Simulator.run`` with
 stage (``fused_fanout=True``) — serves Llama-3-8B at full width and
 depth (``transformer.forward`` prefill, ``greedy_generate``), the MoE
 and MLA families at full width (DBRX-132B, DeepSeek-V2-236B), the SSM
-and hybrid families at full width and depth (Mamba2-780M, Zamba2-2.7B) and
+and hybrid families at full width and depth (Mamba2-780M, Zamba2-2.7B), the
+encoder-decoder at full width and depth (SeamlessM4T-medium) and
 the other dense configs (Nemotron-4-340B at full width on K6/K7 at head dim
 192, Qwen3-14B and Qwen2-VL-2B at full width and depth), runs the
 paper's evaluation harness (``repro_torch.benchmarks.evaluate`` and
@@ -93,7 +94,16 @@ comes out:
    with 64 + 64 tokens served (one ``ssm_chunk``) and their f32 checks at
    full depth (stepped decode against the forward; (e5)'s flash forward
    against the einsum forward), which print the first block where the two
-   paths part if they miss 1e-4 (:func:`first_parting_block`); then the
+   paths part if they miss 1e-4 (:func:`first_parting_block`); then (e6)
+   ``seamless-m4t-medium`` at full width and depth (12 encoder and 12
+   decoder layers over 512 random audio frames; K6 at D 64 in the
+   decoder's causal self-attention, once a decoder layer; the encoder and
+   every cross-attention on the einsum path, non-causal; its bounds from
+   :func:`encdec_row_bounds`; served decoding attends to zero cross K/V,
+   as the reference's ``greedy_generate`` does (ROADMAP D15), so its
+   stepped logits are held to the forward on zero frames, and
+   ``prefill_cross`` then ``decode_step`` to the forward on random frames,
+   in f32 at 1e-4); then the
    other dense configs at full width, (e7) ``nemotron-4-340b`` on 4 of 96
    layers (K6 and K7 at head dim 192, group 12; its bf16 einsum forward at
    S 2048 and its f32 checks on 1 layer at S 2048, to fit the card),
@@ -186,12 +196,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-#: NVIDIA H100 SXM peaks (data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
-PEAK_F64_OPS_PER_S = 34e12  # f64 outside the tensor cores (data sheet)
-PEAK_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense (data sheet)
+# the card's data-sheet peaks, kept once, in the port's roofline module
+from repro_torch.roofline import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline import PEAK_F32_FLOPS as PEAK_F32_OPS_PER_S  # noqa: E402
+from repro_torch.roofline import PEAK_F64_FLOPS as PEAK_F64_OPS_PER_S  # noqa: E402
+from repro_torch.roofline import PEAK_FLOPS as PEAK_BF16_OPS_PER_S  # noqa: E402
 
 FULL = dict(
     nodes=512, jobs_decide=512, jobs_sim=2048, sim_rounds=6, fanout=262144,
@@ -213,11 +224,12 @@ FULL = dict(
         # (D 80, row (e5)), nemotron-4's 96/8 heads at D 192 (e7) and
         # deepseek-67b's 64/8 heads (group 8, a K7 warp holds 2 heads; its
         # path has no whole-model row), seamless-m4t-medium's 16 heads at
-        # D 64 (the encoder-decoder's, not served yet: the D 64 instance's
-        # time); K6 in f32 at D 80 and D 192 too; K7
+        # D 64 (the encoder-decoder's decoder prefill, row (e6)); K6 in f32
+        # at D 80 and D 192 too; K7
         # at D 192 over a whole 32768-slot cache at group 12 and, on the
         # same bytes, at group 1: a twelfth of the scoring, so its time
-        # says whether the 2-stage ring hides the copies
+        # says whether the 2-stage ring hides the copies; K7 on (e6)'s
+        # served cache (D 64, group 1)
         k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128),
                    (1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192), (1, 8192, 64, 8, 128),
                    (1, 8192, 16, 16, 64)],
@@ -225,7 +237,8 @@ FULL = dict(
         k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768),
                    (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63),
                    (8, 8192, 96, 8, 192, 63), (8, 8192, 64, 8, 128, 63),
-                   (8, 32768, 96, 8, 192, 32768), (8, 32768, 8, 8, 192, 32768)],
+                   (8, 32768, 96, 8, 192, 32768), (8, 32768, 8, 8, 192, 32768),
+                   (8, 8192, 16, 16, 64, 63)],
     ),
     # phase 5, rows (e2) and (e3): dbrx-132b (8 of 40 layers, 54.6 GB of bf16
     # weights) and deepseek-v2-236b (6 of 60 layers, 50.7 GB) at full width.
@@ -244,6 +257,13 @@ FULL = dict(
         dict(arch="mamba2-780m", reduced=False, prefill_s=8192, batch=8, prompt=64, gen=64,
              context=8192),
         dict(arch="zamba2-2.7b", reduced=False, prefill_s=8192, batch=8, prompt=64, gen=64,
+             context=8192),
+    ],
+    # phase 5, row (e6): seamless-m4t-medium (1.75 GB of bf16 weights) at
+    # full width and depth, 12 encoder and 12 decoder layers; the prefill's
+    # 8192 decoder tokens attend to the encoder's 512 frames
+    serve_encdec=[
+        dict(arch="seamless-m4t-medium", reduced=False, prefill_s=8192, batch=8, prompt=32, gen=32,
              context=8192),
     ],
     # phase 5, rows (e7)-(e9): the dense configs not run before.
@@ -304,6 +324,12 @@ SERVE_SSM_REHEARSAL = [
     for arch in ("mamba2-780m", "zamba2-2.7b")
 ]
 
+
+#: the CPU rehearsal's row (e6): the reduced seamless-m4t (2 + 2 layers,
+#: d 256, 32 frames)
+SERVE_ENCDEC_REHEARSAL = [
+    dict(arch="seamless-m4t-medium", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64),
+]
 
 
 def serve_dense_rehearsal():
@@ -1183,6 +1209,40 @@ def dense_row_bounds(cfg, s, batch, valid):
                 weight_bytes=weights)
 
 
+def encdec_row_bounds(cfg, s, batch, valid):
+    """The least time a prefill of B 1 x ``s`` decoder tokens over the
+    ``frontend_len`` encoder frames and a decode step at ``batch`` of the
+    encoder-decoder could take on the card.  The prefill's operations at
+    the bf16 peak: the encoder's (the weight GEMMs over the frames, the
+    bidirectional attention core at F x F), each decoder layer's
+    self-attention (its GEMMs, the causal core at half of S x S), its
+    cross-attention (q and o over the tokens, k and v over the frames, the
+    core at S x F) and FFN, and the head; its bytes the weights read once.
+    A decode step reads only what ``encdec.decode_step`` reads: each
+    decoder layer's self-attention, its cross-attention's q and o (the
+    cross k and v projections ran once, in ``prefill_cross``), its FFN and
+    norms, the final norm and the head, but no encoder weight and the
+    embedding table only for a few rows; and the ``valid`` slots of every
+    layer's self-attention K and V and every layer's cross K and V over the
+    frames (bytes)."""
+    d, h, kv, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.frontend_len
+    attn = 2 * d * h * hd + 2 * d * kv * hd  # q, o; k, v
+    ffn = cfg._ffn_params(cfg.d_ff)
+    encoder = cfg.encoder_layers * (f * 2 * (attn + ffn) + 4 * h * f * f * hd)
+    self_attn = s * 2 * attn + 4 * h * s * s // 2 * hd
+    cross = s * 2 * 2 * d * h * hd + f * 2 * 2 * d * kv * hd + 4 * h * s * f * hd
+    ops = encoder + cfg.num_layers * (self_attn + cross + s * 2 * ffn) + 2 * s * d * cfg.vocab_size
+    weights = 2 * cfg.param_count()
+    prefill = bound_ms(weights, ops, PEAK_BF16_OPS_PER_S)
+    dec_layer = attn + 2 * d * h * hd + ffn + 3 * d  # self-attention, cross q and o, FFN, norms
+    step_bytes = 2 * (cfg.num_layers * dec_layer + d * cfg.vocab_size + d)
+    step_bytes += cfg.num_layers * batch * (valid + f) * 2 * kv * hd * 2
+    return dict(prefill_bound_ms=prefill[0], prefill_bound_by=prefill[1], prefill_ops=ops,
+                encoder_ops=encoder, head_ops=2 * s * d * cfg.vocab_size,
+                step_bound_ms=step_bytes / PEAK_BYTES_PER_S * 1e3, step_bytes=step_bytes,
+                weight_bytes=weights)
+
+
 def attention_calls(cfg) -> int:
     """Attention applications in one forward or decode step: every layer of
     an attention model, the hybrid's shared block once per group of
@@ -1294,22 +1354,26 @@ CHECK_HEADROOM = 16e9
 
 
 def check_cuts(cfg, s, memory):
-    """The depth of a dense or SSM row's f32 checks and the tokens of its
-    einsum and f32 prefills, fitted to ``memory`` bytes (None: no cut): the
+    """The depth of a dense, SSM or encoder-decoder row's f32 checks (its
+    decoder layers; the encoder stays whole) and the tokens of its einsum
+    and f32 prefills, fitted to ``memory`` bytes (None: no cut): the
     longest of ``s``, s/2, s/4, ... at which the bf16 model and its einsum
     forward fit, and the f32 model at one layer and its; then the most
     layers whose f32 weights fit beside that forward.  A forward of T
     positions (a VLM's image positions with its tokens) is reckoned as its
-    f32 scores and probabilities (1 x H x T x T each) and three f32
-    logits (T x vocab)."""
+    f32 scores and probabilities (1 x H x T x T each), an encoder-decoder's
+    also its encoder's (F x F) and its cross-attention's (T x F), and three
+    f32 logits (T x vocab)."""
     if memory is None:
         return cfg.num_layers, s
     n_img = cfg.frontend_len if cfg.frontend == "vision" else 0
+    f = cfg.frontend_len if cfg.is_encoder_decoder else 0
 
     def need(layers, width, cs):
         t = n_img + cs
         weights = width * dataclasses.replace(cfg, num_layers=layers).param_count()
-        return weights + 8 * cfg.num_heads * t * t + 12 * t * cfg.vocab_size
+        scores = 8 * cfg.num_heads * (t * t + f * f + t * f)
+        return weights + scores + 12 * t * cfg.vocab_size
 
     cs = s
     while cs > 1 and max(need(cfg.num_layers, 2, cs), need(1, 4, cs)) > memory:
@@ -1321,10 +1385,13 @@ def check_cuts(cfg, s, memory):
 def row_bounds(cfg, scale):
     """A serving row's prefill and decode-step bounds by its family: a MoE
     row's :func:`moe_row_bounds`, an SSM or hybrid row's
-    :func:`ssm_row_bounds` (the hybrid's shared attention included), else
+    :func:`ssm_row_bounds` (the hybrid's shared attention included), an
+    encoder-decoder row's :func:`encdec_row_bounds`, else
     :func:`dense_row_bounds` (a VLM's prefill over its image positions
     too)."""
     s, b = scale["prefill_s"], scale["batch"]
+    if cfg.is_encoder_decoder:
+        return encdec_row_bounds(cfg, s, b, scale["prompt"] + scale["gen"] - 1)
     if cfg.num_experts:
         return moe_row_bounds(cfg, s, b, scale["context"])
     if cfg.arch_type in ("ssm", "hybrid"):
@@ -1399,7 +1466,8 @@ def serve_row(device, scale):
     base = scale.get("config") or (get_reduced if scale["reduced"] else get_config)(scale["arch"])
     cfg = dataclasses.replace(base, num_layers=scale.get("layers") or base.num_layers)
     model = get_model(cfg)
-    calls = attention_calls(cfg)  # K6 launches per flash forward
+    encdec = cfg.is_encoder_decoder
+    calls = attention_calls(cfg)  # K6 launches per flash forward (an encoder-decoder's: its decoder's)
     gqa, moe, ssm = calls > 0 and not cfg.use_mla, bool(cfg.num_experts), cfg.arch_type in ("ssm", "hybrid")
     k = cfg.num_experts_per_token
     s = scale["prefill_s"]
@@ -1423,6 +1491,9 @@ def serve_row(device, scale):
     if ssm:
         out.update(arch_type=cfg.arch_type, ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state,
                    ssm_chunk=cfg.ssm_chunk, hybrid_attn_every=cfg.hybrid_attn_every)
+    if encdec:
+        out.update(encoder_layers=cfg.encoder_layers, frames=cfg.frontend_len,
+                   encoder_attention="einsum (non-causal)", cross_attention="einsum (non-causal)")
     expect = dict(flash_attention=0, flash_decode=0)
     # on the card the flash branch is sdpa's default at D 128; the CPU
     # rehearsal forces it for GQA (MLA has no flash branch, F7)
@@ -1435,12 +1506,17 @@ def serve_row(device, scale):
         else:
             os.environ["REPRO_USE_FLASH"] = value
 
-    def forward(p, c, tokens, flash=True, images=None):
+    def forward(p, c, tokens, flash=True, images=None, frames=None):
         """Logits and seconds of one forward (``images`` the vision stub's
-        embeddings, prepended); K6's launches checked."""
+        embeddings, prepended; ``frames`` an encoder-decoder's audio frames,
+        zeros when not given: the function ``greedy_generate`` steps, D15);
+        K6's launches checked."""
         set_flash(flash_env if flash else "0")
         n0 = fa.flash_attention.launches
         batch = {"tokens": tokens} if images is None else {"tokens": tokens, "image_embeds": images}
+        if encdec:
+            batch["audio_frames"] = frames if frames is not None else torch.zeros(
+                (tokens.shape[0], c.frontend_len, c.d_model), device=tokens.device)
         sync()
         t = time.perf_counter()
         logits, _ = model.forward(p, c, batch)
@@ -1473,8 +1549,11 @@ def serve_row(device, scale):
             image = params["embed"][torch.randint(0, cfg.vocab_size, (1, n_img), generator=gen,
                                                   device=device)]
             out.update(image_positions=n_img)
+        frames = None
+        if encdec:  # the audio stub's frame embeddings, at batch_for's scale
+            frames = torch.randn((1, cfg.frontend_len, cfg.d_model), generator=gen, device=device) * 0.02
         with RouteRecorder() as routes:
-            logits, out["prefill_s"] = forward(params, cfg, tokens, images=image)
+            logits, out["prefill_s"] = forward(params, cfg, tokens, images=image, frames=frames)
         out["prefill_tokens_per_s"] = (n_img + s) / out["prefill_s"]
         check(tuple(logits.shape) == (1, n_img + s, cfg.vocab_size), f"prefill logits {tuple(logits.shape)}")
         out.update(row_bounds(cfg, scale))
@@ -1489,14 +1568,15 @@ def serve_row(device, scale):
 
             def checked_sdpa(q, k_, v, causal, q_offset=None, kv_valid_len=None):
                 res = orig_sdpa(q, k_, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
-                want = fa.flash_attention_plain(q, k_, v, causal)
-                b_, s_ = q.shape[:2]
-                layer_errs.append((*logits_close(res.reshape(b_, s_, -1), want.reshape(b_, s_, -1),
-                                                 3e-2), rel_err(res, want, 128)))
+                if causal:  # the flash branch's calls (an encoder's and a cross-attention's are not)
+                    want = fa.flash_attention_plain(q, k_, v, causal)
+                    b_, s_ = q.shape[:2]
+                    layer_errs.append((*logits_close(res.reshape(b_, s_, -1), want.reshape(b_, s_, -1),
+                                                     3e-2), rel_err(res, want, 128)))
                 return res
 
             attention.sdpa = checked_sdpa
-            again, _ = forward(params, cfg, tokens, images=image)
+            again, _ = forward(params, cfg, tokens, images=image, frames=frames)
             attention.sdpa = orig_sdpa
             check(len(layer_errs) == calls,
                   f"{cfg.name} prefill: attention ran {len(layer_errs)} times, wanted {calls}")
@@ -1512,12 +1592,13 @@ def serve_row(device, scale):
             del logits
         else:
             einsum_logits, out["prefill_einsum_s"] = forward(params, cfg, tokens[:, :cs], flash=False,
-                                                             images=image)
+                                                             images=image, frames=frames)
             out["bf16_prefill_vs_einsum"] = dict(logits_stats(logits[:, :n_img + cs], einsum_logits, 0.05),
                                                  tokens=cs)
             if not whole32:  # the f32 forward is another model or other tokens
                 del logits, einsum_logits
-        out["profile_prefill"] = profile_window(lambda: forward(params, cfg, tokens, images=image), device)
+        out["profile_prefill"] = profile_window(
+            lambda: forward(params, cfg, tokens, images=image, frames=frames), device)
 
         # ---- (f) greedy serving --------------------------------------------- #
         b, p, n = scale["batch"], scale["prompt"], scale["gen"]
@@ -1554,8 +1635,7 @@ def serve_row(device, scale):
             del step_logits
         del full
         cache = init_serving_cache(cfg, sc, device)
-        out["serving_cache_bytes"] = sum(t.numel() * t.element_size() for part in cache.values()
-                                         for c in part for t in c.values())
+        out["serving_cache_bytes"] = sum(t.numel() * t.element_size() for _, t in _leaf_paths(cache))
         serve_step = make_serve_step(cfg)
         out["profile_decode_3_steps"] = profile_window(
             lambda: [serve_step(params, seq[:, i:i + 1], cache, i) for i in range(steps - 3, steps)],
@@ -1579,6 +1659,7 @@ def serve_row(device, scale):
             check(ok_sdpa, f"{cfg.name}: K7 on layer 0's cache differs from sdpa ({err_sdpa})")
             out.update(k7_shape=[b, sc.cache_len(cfg), cfg.num_heads, cfg.num_kv_heads,
                                  cfg.head_dim, valid],
+                       k7_plan=fd.launch_plan(tuple(q[:, 0].shape), tuple(kc.shape), kc.dtype),
                        k7_group=cfg.num_heads // cfg.num_kv_heads, k7_vs_plain_max_err=err_plain,
                        k7_vs_plain_rel_err=rel_plain, k7_vs_sdpa_max_err=err_sdpa)
             del q, kc, vc, einsum_out, got, want
@@ -1587,7 +1668,7 @@ def serve_row(device, scale):
             out["bf16_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
         # ---- the whole-model checks, on the same weights in f32 ------------- #
-        del params["layers"][nl:]
+        del params["dec_layers" if encdec else "layers"][nl:]
         if cuda:
             torch.cuda.empty_cache()
         params32 = _upcast(params)
@@ -1597,13 +1678,13 @@ def serve_row(device, scale):
         if gqa:  # the flash forward against the einsum forward
             tokens32 = tokens[:, :cs]
             with RouteRecorder() as ref_routes:
-                ref, _ = forward(params32, cfg32, tokens32, flash=False, images=image)
+                ref, _ = forward(params32, cfg32, tokens32, flash=False, images=image, frames=frames)
             if not moe and whole32:
                 out["bf16_prefill_flash_vs_f32"] = logits_stats(logits, ref, 0.05)
                 out["bf16_prefill_einsum_vs_f32"] = logits_stats(einsum_logits, ref, 0.05)
                 del logits, einsum_logits
             with RouteRecorder() as flash_routes:
-                flash32, _ = forward(params32, cfg32, tokens32, images=image)
+                flash32, _ = forward(params32, cfg32, tokens32, images=image, frames=frames)
             diff = routing_diff(ref_routes.calls, flash_routes.calls, k)
             n32 = n_img + cs  # positions of the f32 prefill
             cut = n32 if diff["cut"] is None else diff["cut"]
@@ -1679,6 +1760,20 @@ def serve_row(device, scale):
             if nl == cfg.num_layers and torch.equal(seq32, seq):
                 out["bf16_steps_vs_f32_forward"] = logits_stats(step_logits, full32[:, :-1], 0.05)
             del step_logits
+        if encdec:  # the cross K/V of prefill_cross, then decode_step, against the forward
+            del steps32, full32
+            frames_b = torch.randn((b, cfg.frontend_len, cfg.d_model), generator=gen, device=device) * 0.02
+            full32, _ = forward(params32, cfg32, seq32, frames=frames_b)
+            cache = model.init_cache(cfg32, b, p + n, device)
+            cache["cross_k"], cache["cross_v"] = model.prefill_cross(
+                params32, cfg32, model.encode(params32, cfg32, frames_b))
+            steps32 = torch.cat([model.decode_step(params32, cfg32, {"tokens": seq32[:, i:i + 1]}, cache, i)[0]
+                                 for i in range(steps)], dim=1)
+            st = logits_stats(steps32, full32[:, :-1], 1e-4)
+            out["f32_cross_decode_vs_forward"] = st
+            check(st["over_tol"] == 0, f"{cfg.name} f32 prefill_cross + decode_step: stepped logits "
+                  f"differ from the forward's on the same frames beyond 1e-4 ({st})")
+            del cache, frames_b
         del seq32, steps32, full32, params32
     finally:
         attention.sdpa = orig_sdpa
@@ -1705,6 +1800,8 @@ def serve_row(device, scale):
            f"{f32d['routing']['reorders']} reorders, "
            f"max err {(f32d['held'] or {}).get('max_abs_err')}" if moe
            else f"; f32 decode parity {f32d['max_abs_err']:.3g}")
+        + (f"; f32 prefill_cross + decode vs forward {out['f32_cross_decode_vs_forward']['max_abs_err']:.3g}"
+           if encdec else "")
         + (f"; bf16 flash vs einsum {out['bf16_prefill_vs_einsum']['max_abs_err']:.3g}"
            if not moe and gqa else ""))
     log("[serve] " + json.dumps(out))
@@ -2902,9 +2999,10 @@ def run(device, scale):
     fused_tie_break_check(device)
 
     # ---- phase 5: serving llama3-8b (e, f), then the MoE and MLA families, -- #
-    # then the SSM and the hybrid, then the other dense configs
-    serve_paths = {}  # path -> its launches
+    # then the SSM and the hybrid, the encoder-decoder and the other dense configs
+    serve_paths, serve_rows = {}, {}  # path -> its launches, its row
     later_rows = (scale.get("serve_moe", SERVE_MOE_REHEARSAL) + scale.get("serve_ssm", SERVE_SSM_REHEARSAL)
+                  + scale.get("serve_encdec", SERVE_ENCDEC_REHEARSAL)
                   + (scale.get("serve_dense") or serve_dense_rehearsal()))
     for path, row_scale in [("serve", serve)] + [("serve_" + r["arch"], r) for r in later_rows]:
         zero_counts()
@@ -2919,7 +3017,14 @@ def run(device, scale):
             if row["attention"] == "flash (K6)":
                 check(got["flash_attention"] > 0 and got["flash_decode"] == 1,
                       f"the {path} path launched {got}: K6 and K7 must have run")
-        serve_paths[path] = got
+        serve_paths[path], serve_rows[path] = got, row
+    e6 = serve_rows.get("serve_seamless-m4t-medium")
+    if device.type == "cuda" and e6:  # (e6)'s K7 is the D 64 ring at one head a warp
+        ring64 = sorted(fn for fn in built["ptxas"] if "flash_decode_partial_ringILi64ELi1EE" in fn)
+        log(f"[serve] (e6) K7 plan {json.dumps(e6['k7_plan'])}; instance {ring64}")
+        check(e6["k7_plan"]["instance"] == "ring_bf16" and e6["k7_plan"]["heads_per_warp"] == 1
+              and ring64, f"(e6): K7's ring::<64, 1> instance was not built or not chosen: "
+              f"{e6['k7_plan']}, {ring64}")
 
     # ---- phase 6: the evaluation harness ------------------------------------ #
     zero_counts()
@@ -3026,7 +3131,6 @@ def main() -> int:
     if not src.is_dir():
         print(f"chip_smoke: {src} is missing; run from a checkout of the repo", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     import torch
 
     if not torch.cuda.is_available():

@@ -5,10 +5,12 @@
 
 Every decoder family runs: dense GQA, MoE (``--arch dbrx-132b``), MLA + MoE
 (``--arch deepseek-v2-236b``), the Mamba-2 SSM (``--arch mamba2-780m``,
-whose cache is the recurrent state) and the SSM + shared-attention hybrid
-(``--arch zamba2-2.7b``).  Runs on CUDA unless ``--device
-cpu`` is given; the weights are random, drawn from a ``torch.Generator``
-seeded with ``--seed`` on the device.
+whose cache is the recurrent state), the SSM + shared-attention hybrid
+(``--arch zamba2-2.7b``) and the encoder-decoder (``--arch
+seamless-m4t-medium``, which decodes against zero cross K/V, as the JAX
+package's ``greedy_generate`` does: ROADMAP D15).  Runs on CUDA unless
+``--device cpu`` is given; the weights are random, drawn from a
+``torch.Generator`` seeded with ``--seed`` on the device.
 """
 
 from __future__ import annotations

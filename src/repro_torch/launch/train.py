@@ -4,11 +4,13 @@
         --steps 100 --batch 8 --seq 128 [--device cpu]
 
 ``--reduced`` (always on, as in the JAX package's launcher) swaps in the
-smoke config family.  Runs on CUDA unless ``--device cpu`` is given.  The
-initial state is drawn on the host from ``--seed`` and moved to the
-device, so a seed starts from the same state on every device, as the JAX
-package's keys do.  Supports periodic checkpointing and restart (the
-migration cost path).
+smoke config family.  Every arch trains, the encoder-decoder (``--arch
+seamless-m4t-medium``) on the stub audio frames ``batch_for`` adds.
+Runs on CUDA unless ``--device cpu`` is given.  The initial state is
+drawn on the host from ``--seed`` and moved to the device, so a seed
+starts from the same state on every device, as the JAX package's keys
+do.  Supports periodic checkpointing and restart (the migration cost
+path).
 """
 
 from __future__ import annotations

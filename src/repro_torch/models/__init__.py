@@ -1,6 +1,6 @@
 """Workload substrate of the port in PyTorch: the decoder with GQA or MLA
-attention and dense or MoE feed-forwards, the Mamba-2 SSM and the SSM +
-shared-attention hybrid.
+attention and dense or MoE feed-forwards, the Mamba-2 SSM, the SSM +
+shared-attention hybrid and the encoder-decoder.
 
 ``get_model(cfg)`` returns a functional model namespace with
 
@@ -14,13 +14,10 @@ carry across with :func:`repro_torch.models.convert.params_from_jax`.
 """
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def get_model(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"repro_torch: {cfg.name} is an encoder-decoder, a later slice of the "
-            "port (ROADMAP, queue 1: the encoder-decoder family)"
-        )
+        return encdec
     return transformer

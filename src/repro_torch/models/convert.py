@@ -3,7 +3,9 @@
 ``params_from_jax(tree, cfg, device)`` takes the JAX params pytree with its
 leaves as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the port's params dict: the same nested keys and layouts, with the leading
-L axis of ``tree["layers"]`` un-stacked into a list of per-layer dicts.
+L axis of ``tree["layers"]`` (the encoder-decoder's ``enc_layers`` and
+``dec_layers``, of ``cfg.encoder_layers`` and ``cfg.num_layers``) un-stacked
+into a list of per-layer dicts.
 Every leaf keeps its dtype, so a MoE layer's ``moe`` dict arrives with its
 f32 router, its experts stacked on E and its ``shared`` FFN, an MLA layer's
 ``attn`` with its latent projections and ``kv_norm``, and an SSM layer's
@@ -41,12 +43,15 @@ def _map(tree, fn):
 
 
 def params_from_jax(tree: Dict, cfg: ModelConfig, device) -> Dict:
-    out = {k: _map(v, lambda a: tensor_from_numpy(a, device)) for k, v in tree.items()
-           if k != "layers"}
-    out["layers"] = [
-        _map(tree["layers"], lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
-        for i in range(cfg.num_layers)
-    ]
+    stacked = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers,
+               "dec_layers": cfg.num_layers}
+    out = {}
+    for k, v in tree.items():
+        if k in stacked:
+            out[k] = [_map(v, lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
+                      for i in range(stacked[k])]
+        else:
+            out[k] = _map(v, lambda a: tensor_from_numpy(a, device))
     return out
 
 

@@ -8,10 +8,14 @@ the prompt token by token, exactly as the reference does, then decodes
 greedily; the argmax stays on the device.  A step runs whatever layers the
 model has (GQA or MLA attention, a dense or MoE feed-forward, Mamba-2
 layers with their recurrent state, the hybrid's shared block with one
-full-context GQA cache per application): a MoE step
+full-context GQA cache per application, the encoder-decoder's decoder
+with its cross-attention): a MoE step
 routes its B tokens with a capacity of ``capacity_of(cfg, B)``, as the
 reference's decode step does, so stepped logits equal a full forward's
-only where no expert overflows in either.
+only where no expert overflows in either.  Like the reference's,
+``greedy_generate`` never calls the encoder-decoder's ``prefill_cross``:
+its steps attend to the zero cross K/V of ``init_cache``, which is the
+forward on zero audio frames (ROADMAP D15).
 """
 
 from __future__ import annotations

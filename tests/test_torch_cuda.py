@@ -1088,6 +1088,58 @@ def test_ssm_and_hybrid_forward_and_decode_on_card_equal_cpu_in_f32(cuda, monkey
 
 
 # --------------------------------------------------------------------------- #
+# the encoder-decoder on the card
+# --------------------------------------------------------------------------- #
+def test_encoder_decoder_forward_and_decode_on_card_equal_cpu_in_f32(cuda, monkeypatch):
+    """The reduced seamless-m4t in f32, env unset: the card's forward (the
+    decoder's causal self-attention on K6's f32 instance at D 64, once a
+    decoder layer; the encoder and the cross-attention on the einsum path)
+    within 1e-4 of the CPU's; the cross K/V of ``prefill_cross`` within
+    1e-5; 8 decode steps at batch 2 against them within 1e-4 of the CPU's
+    and of the forward, with the self-attention caches; the card's greedy
+    steps (zero cross K/V) within 1e-4 of its forward on zero frames (D15)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import encdec, get_model
+    from repro_torch.serve import ServeConfig, greedy_generate
+
+    monkeypatch.delenv("REPRO_USE_FLASH", raising=False)
+    cfg = dataclasses.replace(get_reduced("seamless-m4t-medium"), dtype="float32")
+    model = get_model(cfg)
+    assert model is encdec
+    params = model.init(torch.Generator().manual_seed(0), cfg)
+    card_params = _to(params, cuda)
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=g)
+    frames = torch.randn((2, cfg.frontend_len, cfg.d_model), generator=g) * 0.02
+    want, _ = model.forward(params, cfg, {"tokens": tokens, "audio_frames": frames})
+    before = flash_attention.launches
+    got, _ = model.forward(card_params, cfg, {"tokens": tokens.to(cuda),
+                                              "audio_frames": frames.to(cuda)})
+    assert flash_attention.launches - before == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    hc, cc = model.init_cache(cfg, 2, 16, "cpu"), model.init_cache(cfg, 2, 16, cuda)
+    hc["cross_k"], hc["cross_v"] = encdec.prefill_cross(params, cfg, encdec.encode(params, cfg, frames))
+    cc["cross_k"], cc["cross_v"] = encdec.prefill_cross(
+        card_params, cfg, encdec.encode(card_params, cfg, frames.to(cuda)))
+    for key in ("cross_k", "cross_v"):
+        torch.testing.assert_close(cc[key].cpu(), hc[key], rtol=1e-5, atol=1e-5)
+    for i in range(8):
+        t = tokens[:, i:i + 1]
+        hl, hc = model.decode_step(params, cfg, {"tokens": t}, hc, i)
+        cl, cc = model.decode_step(card_params, cfg, {"tokens": t.to(cuda)}, cc, i)
+        torch.testing.assert_close(cl.cpu(), hl, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(cl.cpu(), want[:, i:i + 1], rtol=1e-4, atol=1e-4)
+    for h_, c_ in zip(hc["layers"], cc["layers"], strict=True):
+        for key in h_:
+            torch.testing.assert_close(c_[key].cpu(), h_[key], rtol=1e-5, atol=1e-5)
+    seq, steps = greedy_generate(card_params, cfg, tokens[:, :4].to(cuda), 8, ServeConfig(2, 16),
+                                 return_logits=True)
+    zeros = torch.zeros_like(frames, device=cuda)
+    full, _ = model.forward(card_params, cfg, {"tokens": seq, "audio_frames": zeros})
+    torch.testing.assert_close(steps, full[:, :-1], rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
 # training on the card: the einsum path under autograd (ROADMAP D8)
 # --------------------------------------------------------------------------- #
 def _train_step_on(device, cfg, microbatches=1):

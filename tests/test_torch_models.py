@@ -92,7 +92,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "for m in ('common', 'evaluate', 'scalability'):\n"
         "    assert 'repro_torch.benchmarks.' + m in sys.modules, m\n"
         "for m in ('train.optimizer', 'train.data', 'train.step', 'train.checkpoint',\n"
-        "          'models.scan_util', 'launch.train'):\n"
+        "          'models.scan_util', 'models.encdec', 'launch.train', 'launch.mesh',\n"
+        "          'launch.pspec', 'launch.specs', 'roofline'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert 'benchmarks' not in sys.modules\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
@@ -456,6 +457,8 @@ def test_ring_buffer_past_the_window_matches_jax():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_encoder_decoder_raises():
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        get_model(get_reduced("seamless-m4t-medium"))
+def test_get_model_returns_the_encoder_decoder():
+    from repro_torch.models import encdec
+
+    for cfg in (get_config("seamless-m4t-medium"), get_reduced("seamless-m4t-medium")):
+        assert cfg.is_encoder_decoder and get_model(cfg) is encdec

@@ -5,9 +5,10 @@ JAX package's params and train state are carried into the port by
 ``params_from_jax`` / ``train_state_from_jax``.  Covered: the data
 pipeline (byte for byte), AdamW, the loss and one train step (microbatches
 1 and 2, the five dense archs' reduced configs, f32 and bf16, and in f32 the
-MoE and MLA archs, whose loss carries the routers' aux, and the SSM and
-hybrid archs), the remat
-policies, checkpoint files in both directions, ``train_loop``, the routing
+MoE and MLA archs, whose loss carries the routers' aux, the SSM and
+hybrid archs, and the encoder-decoder), the remat
+policies, checkpoint files in both directions (the encoder-decoder's
+two stacks too), ``train_loop``, the routing
 rule that keeps the flash kernel off the autograd path (ROADMAP D8), the
 two knobs of the einsum ``sdpa``, and the launcher.  The training path
 launches no kernel: attention takes the einsum path under autograd.
@@ -44,6 +45,8 @@ DENSE = ["llama3-8b", "deepseek-67b", "qwen3-14b", "nemotron-4-340b", "qwen2-vl-
 MOE = ["dbrx-132b", "deepseek-v2-236b"]
 #: the SSM (mamba2) and the hybrid (zamba2): trained on the CPU only so far
 SSM = ["mamba2-780m", "zamba2-2.7b"]
+#: the encoder-decoder (seamless-m4t): its batch carries the audio frames
+ENCDEC = ["seamless-m4t-medium"]
 F32_TOL = 1e-5  # relative L2, every leaf and metric, in f32
 BF16_TOL = 2e-2  # relative, the loss and grad norm in each arch's default bf16
 BATCH, SEQ = 2, 32
@@ -274,7 +277,7 @@ def _one_step_both(arch, dtype, microbatches):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC)
 def test_train_step_equals_jax_in_f32(arch, microbatches):
     """In f32: ``loss_fn`` on the initial params, and the step's loss, nll,
     z-loss and grad norm, every updated parameter and both moments within
@@ -411,6 +414,27 @@ def test_port_checkpoint_restores_bitwise_in_jax(tmp_path, dtype):
     restored, at = jax_ckpt.restore_checkpoint(path, template)
     assert at == 1
     _assert_trees_equal(_to_port(restored, cfg), tstate)
+
+
+def test_encoder_decoder_checkpoint_in_both_packages(tmp_path):
+    """The encoder-decoder's state after one step: the port's file holds
+    ``enc_layers/...`` and ``dec_layers/...`` with the layer axis first, as
+    the JAX package's does; it restores bitwise in the JAX package, and
+    the JAX package's restores bitwise in the port."""
+    cfg, tc, _, jstate, _ = _jax_step("seamless-m4t-medium", "float32", 1)
+    tstate = _to_port(jstate, cfg)
+    path = str(tmp_path / "port.npz")
+    checkpoint.save_checkpoint(path, tstate, step=1)
+    with np.load(path) as f:
+        for name in ("params/enc_layers/attn/wq", "opt/m/dec_layers/cross_attn/wk"):
+            assert f[name].shape[0] == (cfg.encoder_layers if "enc_" in name else cfg.num_layers)
+    restored, at = jax_ckpt.restore_checkpoint(path, _jax_state(cfg, jax_step.TrainConfig(), seed=1))
+    assert at == 1
+    _assert_trees_equal(_to_port(restored, cfg), tstate)
+    jpath = str(tmp_path / "jax.npz")
+    jax_ckpt.save_checkpoint(jpath, jstate, step=1)
+    template = step.train_state_init(torch.Generator().manual_seed(5), cfg, _port_tc(tc))
+    _assert_trees_equal(checkpoint.restore_checkpoint(jpath, template)[0], tstate)
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -562,6 +586,13 @@ def test_train_launcher_runs_on_the_cpu(capsys):
     assert "training llama3-smoke: ~1.4M params" in out
     assert "step     0  loss" in out and "step     2  loss" in out
     assert "loss: first10=" in out
+
+
+def test_train_launcher_trains_the_encoder_decoder_on_the_cpu(capsys):
+    launch_train.main(["--arch", "seamless-m4t-medium", "--device", "cpu", "--steps", "2",
+                       "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "training seamless-smoke" in out and "step     1  loss" in out
 
 
 def test_train_launcher_defaults_to_cuda(monkeypatch):
