@@ -177,7 +177,22 @@ comes out:
    printed with its inputs' shapes, strides and addresses mod 256 (the
    initial state ``train_loop`` draws on the host is recorded too).
    Counters zeroed before and read after: the training path launches no
-   kernel.
+   kernel;
+8. the dry-run (``repro_torch.launch.dryrun``), which needs no card: (a) its
+   command line in five subprocesses on the host that see no card: every
+   arch at ``prefill_32k`` and every arch at ``decode_32k`` on the 16x16
+   mesh, mamba2 and zamba2 at ``train_4k``, and mamba2 at ``decode_32k``
+   on the 2x16x16 mesh, each exiting 0 with a well-formed report per
+   combination (chips, mesh, FLOPs per device > 0, no collective term);
+   (b) meanwhile, row (e)'s prefill (B 1 x S 8192) and decode step (B 8,
+   8192 slots) counted on abstract tensors on the 1x1 mesh and run on the
+   card on the row's weights on the einsum path (``REPRO_USE_FLASH=0``)
+   under ``FlopCounterMode``: the FLOPs equal exactly, the dry-run's state
+   bytes those of the params (and cache) on the card; the counted FLOPs
+   printed beside ``dense_row_bounds``' ``prefill_ops``, the compute and
+   memory terms beside row (e)'s measured prefill and step (no gate on
+   those ratios).  Counters zeroed before and read after: nothing
+   launches.
 
 Any failure exits non-zero.  The last three lines are the kernels JSON,
 the card's ``name, power.limit`` and ``{"ok": true, "device": ...}``.
@@ -295,6 +310,17 @@ FULL = dict(
     # reduced config, card against host
     train=dict(arch="llama3-8b", reduced=False, layers=4, batch=4, seq=2048, timed_steps=5,
                f32=dict(steps=3, batch=2, seq=64)),
+    # phase 8: the dry-run's command line on the host, one process each
+    # (a process spends ~15 s importing and warming up there): every arch
+    # at prefill_32k, every arch at decode_32k on the single-pod mesh,
+    # mamba2's and zamba2's train_4k (a few seconds each), the multi-pod
+    # case; while row (e)'s prefill and step are counted and run on the card
+    dryrun=dict(
+        cases=[("all", "prefill_32k"), ("all", "decode_32k"), ("mamba2-780m", "train_4k"),
+               ("zamba2-2.7b", "train_4k"), ("mamba2-780m", "decode_32k", True)],
+        workers=5,
+        row=dict(arch="llama3-8b", reduced=False, prefill_s=8192, batch=8, context=8192),
+    ),
 )
 
 #: the CPU rehearsal's phase 6: four arms of the record, a 64-GPU Part 2
@@ -347,6 +373,12 @@ def serve_dense_rehearsal():
         dict(arch="qwen2-vl-2b", reduced=True, prefill_s=48, batch=2, prompt=8, gen=8, context=64),
     ]
 
+
+#: the CPU rehearsal's phase 8: two command lines of the full mamba2 (its
+#: decode step counts in a second), row (b) on the reduced llama3-8b
+DRYRUN_REHEARSAL = dict(cases=[("mamba2-780m", "decode_32k"), ("mamba2-780m", "decode_32k", True)],
+                        workers=2, row=dict(arch="llama3-8b", reduced=True, prefill_s=64, batch=2,
+                                            context=64))
 
 #: the CPU rehearsal's phase 7 (reduced llama3-8b)
 TRAIN_REHEARSAL = dict(arch="llama3-8b", reduced=True, layers=None, batch=2, seq=64, timed_steps=2,
@@ -2227,6 +2259,177 @@ def _rel_l2(got, want):
 
 
 # --------------------------------------------------------------------------- #
+# phase 8: the dry-run
+# --------------------------------------------------------------------------- #
+def dryrun_case(arch, shape, multi_pod=False):
+    """One run of the dry-run's command line on the host (``arch`` may be
+    ``all``), in a subprocess that sees no card (``CUDA_VISIBLE_DEVICES``
+    empty) and runs on one thread: its arguments, exit code, report lines,
+    stderr's tail and seconds."""
+    args = ["--arch", arch, "--shape", shape] + (["--multi-pod"] if multi_pod else [])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    reports = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+    return dict(args=args, rc=res.returncode, reports=reports, err=res.stderr[-1500:],
+                s=time.perf_counter() - t0)
+
+
+def dryrun_row(device, scale):
+    """(b): tie the dry-run's count to the program the card runs.  Row (e)'s
+    prefill of B 1 x ``prefill_s`` tokens and its decode step at B
+    ``batch`` on a ``context``-slot cache (at its last position, as the
+    dry-run steps it), counted on abstract tensors on the 1x1 mesh
+    (``dryrun.count_step``); then the same prefill and step on ``device``
+    on the row's weights (seed 0) with ``REPRO_USE_FLASH=0``, the dry-run's
+    einsum path, under ``torch.utils.flop_counter.FlopCounterMode``.  The
+    FLOPs must be equal exactly, and the dry-run's state bytes those of the
+    row's params (prefill) and params and cache (decode) on ``device``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.specs import InputShape, tree_paths_and_tensors
+    from repro_torch.models import get_model
+
+    cfg = (get_reduced if scale["reduced"] else get_config)(scale["arch"])
+    s, b, ctx = scale["prefill_s"], scale["batch"], scale["context"]
+    shapes = dict(prefill=InputShape("row_prefill", s, 1, "prefill"),
+                  decode=InputShape("row_decode", ctx, b, "decode"))
+    counted = {k: dryrun.count_step(cfg, shape, make_smoke_mesh()) for k, shape in shapes.items()}
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for _, ts in tree_paths_and_tensors(tree) for t in ts)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    model = get_model(cfg)
+    out = dict(model=cfg.name, layers=cfg.num_layers, prefill_tokens=s, batch=b, context=ctx)
+    saved = os.environ.get("REPRO_USE_FLASH")
+    os.environ["REPRO_USE_FLASH"] = "0"
+    try:
+        params = model.init(torch.Generator(device=device).manual_seed(0), cfg)
+        gen = torch.Generator(device=device).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=device)
+        sync()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            logits, _ = model.forward(params, cfg, {"tokens": tokens})
+        sync()
+        out["prefill"] = dict(card_flops=fc.get_total_flops(), card_s=time.perf_counter() - t0,
+                              card_state_bytes=nbytes(params))
+        check(bool(torch.isfinite(logits).all()), "(b): the einsum prefill's logits are not finite")
+        del logits
+        cache = model.init_cache(cfg, b, ctx, device)
+        step_tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=device)
+        sync()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            logits, _ = model.decode_step(params, cfg, {"tokens": step_tokens}, cache, ctx - 1)
+        sync()
+        out["decode"] = dict(card_flops=fc.get_total_flops(), card_s=time.perf_counter() - t0,
+                             card_state_bytes=nbytes(params) + nbytes(cache))
+        check(bool(torch.isfinite(logits).all()), "(b): the decode step's logits are not finite")
+        del params, cache, logits
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_USE_FLASH", None)
+        else:
+            os.environ["REPRO_USE_FLASH"] = saved
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    for kind, c in counted.items():
+        row = out[kind]
+        row.update(flops=c.flops, bytes=c.bytes, state_bytes=c.state_bytes_per_device,
+                   count_s=c.seconds, compute_term_ms=c.flops / PEAK_BF16_OPS_PER_S * 1e3,
+                   memory_term_ms=c.bytes / PEAK_BYTES_PER_S * 1e3)
+        check(row["flops"] == row["card_flops"],
+              f"(b) {kind}: the dry-run counts {row['flops']} FLOPs, the card's run {row['card_flops']}")
+        check(row["state_bytes"] == row["card_state_bytes"],
+              f"(b) {kind}: the dry-run's state is {row['state_bytes']} bytes, the card's "
+              f"{row['card_state_bytes']}")
+    return out
+
+
+def dryrun_phase(device, scale, serve_row_e):
+    """Phase 8.  (a) the dry-run's command line, ``scale["cases"]`` (every
+    arch at prefill_32k and decode_32k on the single-pod mesh, train_4k
+    where it fits, one multi-pod case), ``scale["workers"]`` subprocesses at
+    a time on the host while (b) runs: each must exit 0 with a well-formed
+    report per combination (chips 256 or 512, mesh 16x16 or 2x16x16, FLOPs
+    per device > 0, no collective term); (b) :func:`dryrun_row`.  The counted FLOPs are
+    printed beside ``dense_row_bounds``' ``prefill_ops`` (it counts the
+    causal half of S x S; the einsum path computes all of it), and the
+    dry-run's compute and memory terms at the 1x1 mesh beside row (e)'s
+    measured prefill and step (``serve_row_e``); no gate on those ratios."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config, get_reduced, list_archs
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=scale["workers"]) as pool:
+        futures = [pool.submit(dryrun_case, *case) for case in scale["cases"]]
+        t1 = time.perf_counter()
+        row = dryrun_row(device, scale["row"])
+        row["s"] = time.perf_counter() - t1
+        results = [f.result() for f in futures]
+    out = dict(cases=[], row=row)
+    for r in results:
+        multi, what = "--multi-pod" in r["args"], " ".join(r["args"])
+        check(r["rc"] == 0, f"(a) dry-run {what}: exit {r['rc']}: {r['err']}")
+        want = len(list_archs()) if r["args"][1] == "all" else 1
+        check(len(r["reports"]) == want, f"(a) dry-run {what}: {len(r['reports'])} reports, wanted {want}")
+        log(f"[dryrun] (a) {what}: {want} report(s) in {r['s']:.2f} s")
+        for d in r["reports"]:
+            check(d["chips"] == (512 if multi else 256) and d["mesh"] == ("2x16x16" if multi else "16x16")
+                  and d["hlo_flops_per_device"] > 0 and d["collective_bytes_per_device"] == 0
+                  and d["bottleneck"] in ("compute", "memory"),
+                  f"(a) dry-run {what}: malformed report {d}")
+            out["cases"].append({k: d[k] for k in (
+                "arch", "shape", "mesh", "hlo_flops_per_device", "hlo_bytes_per_device",
+                "compute_term_s", "memory_term_s", "collective_term_s", "bottleneck",
+                "model_flops_ratio", "state_bytes_per_device", "compile_s")})
+            log(f"[dryrun] (a) {d['arch']} x {d['shape']} on {d['mesh']}: compute "
+                f"{d['compute_term_s']:.6g} s, memory {d['memory_term_s']:.6g} s, collective "
+                f"{d['collective_term_s']:.6g} s ({d['bottleneck']}); state "
+                f"{d['state_bytes_per_device']} B per device; counted in {d['compile_s']:.2f} s")
+    out["a_s"] = max(r["s"] for r in results)
+
+    cfg = (get_reduced if scale["row"]["reduced"] else get_config)(scale["row"]["arch"])
+    bounds = dense_row_bounds(cfg, scale["row"]["prefill_s"], scale["row"]["batch"], 63)
+    pre, dec = row["prefill"], row["decode"]
+    row["prefill_ops_bound"] = bounds["prefill_ops"]
+    log(f"[dryrun] (b) {row['model']} prefill B 1 x S {row['prefill_tokens']}: {pre['flops']} FLOPs "
+        f"counted = {pre['card_flops']} on {device.type} (einsum path, {pre['card_s']:.3f} s under "
+        f"FlopCounterMode); dense_row_bounds' prefill_ops {bounds['prefill_ops']} "
+        f"(counted / it {pre['flops'] / bounds['prefill_ops']:.4f}); state {pre['state_bytes']} B = "
+        f"the params on {device.type}; terms at the 1x1 mesh: compute {pre['compute_term_ms']:.3f} ms, "
+        f"memory {pre['memory_term_ms']:.3f} ms")
+    log(f"[dryrun] (b) decode step B {row['batch']} on {row['context']} slots: {dec['flops']} FLOPs "
+        f"counted = {dec['card_flops']} on {device.type}; state {dec['state_bytes']} B = params + cache; "
+        f"terms: compute {dec['compute_term_ms']:.4f} ms, memory {dec['memory_term_ms']:.3f} ms")
+    if serve_row_e:  # row (e)'s measured prefill (K6) and step, phase 5
+        row["measured_prefill_s"], row["measured_step_ms"] = serve_row_e["prefill_s"], serve_row_e["step_ms"]
+        log(f"[dryrun] (b) row (e) measured: prefill {serve_row_e['prefill_s'] * 1e3:.1f} ms "
+            f"(÷ compute term {serve_row_e['prefill_s'] * 1e3 / pre['compute_term_ms']:.2f}, "
+            f"÷ memory term {serve_row_e['prefill_s'] * 1e3 / pre['memory_term_ms']:.2f}); step "
+            f"{serve_row_e['step_ms']:.1f} ms (÷ compute term "
+            f"{serve_row_e['step_ms'] / dec['compute_term_ms']:.1f}, ÷ memory term "
+            f"{serve_row_e['step_ms'] / dec['memory_term_ms']:.2f})")
+    out["s"] = time.perf_counter() - t0
+    log(f"[dryrun] phase 8: {len(results)} command lines, {len(out['cases'])} reports (the longest "
+        f"{out['a_s']:.1f} s, {scale['workers']} at a time) beside row (b) ({row['s']:.1f} s) in "
+        f"{out['s']:.1f} s")
+    log("[dryrun] " + json.dumps(out))
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 3 / 4: the main path
 # --------------------------------------------------------------------------- #
 class Recorder:
@@ -3052,9 +3255,15 @@ def run(device, scale):
     log(f"[train path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(train_launches)}")
     check(not any(train_launches.values()), f"the training path launched a kernel: {train_launches}")
 
+    # ---- phase 8: the dry-run ---------------------------------------------- #
+    zero_counts()
+    dryrun_phase(device, scale.get("dryrun", DRYRUN_REHEARSAL), serve_rows.get("serve"))
+    dryrun_launches = read_counts()
+    check(not any(dryrun_launches.values()), f"the dry-run phase launched a kernel: {dryrun_launches}")
+
     by_path = {name: {"round": launches[name], "fused": fused_launches[name],
                       "evaluate": eval_launches[name], "scalability": scal_launches[name],
-                      "train": train_launches[name]}
+                      "train": train_launches[name], "dryrun": dryrun_launches[name]}
                for name in ("lap_auction", "migration_cost", "lap_bid_batched",
                             "lap_bid_fused_batched")}
 
@@ -3107,9 +3316,10 @@ def run(device, scale):
         row = rows[0]  # the serving path's shape
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(n[name] for n in serve_paths.values()) + train_launches[name],
+            launches=(sum(n[name] for n in serve_paths.values()) + train_launches[name]
+                      + dryrun_launches[name]),
             launches_by_path={**{path: n[name] for path, n in serve_paths.items()},
-                              "train": train_launches[name]},
+                              "train": train_launches[name], "dryrun": dryrun_launches[name]},
             max_abs_err=row["max_abs_err"], rel_err=row["rel_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"], share_of_bound=row["share_of_bound"],

@@ -162,6 +162,14 @@ def _walk(tree, prefix: Tuple[str, ...] = ()):
         yield prefix, tree
 
 
+def tree_paths_and_tensors(tree) -> List[Tuple[str, List[torch.Tensor]]]:
+    """[(dotted_path, tensors)]: the tensors one path of
+    :func:`tree_paths_and_leaves` stands for, one per layer of a stacked
+    leaf, else the one leaf."""
+    return [(".".join(parts), leaf if isinstance(leaf, list) else [leaf])
+            for parts, leaf in _walk(tree)]
+
+
 def tree_paths_and_leaves(tree) -> List[Tuple[str, torch.Tensor]]:
     """[(dotted_path, leaf)] for a nested dict of tensors; a list of
     per-layer dicts gives one stacked leaf per key, a ``meta`` tensor of
@@ -181,16 +189,19 @@ def sharding_tree(tree, rules: ShardingRules, axes_fn) -> Dict[str, NamedShardin
             for path, leaf in tree_paths_and_leaves(tree)}
 
 
+def shard_count(sh: NamedSharding) -> int:
+    """How many shards ``sh`` cuts an array into: the product of the mesh
+    axes its spec names."""
+    denom = 1
+    for spec in sh.spec:
+        if spec is None:
+            continue
+        for nm in spec if isinstance(spec, tuple) else (spec,):
+            denom *= sh.mesh.shape[nm]
+    return denom
+
+
 def bytes_per_device(tree, shardings: Dict[str, NamedSharding]) -> int:
     """Exact per-device bytes of a sharded tree (shape/spec arithmetic)."""
-    total = 0
-    for path, leaf in tree_paths_and_leaves(tree):
-        sh = shardings[path]
-        denom = 1
-        for spec in sh.spec:
-            if spec is None:
-                continue
-            for nm in spec if isinstance(spec, tuple) else (spec,):
-                denom *= sh.mesh.shape[nm]
-        total += leaf.numel() * leaf.element_size() // denom
-    return total
+    return sum(leaf.numel() * leaf.element_size() // shard_count(shardings[path])
+               for path, leaf in tree_paths_and_leaves(tree))

@@ -11,8 +11,10 @@ through :func:`remat` while autograd records:
     backward at higher live memory)
 
 The reference's unroll knobs (``REPRO_UNROLL_LAYERS``, ``REPRO_UNROLL_MB``)
-only feed XLA's cost analysis for the dry-run; an eager loop has nothing to
-unroll, so they have no counterpart here (ROADMAP D9).
+only feed XLA's cost analysis for the dry-run, which counts a ``while`` body
+once.  The port's dry-run (``launch/dryrun.py``) counts the eager loops
+whole, every layer and every microbatch, so they have no counterpart here
+(ROADMAP D9, closed).
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ PyTorch counterpart of the JAX package's ``roofline.py``.  Three terms per
 The reference takes the FLOPs and bytes from its dry-run's compiled
 programs (``compiled.cost_analysis()``) and the collective bytes from their
 optimized HLO text, through :func:`parse_collectives`, which is ported as
-it is.  The port's dry-run is not written yet, so a report's counts come
-from its caller.
+it is.  The port's dry-run (``launch/dryrun.py``) counts the products'
+FLOPs and every op's bytes of the global program on abstract tensors, and
+has no collective to count (ROADMAP D17).
 
 The constants are the card the port runs on, the NVIDIA H100 80GB HBM3 at
 700 W (data sheet): 989 TFLOP/s bf16 dense on the tensor cores, 3.35 TB/s

@@ -154,6 +154,48 @@ def test_mamba2_decode_equals_the_chunked_forward():
     torch.testing.assert_close(torch.cat(steps, dim=1), full, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dt_bias,nan_heads", [(-3.0, 0), (0.5, 7)])
+def test_ssd_gradient_past_the_f32_exp_range_is_nan_at_the_same_entries_in_both_packages(
+        dt_bias, nan_heads):
+    """ROADMAP D19.  Both packages form ``exp(cum_i - cum_j)`` for every
+    (i, j) of a chunk and only then zero i < j with ``where``.  Above the
+    diagonal the exponent is the decay summed between the two positions;
+    where it passes log(f32 max) (88.7) the exp is inf, the forward stays
+    finite, and the backward multiplies the ``where``'s zero by inf.  One
+    chunk of 32 tokens, every head's ``dt`` raised by ``dt_bias``: at -3.0
+    no head's summed decay reaches 88.7 and both gradients are finite and
+    agree; at 0.5 seven of eight heads pass it, and both packages give NaN
+    at exactly the same entries (those heads' ``a_log``, ``dt_bias`` and
+    ``in_proj`` columns, and every input), agreeing elsewhere at 1e-4."""
+    cfg = _cfg()
+    jp, _ = _block(cfg)
+    jp = dict(jp, dt_bias=jnp.full_like(jp["dt_bias"], dt_bias))
+    u = _hidden(cfg, 1, cfg.ssm_chunk, seed=0)
+
+    want_p, want_u = jax.grad(lambda p, x: jnp.sum(jax_ssm.mamba2_forward(p, cfg, x)),
+                              argnums=(0, 1))(jp, u)
+    tp = {k: _t(v).requires_grad_() for k, v in jp.items()}
+    tu = _t(u).requires_grad_()
+    out = ssm.mamba2_forward(tp, cfg, tu)
+    assert bool(torch.isfinite(out).all())
+    out.sum().backward()
+
+    # the largest exponent above the diagonal, per head: cum_0 - cum_{Q-1}
+    zx = np.asarray(u, np.float64)[0] @ np.asarray(jp["in_proj"], np.float64)
+    dt = np.logaddexp(0.0, zx[:, -cfg.ssm_heads:] + dt_bias)
+    span = (dt * np.exp(np.asarray(jp["a_log"], np.float64)))[1:].sum(0)
+    overflows = span > np.log(np.finfo(np.float32).max)
+    assert overflows.sum() == nan_heads
+    for k, g in want_p.items():
+        want, got = np.asarray(g), tp[k].grad.numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=k)
+        np.testing.assert_allclose(got[~np.isnan(got)], want[~np.isnan(want)], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_array_equal(np.isnan(tp["dt_bias"].grad.numpy()), overflows)
+    np.testing.assert_array_equal(np.isnan(tu.grad.numpy()), np.isnan(np.asarray(want_u)))
+    assert np.isnan(np.asarray(want_u)).all() == bool(nan_heads)
+
+
 # --------------------------------------------------------------------------- #
 # the whole models
 # --------------------------------------------------------------------------- #
