@@ -23,8 +23,9 @@ comes out:
 
 1. environment: the card, torch/CUDA versions, the kernels' build time;
    what ``ptxas`` gave each attention kernel instance (registers, static
-   shared memory, spills; the head-dim-80 instances and the bf16 K6
-   instance at head dim 192 must not spill), and
+   shared memory, spills; the head-dim-80 instances, the bf16 K6
+   instance at head dim 192 and K7's tensor-core instances (head dims 128
+   and 192) must not spill), and
    the ``HGMMA`` (wgmma) instructions in the SASS of the bf16
    ``flash_attention`` instances (``cuobjdump -sass``), which must not be
    zero;
@@ -53,9 +54,14 @@ comes out:
    relative L2 error per 128-query tile / per head, at the serving path's
    shapes, at ``prefill_32k`` / ``decode_32k``'s length, at zamba2's
    head dim 80 and nemotron-4's 192 (K6 also in f32 at both, within 2e-5)
-   and at deepseek-67b's 64 / 8 heads, with
+   and at deepseek-67b's 64 / 8 heads (K7 also over a whole 32768-slot
+   cache at D 192, groups 12 and 1, and at D 128, group 8, on its
+   tensor-core instance), with
    kernel / plain / bound / library times (and, for the attention kernels,
-   the share of the bound and the ratio to the library call); a causal
+   the share of the bound and the ratio to the library call; for K7 the
+   plan's instance, splits and blocks, its blocks per SM held to the
+   runtime's occupancy calculator, and the instance's ``ptxas`` registers
+   and spills); a causal
    ``sdpa`` at head dim 96 (no flash instance) and at MLA's widths (q/k
    192, v 128) runs the einsum path on the card, equal to the CPU's at
    2e-5, and raises under ``REPRO_USE_FLASH=1``;
@@ -244,7 +250,8 @@ FULL = dict(
         # at D 192 over a whole 32768-slot cache at group 12 and, on the
         # same bytes, at group 1: a twelfth of the scoring, so its time
         # says whether the 2-stage ring hides the copies; K7 on (e6)'s
-        # served cache (D 64, group 1)
+        # served cache (D 64, group 1); the whole cache at D 128 and
+        # deepseek-67b's group 8
         k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128),
                    (1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192), (1, 8192, 64, 8, 128),
                    (1, 8192, 16, 16, 64)],
@@ -253,7 +260,7 @@ FULL = dict(
                    (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63),
                    (8, 8192, 96, 8, 192, 63), (8, 8192, 64, 8, 128, 63),
                    (8, 32768, 96, 8, 192, 32768), (8, 32768, 8, 8, 192, 32768),
-                   (8, 8192, 16, 16, 64, 63)],
+                   (8, 8192, 16, 16, 64, 63), (8, 32768, 64, 8, 128, 32768)],
     ),
     # phase 5, rows (e2) and (e3): dbrx-132b (8 of 40 layers, 54.6 GB of bf16
     # weights) and deepseek-v2-236b (6 of 60 layers, 50.7 GB) at full width.
@@ -998,14 +1005,25 @@ def compare_flash_attention(shape, device, seed, long=False, dtype="bfloat16"):
     return row
 
 
-def compare_flash_decode(shape, device, seed):
+def k7_symbol(plan, d):
+    """The part of the mangled name of the bf16 partial kernel a K7 ``plan``
+    at head dim ``d`` launches, as ``ptxas`` reports it."""
+    if plan["instance"] == "mma_bf16":
+        return f"flash_decode_partial_mmaILi{d}E"
+    return f"flash_decode_partial_ringILi{d}ELi{plan['heads_per_warp']}EE"
+
+
+def compare_flash_decode(shape, device, seed, ptxas=None):
     """``flash_decode`` (K7) against its plain version on a random bf16
     cache (B, S, KV, D), ``valid_len`` slots valid, at 3e-2 and, per head,
-    within ``REL_TOL`` relative L2 error."""
+    within ``REL_TOL`` relative L2 error; on the card the plan's blocks per
+    SM held to the occupancy calculator's, and (``ptxas``: phase 1's
+    report) the instance's registers and spills beside the row."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, splits_for
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 
     b, s, h, kv, d, valid = shape
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1014,6 +1032,7 @@ def compare_flash_decode(shape, device, seed):
         return torch.randn(sh, generator=gen, device=device).to(torch.bfloat16)
 
     q, k, v = rand(b, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
     got = flash_decode(q, k, v, valid)
     want = flash_decode_plain(q, k, v, valid)
     err, ok = logits_close(got, want, 3e-2)
@@ -1035,7 +1054,8 @@ def compare_flash_decode(shape, device, seed):
     g = dict(reps=10, replays=3)
     row = dict(
         shape=list(shape), dtype="bfloat16", max_abs_err=err, rel_err=rel, library_err=lib_err,
-        splits=list(splits_for(b * kv, s)),
+        **{key: plan[key] for key in ("instance", "splits", "tiles_per_split", "blocks",
+                                       "blocks_per_sm")},
         ms=graph_ms(lambda: flash_decode(q, k, v, valid), device, **g),
         eager_ms=timed(lambda: flash_decode(q, k, v, valid), device, 10, 2),
         plain_ms=timed(lambda: flash_decode_plain(q, k, v, valid), device, 3, 1),
@@ -1045,6 +1065,13 @@ def compare_flash_decode(shape, device, seed):
     )
     row["gb_per_s"] = nbytes / row["ms"] / 1e6
     row.update(share_of_bound=bnd / row["ms"], x_library=row["ms"] / row["library_ms"])
+    if device.type == "cuda":
+        row["card_blocks_per_sm"] = fd.card_blocks_per_sm(plan, d)
+        check(row["card_blocks_per_sm"] == plan["blocks_per_sm"],
+              f"flash_decode {shape}: the plan counts {plan['blocks_per_sm']} blocks an SM, the "
+              f"card's occupancy calculator {row['card_blocks_per_sm']}")
+        sym = k7_symbol(plan, d)
+        row["ptxas"] = {fn: r for fn, r in (ptxas or {}).items() if sym in fn}
     log(f"[kernel] flash_decode {shape}: within 3e-2 of plain, worst head's relative error "
         f"{rel:.3g} (limit {REL_TOL}); " + json.dumps(row))
     return row
@@ -2995,7 +3022,8 @@ def scalability_phase(device, scale):
 def build_report():
     """Phase 1's record of what was built: ``ptxas``'s registers, static
     shared memory and spills for every attention kernel instance (the D = 80
-    instances and the bf16 K6 instance at D = 192 must not spill), and the
+    instances, the bf16 K6 instance at D = 192 and K7's tensor-core instances
+    must not spill), and the
     ``HGMMA`` instructions in the SASS of
     each bf16 ``flash_attention`` instance (it must be a tensor-core kernel:
     none is a failure)."""
@@ -3015,9 +3043,12 @@ def build_report():
     d80 = {fn: r for fn, r in ptxas.items() if "Li80E" in fn}  # zamba2's head dim
     check(d80 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in d80.values()),
           f"the D = 80 attention instances spill (or were not built): {d80}")
-    d192 = {fn: r for fn, r in ptxas.items() if "flash_attention_wgmmaILi192E" in fn}  # nemotron-4's
-    check(d192 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in d192.values()),
-          f"the bf16 D = 192 attention instance spills (or was not built): {d192}")
+    for sym, what in (("flash_attention_wgmmaILi192E", "K6's bf16 D = 192 instance"),  # nemotron-4's
+                      ("flash_decode_partial_mmaILi128E", "K7's tensor-core D = 128 instance"),
+                      ("flash_decode_partial_mmaILi192E", "K7's tensor-core D = 192 instance")):
+        inst = {fn: r for fn, r in ptxas.items() if sym in fn}
+        check(inst and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                           for r in inst.values()), f"{what} spills (or was not built): {inst}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[build] cuobjdump not found: the SASS of the bf16 flash_attention instances was NOT checked")
@@ -3114,7 +3145,7 @@ def run(device, scale):
                for i, shape in enumerate(serve["k6_shapes"])]
     k6_rows += [compare_flash_attention(shape, device, seed=30 + i, dtype="float32")
                 for i, shape in enumerate(serve.get("k6_f32_shapes", []))]
-    k7_rows = [compare_flash_decode(shape, device, seed=20 + i)
+    k7_rows = [compare_flash_decode(shape, device, seed=20 + i, ptxas=built["ptxas"])
                for i, shape in enumerate(serve["k7_shapes"])]
     routing_row = check_flash_routing(device)
     if device.type == "cuda":
@@ -3228,6 +3259,13 @@ def run(device, scale):
         check(e6["k7_plan"]["instance"] == "ring_bf16" and e6["k7_plan"]["heads_per_warp"] == 1
               and ring64, f"(e6): K7's ring::<64, 1> instance was not built or not chosen: "
               f"{e6['k7_plan']}, {ring64}")
+    e7 = serve_rows.get("serve_nemotron-4-340b")
+    if device.type == "cuda" and e7:  # (e7)'s K7 is the tensor-core instance at D 192
+        mma192 = sorted(fn for fn in built["ptxas"] if "flash_decode_partial_mmaILi192E" in fn)
+        log(f"[serve] (e7) K7 plan {json.dumps(e7['k7_plan'])}; instance {mma192}")
+        check(e7["k7_plan"]["instance"] == "mma_bf16" and e7["k7_plan"]["heads_per_warp"] == 12
+              and mma192, f"(e7): K7's mma::<192> instance was not built or not chosen: "
+              f"{e7['k7_plan']}, {mma192}")
 
     # ---- phase 6: the evaluation harness ------------------------------------ #
     zero_counts()
@@ -3307,11 +3345,12 @@ def run(device, scale):
     for k in kernels:  # the bid-only kernels: the loop that called them is lap_auction now
         if k["name"].startswith("lap_bid"):
             k["main_path_route"] = "lap_auction"
-    for name, rows, source, replaces in (
+    for name, rows, source, replaces, extra in (
         ("flash_attention", k6_rows, "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:89"),
+         "src/repro/kernels/flash_attention.py:89", ()),
         ("flash_decode", k7_rows, "src/repro_torch/kernels/csrc/flash_decode.cu",
-         "src/repro/kernels/flash_decode.py:86"),
+         "src/repro/kernels/flash_decode.py:86",
+         ("instance", "splits", "blocks", "blocks_per_sm")),
     ):
         row = rows[0]  # the serving path's shape
         kernels.append(dict(
@@ -3326,7 +3365,8 @@ def run(device, scale):
             x_library=row["x_library"],
             other_shapes=[{key: r[key] for key in ("shape", "dtype", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "max_abs_err", "rel_err",
-                                                   "share_of_bound", "x_library")} for r in rows[1:]],
+                                                   "share_of_bound", "x_library") + extra}
+                          for r in rows[1:]],
         ))
         if device.type == "cuda":
             kernels[-1]["instances"] = {fn: r for fn, r in built["ptxas"].items() if name in fn}

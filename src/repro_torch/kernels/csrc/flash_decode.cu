@@ -21,21 +21,66 @@
 // wrapper from B*KV and S so that the grid fills the card's 132 SMs even at
 // batch 1.
 //
-// Two partial kernels:
+// Three partial kernels:
 //
-// * bf16 (ring::): K and V stay bf16 in shared memory, fed by cp.async.cg
-//   16-byte copies into a ring of STAGES tiles (2 at D = 192, 3 at D = 128,
-//   4 at D = 64, 80: at most ~110 KB, so two blocks fit on an SM), with one
-//   block barrier per tile.  Warp w serves heads w, w + 4, ... of the group
-//   with their scaled queries in registers; a cache row is read by D/8
-//   lanes, 16 bytes each, in a lane group of the next power of two (8, 16,
-//   32; 16 at D = 80, where lanes 10-15 of a group load nothing and add 0,
-//   and 32 at D = 192, where lanes 24-31 do), and the dot is reduced across
-//   the group with xor shuffles, so a warp scores 1 (D = 192), 2 (D = 80,
-//   128) or 4 (D = 64) rows at once, each lane group keeping its own online
-//   softmax (chunks of 8 rows per update, exp2 on log2-scaled scores) that
-//   the warp merges with shuffles at the end.  With two stages the copy of
-//   tile t + 1 is in flight while tile t is scored.
+// * bf16 at D = 64, 80 (ring::): K and V stay bf16 in shared memory, fed by
+//   cp.async.cg 16-byte copies into a ring of 4 tiles (at most ~110 KB, so
+//   3 blocks fit on an SM at D = 64 and 2 at D = 80), with one block
+//   barrier per tile.  Warp w serves heads w, w + 4, ... of the group with
+//   their scaled queries in registers; a cache row is read by D/8 lanes, 16
+//   bytes each, in a lane group of the next power of two (8, or 16 at
+//   D = 80, where lanes 10-15 of a group load nothing and add 0), and the
+//   dot is reduced across the group with xor shuffles, so a warp scores 4
+//   (D = 64) or 2 (D = 80) rows at once, each lane group keeping its own
+//   online softmax (chunks of 8 rows per update, exp2 on log2-scaled
+//   scores) that the warp merges with shuffles at the end.
+// * bf16 at D = 128 and 192 (mma::).  Bytes bound it too (D = 192, B 8 x
+//   32768 slots x 8 KV heads: 1.61 GB, 0.481 ms at 3.35 TB/s), but a
+//   CUDA-core scorer would not keep up: at D = 192 and group 12 its
+//   4*B*H*S*D = 1.93e10 multiply-adds take 0.288 ms at 67 TFLOP/s before
+//   any shuffle or exp (the ring took 3.15 ms there, and 2x the bound at
+//   D = 128, group 8), so the scoring runs on the tensor cores, where it
+//   costs almost nothing.
+//   1. The copy is the ring's: cp.async.cg 16-byte chunks into 2 stages of
+//      64-slot K and V tiles (96 KB at D = 192, 64 KB at D = 128),
+//      zero-filled past valid_len, each chunk c of row r stored at chunk
+//      c ^ (r & 7) of its row (`swizzled`): a 384- or 256-byte row is 0 mod
+//      128, and unswizzled the 8 rows one ldmatrix reads would share a bank
+//      group (8-way conflicts).
+//   2. Warp w owns slots [16w, 16w + 16) of every tile, so all four warps
+//      score at any group size and each K/V byte is read from shared
+//      memory once.
+//   3. mma.sync m16n8k16 (bf16 in, f32 sums; a wgmma needs 64 rows of M,
+//      which one KV head's query heads do not have).  The group's G <= 16
+//      heads are the M rows (zero rows past G), the warp's 16 slots the N
+//      of S = Q K^T and the K of O = P V: S's f32 accumulators are then P's
+//      A fragment as they stand, rounded to bf16 in registers.  (Slots as M
+//      and heads as N would waste less at group 1, but P^T would have to be
+//      reshuffled across lanes into a B fragment; the tensor cores are idle
+//      either way.)  Q's A fragments are loaded once per block, unscaled;
+//      S is scaled in f32 by log2(e)/sqrt(D) after the product.  K's B
+//      fragments come by ldmatrix, V's by ldmatrix.trans, from the
+//      swizzled tile.  The online softmax runs per head row in log2 units;
+//      slots >= valid_len score -inf (a zero-filled row would score 0).
+//      Each lane holds its rows of the 16 x D f32 accumulator as D/8 n8
+//      tiles (96 registers at D = 192).
+//   4. After the last tile the ring is free: each warp's (m, l, acc) for the
+//      group's heads goes there (4 x 16 x (D + 2) floats at most, 49.7 KB at
+//      D = 192), and one pass merges the four warps and writes the split's
+//      state as the ring kernel does, so the merge kernel is the same.  A
+//      block whose split holds no valid tile writes the empty state and
+//      loads nothing.
+//   5. Its shared memory holds 2 blocks on an SM at D = 192 and 3 at
+//      D = 128, and the launch bounds keep registers from binding first
+//      (`min_blocks`): 264 or 396 on the card.  The wrapper's plan sizes the
+//      split-K grid to that: B*KV*splits within one wave where B*KV allows
+//      (at D = 192, B 8 x 8 KV heads x 32768 slots: 4 splits of 128 tiles,
+//      256 blocks, where a target of 4 x 132 blocks gave 9 splits, 576
+//      blocks, 2.18 waves), else one split per (b, kv).
+//   6. The C entry checks the plan's shared memory and heads per warp (G)
+//      against this file's, and G <= 16.
+//   With two stages, the copy of tile t + 1 is in flight while tile t is
+//   scored.
 // * f32 (flash_decode_partial): tiles staged as f32 (K row-padded to D+1
 //   floats so the score loop is bank-conflict free), scores and the update
 //   through shared memory with four block barriers per tile.
@@ -50,6 +95,8 @@ constexpr float kNegInf = -1e30f;
 constexpr int DBK = 64;       // cache slots per tile
 constexpr int THREADS = 128;  // four warps
 constexpr int WARPS = THREADS / 32;
+// the head dims whose bf16 instance is mma:: (the others' is ring::)
+__host__ __device__ constexpr bool on_mma(int D) { return D == 128 || D == 192; }
 
 struct Strides {
   long long qb, qh, kb, ks, kh, vb, vs, vh;
@@ -202,19 +249,8 @@ flash_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < G * D; idx += THREADS) out[2 * G + idx] = acc[idx];
 }
 
-// ---- bf16: cp.async ring ---------------------------------------------------
-namespace ring {
-
-// Ring depth: as many 64-slot K+V tiles as fit in ~110 KB, at most 4.
-template <int D>
-__host__ __device__ constexpr int stages() {
-  return (110 * 1024) / (2 * DBK * D * 2) < 4 ? (110 * 1024) / (2 * DBK * D * 2) : 4;
-}
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return stages<D>() * 2 * DBK * D * 2;
-}
-
+// 16 bytes from global into shared memory, the rest of the 16 zero-filled
+// past src_bytes (0: zeros, nothing read)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
                "r"(src_bytes)
@@ -226,6 +262,19 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---- bf16: cp.async ring ---------------------------------------------------
+namespace ring {
+
+// Ring depth: as many 64-slot K+V tiles as fit in ~110 KB, at most 4.
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return (110 * 1024) / (2 * DBK * D * 2) < 4 ? (110 * 1024) / (2 * DBK * D * 2) : 4;
+}
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return stages<D>() * 2 * DBK * D * 2;
 }
 
 // 8 bf16 (16 bytes) into floats.
@@ -244,10 +293,10 @@ flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid_ptr,
                           long long valid_host, float* __restrict__ part, int S, int KV, int G,
                           int tiles_per_split, float scale_log2, Strides st) {
-  static_assert(D % 8 == 0 && D <= 256, "a cache row is whole 16-byte chunks, at most 32");
+  static_assert(D % 8 == 0 && D <= 128, "a cache row is whole 16-byte chunks, at most 16");
   constexpr int NST = stages<D>();
   constexpr int LPR = D / 8;        // lanes that load a cache row, 16 bytes each
-  constexpr int LG = LPR <= 8 ? 8 : (LPR <= 16 ? 16 : 32);  // lanes per row group
+  constexpr int LG = LPR <= 8 ? 8 : 16;  // lanes per row group
   constexpr int RPW = 32 / LG;      // rows a warp scores at once
   constexpr int ROWB = D * 2;       // bytes per cache row
   constexpr int TILEB = DBK * ROWB;
@@ -404,13 +453,20 @@ flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   }
 }
 
+// Opt the instance in to its shared memory, once (not a stream operation).
+template <int D, int HPW>
+cudaError_t prepare() {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      flash_decode_partial_ring<D, HPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<D>());
+  return opt_in;
+}
+
 template <int D, int HPW>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* valid_ptr,
                    long long valid_host, float* part, int B, int S, int KV, int G, int nsplit,
                    int tiles_per_split, const Strides& st, cudaStream_t stream) {
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_decode_partial_ring<D, HPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<D>());
+  const cudaError_t opt_in = prepare<D, HPW>();
   if (opt_in != cudaSuccess) return opt_in;
   flash_decode_partial_ring<D, HPW><<<dim3(B * KV, nsplit), THREADS, smem_bytes<D>(), stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, valid_ptr,
@@ -418,7 +474,294 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* valid
   return cudaGetLastError();
 }
 
+template <int D, int HPW>
+cudaError_t blocks_per_sm(int* blocks) {
+  cudaError_t e = prepare<D, HPW>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_decode_partial_ring<D, HPW>,
+                                                      THREADS, smem_bytes<D>());
+  return e;
+}
+
 }  // namespace ring
+
+// ---- bf16 at D = 128, 192: tensor-core scoring -----------------------------
+namespace mma {
+
+constexpr int STAGES = 2;                   // 64-slot K+V tiles in the ring
+constexpr int WARP_SLOTS = DBK / WARPS;     // warp w owns slots [16w, 16w + 16) of every tile
+constexpr int MAX_GROUP = 16;               // query heads: the M rows of one m16n8k16
+
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * 2 * DBK * D * 2;
+}
+// Blocks per SM the launch bounds ask for: as many as the shared memory
+// holds (228 KB: 2 of 96 KB at D = 192, 3 of 64 KB at D = 128), so the
+// registers (at most 255 or 168 a thread) never bind first.
+template <int D>
+__host__ __device__ constexpr int min_blocks() {
+  return D > 128 ? 2 : 3;
+}
+
+// Byte offset in a tile of 16-byte chunk c of cache row r.  A row is D * 2
+// = 256 or 384 bytes, 0 mod 128, so the 8 rows that one ldmatrix reads at
+// one chunk would share a bank group; stored at chunk c ^ (r & 7) of its
+// row they take 8 distinct ones.  The copy and the reads use this one map.
+template <int D>
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * (D * 2) + ((c ^ (r & 7)) << 4);
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, which lands in register i (.trans: transposed).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The fragments of one warp (lane = 4 gr + tq): an A register i holds row
+// gr + 8 (i & 1), columns 8 (i >> 1) + 2 tq and + 1; a B register i rows
+// (k) 8 i + 2 tq and + 1 of column gr; C element i row gr + 8 (i >> 1),
+// column 2 tq + (i & 1).  Heads are M, slots are N of S = Q K^T and K of
+// O = P V, so S's accumulators are P V's A operand as they stand.
+template <int D>
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
+flash_decode_partial_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid_ptr,
+                         long long valid_host, float* __restrict__ part, int S, int KV, int G,
+                         int tiles_per_split, float scale_log2, Strides st) {
+  static_assert(D % 64 == 0, "a cache row is whole groups of eight 16-byte chunks");
+  static_assert(WARP_SLOTS == 16, "a warp's slots are the N of two n8 tiles, the K of one k16");
+  static_assert(WARPS * 16 * (D + 2) * 4 <= smem_bytes<D>(), "the warps' states fit in the ring");
+  constexpr int CH = D / 8;     // 16-byte chunks in a cache row
+  constexpr int TILEB = DBK * D * 2;
+  constexpr int KSTEPS = D / 16;  // k16 steps of Q K^T
+  constexpr int NTILES = D / 8;   // n8 tiles of P V
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t ring0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const int bk = blockIdx.x;
+  const int b = bk / KV, kvh = bk - (bk / KV) * KV;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int valid = valid_of(valid_ptr, valid_host, S);
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, (valid + DBK - 1) / DBK);
+  float* out = part + ((long long)bk * nsplit + split) * G * (D + 2);
+  if (t_begin >= t_end) {  // no valid tile: the empty state, without loading Q
+    for (int i = tid; i < G * (D + 2); i += THREADS) out[i] = i < G ? kNegInf : 0.f;
+    return;
+  }
+
+  // Q's A fragments, once: the group's heads, zero rows past G, unscaled
+  uint32_t qa[KSTEPS][4];
+  const __nv_bfloat16* qg = q + b * st.qb + (long long)(kvh * G) * st.qh;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = gr + 8 * (i & 1), col = 16 * kk + 8 * (i >> 1) + 2 * tq;
+      qa[kk][i] = row < G ? __ldg(reinterpret_cast<const unsigned int*>(qg + row * st.qh + col)) : 0u;
+    }
+  }
+  float acc[NTILES][4];
+#pragma unroll
+  for (int j = 0; j < NTILES; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // rows gr, gr + 8; log2 units
+  float l[2] = {0.f, 0.f};              // this lane's columns only, summed at the end
+
+  const __nv_bfloat16* kbase = k + b * st.kb + kvh * st.kh;
+  const __nv_bfloat16* vbase = v + b * st.vb + kvh * st.vh;
+  // tile t into stage `stage`, swizzled: slots at or past valid_len are zero-filled
+  auto load_tile = [&](int t, int stage) {
+    const uint32_t ks = ring0 + stage * 2 * TILEB, vs = ks + TILEB;
+    for (int c = tid; c < DBK * CH; c += THREADS) {
+      const int r = c / CH, ch = c - (c / CH) * CH;
+      const int slot = t * DBK + r;
+      const bool ok = slot < valid;
+      const long long koff = ok ? (long long)slot * st.ks + ch * 8 : 0;
+      const long long voff = ok ? (long long)slot * st.vs + ch * 8 : 0;
+      cp_async16(ks + swizzled<D>(r, ch), kbase + koff, ok ? 16 : 0);
+      cp_async16(vs + swizzled<D>(r, ch), vbase + voff, ok ? 16 : 0);
+    }
+  };
+  // ldmatrix rows: lane feeds row lane & 7 of matrix mi = lane >> 3.  K:
+  // (slots 0-7, chunk 2kk), (0-7, 2kk + 1), (8-15, 2kk), (8-15, 2kk + 1) of
+  // the warp's 16, the B registers of its two n8 tiles of S.  V, transposed:
+  // (0-7, chunk 2jj), (8-15, 2jj), (0-7, 2jj + 1), (8-15, 2jj + 1), the B
+  // registers of P V's n8 tiles 2jj and 2jj + 1.
+  const int mi = lane >> 3;
+  const int k_row = WARP_SLOTS * warp + 8 * (mi >> 1) + (lane & 7), k_ch = mi & 1;
+  const int v_row = WARP_SLOTS * warp + 8 * (mi & 1) + (lane & 7), v_ch = mi >> 1;
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (t_begin + i < t_end) load_tile(t_begin + i, i);
+    cp_async_commit();
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int it = t - t_begin;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t are done
+    __syncthreads();              // everyone's are, and the stage reloaded below is consumed
+    if (t + STAGES - 1 < t_end) load_tile(t + STAGES - 1, (it + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const int s0 = t * DBK + WARP_SLOTS * warp;  // the warp's first slot
+    if (s0 >= valid) continue;                   // none of its slots is valid
+    const uint32_t ks = ring0 + (it % STAGES) * 2 * TILEB, vs = ks + TILEB;
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(ks + swizzled<D>(k_row, 2 * kk + k_ch), kb);
+      mma_16816(s[0], qa[kk], kb[0], kb[1]);
+      mma_16816(s[1], qa[kk], kb[2], kb[3]);
+    }
+    // scale in f32, mask (a zero-filled row scores 0, not -inf), row maxima
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int slot = s0 + 8 * n + 2 * tq + (i & 1);
+        s[n][i] = slot < valid ? s[n][i] * scale_log2 : -INFINITY;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+      }
+    }
+    float sub[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      sub[h] = mx[h] == -INFINITY ? 0.f : mx[h];  // no valid slot yet: no NaN
+      alpha[h] = exp2f(m[h] - sub[h]);
+      m[h] = mx[h];
+      l[h] *= alpha[h];
+    }
+    // P in bf16, straight from S's registers into P V's A operand; l sums
+    // the rounded weights, so they are the ones P V applies
+    uint32_t pa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(exp2f(s[n][2 * h] - sub[h]),
+                                                       exp2f(s[n][2 * h + 1] - sub[h]));
+        l[h] += __low2float(p) + __high2float(p);
+        pa[2 * n + h] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int jj = 0; jj < NTILES / 2; ++jj) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vs + swizzled<D>(v_row, 2 * jj + v_ch), vb);
+      mma_16816(acc[2 * jj], pa, vb[0], vb[1]);
+      mma_16816(acc[2 * jj + 1], pa, vb[2], vb[3]);
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  __syncthreads();     // and no warp reads the ring any more: it holds the merge
+
+  // the four warps' (m, l, acc) per head row of the group (rows past G are
+  // not stored), then one pass merges them and writes this split's state:
+  // part[(bk, split)] = [m (G), l (G), acc (G x D)], m in natural-log units
+  float* ms = reinterpret_cast<float*>(smem);  // [WARPS][16]
+  float* ls = ms + WARPS * 16;                 // [WARPS][16]
+  float* as = ls + WARPS * 16;                 // [WARPS][16][D]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = gr + 8 * h;
+    if (row < G) {
+      if (tq == 0) {
+        ms[warp * 16 + row] = m[h];
+        ls[warp * 16 + row] = l[h];
+      }
+      float* a = as + (warp * 16 + row) * D + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < NTILES; ++j)
+        *reinterpret_cast<float2*>(a + 8 * j) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < G * D; idx += THREADS) {
+    const int g = idx / D, d = idx - (idx / D) * D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * 16 + g]);
+    const float sub = mx == -INFINITY ? 0.f : mx;
+    float a = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = exp2f(ms[w * 16 + g] - sub);
+      a = fmaf(as[(w * 16 + g) * D + d], c, a);
+      lsum = fmaf(ls[w * 16 + g], c, lsum);
+    }
+    out[2 * G + idx] = a;
+    if (d == 0) {
+      out[g] = mx == -INFINITY ? kNegInf : mx * 0.6931471805599453f;
+      out[G + g] = lsum;
+    }
+  }
+}
+
+template <int D>
+cudaError_t prepare() {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      flash_decode_partial_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  return opt_in;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* valid_ptr,
+                   long long valid_host, float* part, int B, int S, int KV, int G, int nsplit,
+                   int tiles_per_split, const Strides& st, cudaStream_t stream) {
+  const cudaError_t opt_in = prepare<D>();
+  if (opt_in != cudaSuccess) return opt_in;
+  flash_decode_partial_mma<D><<<dim3(B * KV, nsplit), THREADS, smem_bytes<D>(), stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, valid_ptr,
+      valid_host, part, S, KV, G, tiles_per_split, 1.4426950408889634f / sqrtf((float)D), st);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t blocks_per_sm(int* blocks) {
+  cudaError_t e = prepare<D>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_decode_partial_mma<D>, THREADS,
+                                                      smem_bytes<D>());
+  return e;
+}
+
+}  // namespace mma
 
 // Merge the splits of every (b, h): one block of D threads per (b, h).
 template <typename T, int D>
@@ -474,6 +817,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* valid
         (const T*)q, (const T*)k, (const T*)v, valid_ptr, valid_host, part, S, KV, G,
         tiles_per_split, 1.0f / sqrtf((float)D), st);
     err = cudaGetLastError();
+  } else if constexpr (on_mma(D)) {
+    // a warp scores every head of the group on the tensor cores
+    if (smem != (size_t)mma::smem_bytes<D>() || hpw != G || G > mma::MAX_GROUP)
+      return cudaErrorInvalidValue;  // the plan and this file disagree, or G > 16: no instance
+    err = mma::launch<D>(q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream);
   } else {
     if (smem != (size_t)ring::smem_bytes<D>() || hpw != (G + WARPS - 1) / WARPS)
       return cudaErrorInvalidValue;  // the plan and this file disagree
@@ -527,4 +875,24 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 192)
     return (int)launch<__nv_bfloat16, 192>(q, k, v, vp, valid_host, o, pt, B, S, H, KV, nsplit, tiles_per_split, (size_t)smem, hpw, st, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the bf16 partial kernel that one SM holds, as the runtime's
+// occupancy calculator has it: the instance the wrapper's plan takes for
+// head dim D and hpw heads per warp (the tensor-core instance at D = 128, 192).
+// Returns a cudaError_t.
+extern "C" int flash_decode_blocks_per_sm(int D, int hpw, int* blocks) {
+  if (D == 128) return (int)mma::blocks_per_sm<128>(blocks);
+  if (D == 192) return (int)mma::blocks_per_sm<192>(blocks);
+  switch (D * 8 + hpw) {
+    case 64 * 8 + 1: return (int)ring::blocks_per_sm<64, 1>(blocks);
+    case 64 * 8 + 2: return (int)ring::blocks_per_sm<64, 2>(blocks);
+    case 64 * 8 + 3: return (int)ring::blocks_per_sm<64, 3>(blocks);
+    case 64 * 8 + 4: return (int)ring::blocks_per_sm<64, 4>(blocks);
+    case 80 * 8 + 1: return (int)ring::blocks_per_sm<80, 1>(blocks);
+    case 80 * 8 + 2: return (int)ring::blocks_per_sm<80, 2>(blocks);
+    case 80 * 8 + 3: return (int)ring::blocks_per_sm<80, 3>(blocks);
+    case 80 * 8 + 4: return (int)ring::blocks_per_sm<80, 4>(blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -19,7 +19,23 @@ bounds it and how it is laid out); it replaces the Pallas kernel
 it for CUDA tensors and takes the plain version :func:`flash_decode_plain`
 only for CPU tensors.  :func:`launch_plan` is everything the wrapper
 computes for a launch (instance, split-K grid, shared memory, heads per
-warp), so it is tested on a host without a card.
+warp, blocks per SM), so it is tested on a host without a card.
+
+Bytes bound it: every valid slot's K and V are read once.  Its instances:
+
+- ``ring_bf16`` (D 64, 80): a ring of cp.async copies; a warp scores 4 or
+  2 cache rows at once, each dot reduced by shuffles across the lanes that
+  read the row.  Its shared memory holds 3 blocks on an SM at D 64 and 2
+  at D 80 (ptxas's 64-152 registers a thread allow more); its split-K grid
+  aims at ``_TARGET_BLOCKS``.
+- ``mma_bf16`` (D 128, 192): the scores and P V on the tensor cores
+  (``mma.sync`` m16n8k16, the group's heads as M), warp w owning slots
+  [16w, 16w + 16) of every 64-slot tile, read through a swizzled ring
+  (:func:`mma_chunk_offset`).  Its shared memory holds 3 blocks on an SM
+  at D 128 and 2 at D 192, the launch bounds keep registers to 168 and 255
+  a thread so that they do not bind first, and its split-K grid is sized
+  to those blocks (:func:`resident_splits`): one wave where B * KV allows.
+- ``cc_f32``: f32 tiles and scores through shared memory (the f32 checks).
 """
 
 from __future__ import annotations
@@ -37,15 +53,24 @@ HEAD_DIMS = (64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: cache slots per kernel tile (csrc/flash_decode.cu DBK)
 TILE = 64
-#: blocks the split-K grid aims for: four per SM of an H100 (132 SMs)
-_TARGET_BLOCKS = 4 * 132
-#: warps of the partial kernels; a bf16 warp serves at most four heads
+#: warps of the partial kernels; a ``ring_bf16`` warp serves at most four heads
 WARPS = 4
-#: shared memory one block may use on an H100 (227 KB)
-SMEM_LIMIT = 232_448
-#: the bf16 ring's budget: at most this much shared memory (two blocks per
-#: SM) and at most ``_MAX_STAGES`` tiles
+#: the H100: SMs, shared memory per SM (of which a block reserves 1 KB) and
+#: one block may use (227 KB), 32-bit registers per SM
+SMS, SM_SMEM, BLOCK_SMEM_RESERVED, SMEM_LIMIT, SM_REGISTERS = 132, 233_472, 1024, 232_448, 65_536
+#: blocks the ``ring_bf16`` and ``cc_f32`` split-K grids aim for: four per SM
+#: (never measured; the ring's shared memory holds 3 at D 64, 2 at D 80/128)
+_TARGET_BLOCKS = 4 * SMS
+#: the bf16 ring's budget: at most this much shared memory and at most
+#: ``_MAX_STAGES`` tiles
 _RING_BYTES, _MAX_STAGES = 110 * 1024, 4
+#: the ``mma_bf16`` instance (csrc/flash_decode.cu ``mma::``): its head dims,
+#: ring depth, largest group (the M rows of one m16n8k16), and the slots a
+#: warp owns in every tile
+MMA_HEAD_DIMS = (128, 192)
+MMA_STAGES, MMA_MAX_GROUP, MMA_WARP_SLOTS = 2, 16, TILE // WARPS
+#: the largest ``heads_per_warp`` each instance has (``cc_f32`` takes none)
+_MAX_HEADS_PER_WARP = dict(ring_bf16=4, mma_bf16=MMA_MAX_GROUP, cc_f32=0)
 
 
 def flash_decode_plain(q, k, v, valid_len) -> torch.Tensor:
@@ -96,13 +121,35 @@ def _check(q, k, v, valid_len) -> None:
         raise ValueError(f"flash_decode: valid_len must be an int or a 0-d tensor, got {type(valid_len)}")
 
 
-def splits_for(batch_kv: int, cache_len: int):
-    """(splits, tiles per split) of the split-K grid for ``batch_kv`` = B*KV
-    blocks' worth of cache of ``cache_len`` slots."""
-    tiles = max(1, (cache_len + TILE - 1) // TILE)
-    want = min(tiles, max(1, -(-_TARGET_BLOCKS // batch_kv)))
-    per = -(-tiles // want)
+def _splits(tiles: int, want: int):
+    """(splits, tiles per split) covering ``tiles`` in at most ``want`` even splits."""
+    per = -(-tiles // max(1, min(tiles, want)))
     return -(-tiles // per), per
+
+
+def splits_for(batch_kv: int, cache_len: int):
+    """(splits, tiles per split) of the ``ring_bf16`` / ``cc_f32`` split-K
+    grid for ``batch_kv`` = B*KV blocks' worth of cache of ``cache_len``
+    slots: at least ``_TARGET_BLOCKS`` blocks where the tiles allow."""
+    return _splits(max(1, -(-cache_len // TILE)), -(-_TARGET_BLOCKS // batch_kv))
+
+
+def resident_splits(batch_kv: int, cache_len: int, resident: int):
+    """(splits, tiles per split) of the ``mma_bf16`` split-K grid: as many
+    splits as keep B*KV*splits within the ``resident`` blocks the card holds
+    at once (one wave), and one split per (b, kv) when B*KV alone fills it."""
+    return _splits(max(1, -(-cache_len // TILE)), resident // batch_kv)
+
+
+def blocks_per_sm(smem_bytes: int, registers: int | None = None) -> int:
+    """Blocks of ``WARPS`` warps one SM holds with ``smem_bytes`` of dynamic
+    shared memory each and, where given, ``registers`` a thread (allocated
+    per warp in units of 256)."""
+    by_smem = SM_SMEM // (smem_bytes + BLOCK_SMEM_RESERVED)
+    if registers is None:
+        return by_smem
+    per_warp = -(-registers * 32 // 256) * 256
+    return min(by_smem, SM_REGISTERS // (per_warp * WARPS))
 
 
 def ring_stages(d: int) -> int:
@@ -110,25 +157,58 @@ def ring_stages(d: int) -> int:
     return min(_MAX_STAGES, _RING_BYTES // (2 * TILE * d * 2))
 
 
+def mma_min_blocks(d: int) -> int:
+    """Blocks per SM the ``mma_bf16`` instance's launch bounds ask for at
+    head dim ``d`` (``mma::min_blocks<D>``): what its shared memory holds."""
+    return 2 if d > 128 else 3
+
+
+def mma_registers(d: int) -> int:
+    """Registers a thread of the ``mma_bf16`` instance may take at head dim
+    ``d``: the launch bounds' budget, in units of 8, at most 255."""
+    return min(255, SM_REGISTERS // (mma_min_blocks(d) * WARPS * 32) // 8 * 8)
+
+
+def mma_chunk_offset(row: int, chunk: int, d: int = 192) -> int:
+    """Byte offset in a K or V tile of the ``mma_bf16`` ring of 16-byte chunk
+    ``chunk`` of cache row ``row`` (``mma::swizzled``): the chunk is stored
+    at ``chunk ^ (row & 7)`` of its ``2 d``-byte row."""
+    return row * (2 * d) + ((chunk ^ (row & 7)) << 4)
+
+
+def mma_warp_slots(warp: int) -> range:
+    """The slots of every 64-slot tile that warp ``warp`` of the
+    ``mma_bf16`` instance scores."""
+    return range(MMA_WARP_SLOTS * warp, MMA_WARP_SLOTS * (warp + 1))
+
+
 def launch_plan(q_shape, cache_shape, dtype) -> dict:
     """What a launch of ``flash_decode`` on q (B, H, D) against a cache
     (B, S, KV, D) of ``dtype`` hands the C entry: the partial kernel's
-    instance, split-K grid, the scratch its splits write, its dynamic shared
-    memory and (bf16) heads per warp.  The C entry checks the last two
-    against its own."""
+    instance, split-K grid (``blocks`` = B * KV * splits), the scratch its
+    splits write, its dynamic shared memory and (bf16) heads per warp, which
+    the C entry checks against its own; and the blocks an SM holds."""
     b, h, d = q_shape
     s, kvh = cache_shape[1], cache_shape[2]
     g = h // kvh
-    nsplit, per = splits_for(b * kvh, s)
-    plan = dict(splits=nsplit, tiles_per_split=per, part_floats=b * kvh * nsplit * g * (d + 2))
-    if dtype == torch.bfloat16:
-        plan.update(instance="ring_bf16", heads_per_warp=-(-g // WARPS),
-                    smem_bytes=ring_stages(d) * 2 * TILE * d * 2)
-    elif dtype == torch.float32:
-        plan.update(instance="cc_f32", heads_per_warp=0,
-                    smem_bytes=4 * (TILE * (d + 1) + TILE * d + 2 * g * d + g * TILE + 3 * g))
+    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+        smem = MMA_STAGES * 2 * TILE * d * 2
+        per_sm = blocks_per_sm(smem, mma_registers(d))
+        plan = dict(instance="mma_bf16", heads_per_warp=g, smem_bytes=smem, blocks_per_sm=per_sm)
+        nsplit, per = resident_splits(b * kvh, s, per_sm * SMS)
+    elif dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.bfloat16:
+            plan = dict(instance="ring_bf16", heads_per_warp=-(-g // WARPS),
+                        smem_bytes=ring_stages(d) * 2 * TILE * d * 2)
+        else:
+            plan = dict(instance="cc_f32", heads_per_warp=0,
+                        smem_bytes=4 * (TILE * (d + 1) + TILE * d + 2 * g * d + g * TILE + 3 * g))
+        plan["blocks_per_sm"] = blocks_per_sm(plan["smem_bytes"])
+        nsplit, per = splits_for(b * kvh, s)
     else:
         raise ValueError(f"flash_decode: the kernel takes float32 or bfloat16, got {dtype}")
+    plan.update(splits=nsplit, tiles_per_split=per, blocks=b * kvh * nsplit,
+                part_floats=b * kvh * nsplit * g * (d + 2))
     return plan
 
 
@@ -155,7 +235,7 @@ def _launch(q, k, v, valid_len, plan) -> torch.Tensor:
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dev = q.device
-    if plan["smem_bytes"] > SMEM_LIMIT or plan["heads_per_warp"] > 4:
+    if plan["smem_bytes"] > SMEM_LIMIT or plan["heads_per_warp"] > _MAX_HEADS_PER_WARP[plan["instance"]]:
         raise ValueError(
             f"flash_decode: no kernel instance for {h // kvh} query heads per KV head at head dim "
             f"{d} ({plan['smem_bytes']} bytes of shared memory)"
@@ -190,3 +270,15 @@ def _launch(q, k, v, valid_len, plan) -> torch.Tensor:
 
 
 flash_decode.launches = 0
+
+
+def card_blocks_per_sm(plan, d: int) -> int:
+    """The blocks of a bf16 ``plan``'s partial kernel at head dim ``d`` that
+    one SM of the current card holds, by the runtime's occupancy calculator
+    (to hold ``plan["blocks_per_sm"]`` to; needs the card)."""
+    fn = build.library("flash_decode").flash_decode_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    build.check(fn(d, plan["heads_per_warp"], ctypes.byref(n)), "flash_decode_blocks_per_sm")
+    return n.value

@@ -776,7 +776,8 @@ def test_flash_kernels_reject_a_head_dim_without_an_instance(cuda):
 
 # --------------------------------------------------------------------------- #
 # K6 / K7: the Hopper designs' tile edges (bf16 on wgmma + TMA for K6, the
-# bf16 cp.async ring for K7), compared on the card with the plain versions
+# bf16 cp.async ring for K7, on the tensor cores at D 128 and 192), compared
+# on the card with the plain versions
 # --------------------------------------------------------------------------- #
 def _cuda_attn(seed, b, s, h, kv, d, dtype, device):
     g = torch.Generator(device=device).manual_seed(seed)
@@ -856,7 +857,7 @@ def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
-_RING = {64: 4 * 64, 80: 4 * 64, 128: 3 * 64, 192: 2 * 64}  # slots in a full ring of the bf16 kernel
+_RING = {64: 4 * 64, 80: 4 * 64, 128: 2 * 64, 192: 2 * 64}  # slots in a full ring of the bf16 kernel
 
 
 @pytest.mark.parametrize("single_split", [True, False])
@@ -878,7 +879,7 @@ def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
     k = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
     v = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
     plan = fd.launch_plan(q.shape, k.shape, q.dtype)
-    assert fd.ring_stages(d) * 64 == _RING[d]
+    assert (fd.MMA_STAGES if d in fd.MMA_HEAD_DIMS else fd.ring_stages(d)) * 64 == _RING[d]
     if single_split:
         plan = dict(plan, splits=1, tiles_per_split=s // 64, part_floats=b * kv * g * (d + 2))
     before = fd.flash_decode.launches
@@ -947,7 +948,7 @@ def test_flash_decode_d80_matches_plain(cuda, dtype, b, h, kv, s, valid):
 
 # --------------------------------------------------------------------------- #
 # K6 / K7 at head dim 192 (nemotron-4-340b): K6's bf16 instance with 64-key
-# K/V tiles and an n192 P V, K7's 32-lane row groups of which 24 lanes load
+# K/V tiles and an n192 P V, K7's tensor-core instance (mma::)
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g", [1, 12])
@@ -978,7 +979,7 @@ def test_flash_attention_d192_matches_plain(cuda, s, causal, g, dtype):
                                             (3, 12, 1, 300, 257), (1, 4, 4, 4096, 4001),
                                             (2, 2, 2, 640, 640)])
 def test_flash_decode_d192_matches_plain(cuda, dtype, b, h, kv, s, valid):
-    """Group 12 (nemotron-4's, three heads a warp) and group 1; valid_len 0
+    """Group 12 (nemotron-4's, 12 of a warp's 16 M rows) and group 1; valid_len 0
     (zeros), one slot, ragged lengths and the whole cache, the first row the
     (e7) serving shape; slots past valid_len unread."""
     q, k, v = (t.to(cuda) for t in _decode_inputs(s + valid + h, b, h, kv, s, 192, dtype))
@@ -995,6 +996,74 @@ def test_flash_decode_d192_matches_plain(cuda, dtype, b, h, kv, s, valid):
     k2[:, valid:] = 1e4
     v2[:, valid:] = -1e4
     torch.testing.assert_close(flash_decode(q, k2, v2, valid), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [128, 192])
+@pytest.mark.parametrize("g", [1, 2, 3, 12, 16])
+@pytest.mark.parametrize("valid", [15, 16, 17, 48, 49, 64 + 17, 1000])
+def test_flash_decode_mma_warp_slices(cuda, valid, g, d):
+    """The tensor-core instance at D 128 and 192: valid_len on both sides of
+    a warp's 16-slot slice (15-17, 48-49; 81 in the second tile, 1000 in the
+    last), groups 1-16 (zero M rows past G but at 16): within 3e-2 of the
+    plain version and 1e-2 relative L2 error per head; slots past valid_len
+    unread; a second launch gives the same bits."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, kv, s = 2, 2, 1024
+    gen = torch.Generator(device=cuda).manual_seed(31 * valid + g)
+    q = torch.randn((b, g * kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    assert plan["instance"] == "mma_bf16" and plan["heads_per_warp"] == g
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, torch.tensor(valid, device=cuda))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    want = flash_decode_plain(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+    rel = ((got.float() - want.float()).square().sum(-1) / want.float().square().sum(-1)).sqrt()
+    assert float(rel.max()) <= 1e-2
+    assert torch.equal(flash_decode(q, k, v, valid), got)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, valid:] = 1e4
+    v2[:, valid:] = -1e4
+    torch.testing.assert_close(flash_decode(q, k2, v2, valid), got, rtol=0, atol=0)
+
+
+def test_flash_decode_d192_mma_whole_cache_is_deterministic(cuda):
+    """nemotron-4's group over a whole 32768-slot cache (B 2 x 2 KV heads:
+    64 splits of 8 tiles, 256 blocks): the gate, and bitwise the same
+    output on repeated launches."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, h, kv, s, d = 2, 24, 2, 32768, 192
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    assert plan["instance"] == "mma_bf16" and (plan["splits"], plan["blocks"]) == (64, 256)
+    got = flash_decode(q, k, v, s)
+    want = flash_decode_plain(q, k, v, s)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+    rel = ((got.float() - want.float()).square().sum(-1) / want.float().square().sum(-1)).sqrt()
+    assert float(rel.max()) <= 1e-2
+    for _ in range(3):
+        assert torch.equal(flash_decode(q, k, v, s), got)
+
+
+@pytest.mark.parametrize("d,g,per_sm", [(64, 1, 3), (64, 4, 3), (80, 1, 2), (80, 2, 2), (128, 4, 3),
+                                         (128, 16, 3), (192, 1, 2), (192, 12, 2)])
+def test_flash_decode_plan_blocks_per_sm_match_the_card(cuda, d, g, per_sm):
+    """Every bf16 instance's blocks per SM in the plan (the ring's by its
+    shared memory; the mma instance's by its shared memory and launch
+    bounds) are the occupancy calculator's."""
+    from repro_torch.kernels import flash_decode as fd
+
+    plan = fd.launch_plan((1, 2 * g, d), (1, 512, 2, d), torch.bfloat16)
+    assert plan["blocks_per_sm"] == per_sm
+    assert fd.card_blocks_per_sm(plan, d) == per_sm
 
 
 def test_nemotron_at_head_dim_192_on_card_equals_cpu_in_f32(cuda, monkeypatch):

@@ -8,9 +8,11 @@ on a host without a card, and against the constants of the CUDA sources
 themselves are held against their plain versions in ``test_torch_cuda.py``.
 """
 
+import math
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -174,34 +176,47 @@ def test_k6_maps_argument_layout():
 # --------------------------------------------------------------------------- #
 # K7 flash_decode
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("d,stages", [(64, 4), (80, 4), (128, 3), (192, 2)])
-def test_k7_bf16_ring_depth_and_shared_memory(d, stages):
-    """As many 64-slot K+V tiles as fit in ~110 KB (two blocks per SM), at
-    most four."""
+@pytest.mark.parametrize(
+    "d,instance,stages,per_sm",
+    [(64, "ring_bf16", 4, 3), (80, "ring_bf16", 4, 2), (128, "mma_bf16", 2, 3), (192, "mma_bf16", 2, 2)],
+)
+def test_k7_bf16_ring_depth_and_shared_memory(d, instance, stages, per_sm):
+    """The ring instances (D 64, 80) keep as many 64-slot K+V tiles as fit
+    in ~110 KB, at most four; the mma instances (D 128, 192) two; and the
+    blocks an SM's 228 KB holds: 3 at D 64 and 128, 2 at D 80 and 192."""
     plan = fd.launch_plan((8, 32, d), (8, 8192, 8, d), torch.bfloat16)
-    assert plan["instance"] == "ring_bf16"
-    assert fd.ring_stages(d) == stages
+    assert plan["instance"] == instance
+    assert (fd.ring_stages(d) if instance == "ring_bf16" else fd.MMA_STAGES) == stages
     assert plan["smem_bytes"] == stages * 2 * 64 * d * 2 <= 110 * 1024
-    assert 2 * plan["smem_bytes"] <= 228 * 1024
+    assert plan["blocks_per_sm"] == per_sm
+    assert per_sm * (plan["smem_bytes"] + 1024) <= 228 * 1024 < (per_sm + 1) * (plan["smem_bytes"] + 1024)
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("g,hpw", [(1, 1), (4, 1), (5, 2), (6, 2), (8, 2), (12, 3), (16, 4)])
-def test_k7_heads_per_warp(g, hpw):
-    plan = fd.launch_plan((2, 2 * g, 128), (2, 512, 2, 128), torch.bfloat16)
-    assert plan["heads_per_warp"] == hpw
-    assert plan["part_floats"] == 2 * 2 * plan["splits"] * g * 130
+def test_k7_heads_per_warp(g, hpw, d):
+    """A ring warp (D 64) serves every fourth head of the group; an mma warp
+    (D 128) scores all of them, the M rows of its products."""
+    plan = fd.launch_plan((2, 2 * g, d), (2, 512, 2, d), torch.bfloat16)
+    assert plan["heads_per_warp"] == (hpw if d == 64 else g)
+    assert plan["part_floats"] == 2 * 2 * plan["splits"] * g * (d + 2)
 
 
 def test_k7_plan_at_head_dim_192():
-    """nemotron-4's decode (B 8, 96 / 8 heads, 8192 slots, D 192): a ring of
-    2 stages (98,304 bytes), three heads a warp at group 12 (one at group
-    1), the f32 instance's shared memory under the limit too."""
+    """nemotron-4's decode (B 8, 96 / 8 heads, 8192 slots, D 192) on the
+    tensor-core instance: a ring of 2 stages (98,304 bytes), every warp
+    scoring all 12 heads of the group (one at group 1), 2 blocks an SM, so 4
+    splits of 32 tiles, 256 blocks in one wave of 264 (the ring's target of
+    4 x 132 gave 9 x 15); the f32 instance's shared memory under the limit
+    too."""
     plan = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.bfloat16)
-    assert plan["instance"] == "ring_bf16" and fd.ring_stages(192) == 2
-    assert plan["heads_per_warp"] == 3
+    assert plan["instance"] == "mma_bf16" and fd.ring_stages(192) == fd.MMA_STAGES == 2
+    assert plan["heads_per_warp"] == 12
     assert plan["smem_bytes"] == 2 * 2 * 64 * 192 * 2 == 98_304 <= fd.SMEM_LIMIT
-    assert (plan["splits"], plan["tiles_per_split"]) == (9, 15)
-    assert plan["part_floats"] == 8 * 8 * 9 * 12 * 194
+    assert plan["blocks_per_sm"] == 2
+    assert (plan["splits"], plan["tiles_per_split"], plan["blocks"]) == (4, 32, 256)
+    assert fd.splits_for(8 * 8, 8192) == (9, 15)
+    assert plan["part_floats"] == 8 * 8 * 4 * 12 * 194
     assert fd.launch_plan((2, 4, 192), (2, 512, 4, 192), torch.bfloat16)["heads_per_warp"] == 1
     f32 = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.float32)
     g = 12
@@ -223,22 +238,172 @@ def test_k7_f32_instance_keeps_its_shared_memory():
      (1, 100, 1, (2, 1)), (600, 4096, 1, (1, 64))],
 )
 def test_k7_split_k_grid(b, s, kv, want):
-    """Splits cover every tile once: the serving path's shape, decode_32k,
-    batch 1, a single tile, and a batch large enough for one split."""
-    plan = fd.launch_plan((b, 4 * kv, 128), (b, s, kv, 128), torch.bfloat16)
+    """The ring's split-K grid (D 64, 80) covers every tile once: a serving
+    cache, decode_32k's, batch 1, a single tile, and a batch large enough
+    for one split."""
+    plan = fd.launch_plan((b, 4 * kv, 64), (b, s, kv, 64), torch.bfloat16)
+    assert plan["instance"] == "ring_bf16"
     assert (plan["splits"], plan["tiles_per_split"]) == want
     tiles = -(-s // 64)
     assert plan["splits"] * plan["tiles_per_split"] >= tiles > (plan["splits"] - 1) * plan["tiles_per_split"]
 
 
-def test_k7_launch_refuses_a_group_without_an_instance():
-    """More than 16 query heads per KV head has no bf16 instance (four warps
-    of at most four heads); the wrapper raises before it touches a card."""
-    q = torch.zeros((1, 17, 64), dtype=torch.bfloat16)
-    k = torch.zeros((1, 64, 1, 64), dtype=torch.bfloat16)
+@pytest.mark.parametrize("d", [64, 192])
+def test_k7_launch_refuses_a_group_without_an_instance(d):
+    """More than 16 query heads per KV head has no bf16 instance (the ring:
+    four warps of at most four heads; the mma instance: the 16 M rows of an
+    m16n8k16); the wrapper raises before it touches a card."""
+    q = torch.zeros((1, 17, d), dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 1, d), dtype=torch.bfloat16)
     plan = fd.launch_plan(q.shape, k.shape, q.dtype)
     with pytest.raises(ValueError, match="17 query heads per KV head"):
         fd._launch(q, k, k, 64, plan)
+
+
+# --------------------------------------------------------------------------- #
+# K7's tensor-core instance at D 128 and 192: swizzle, warp slices, residency
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("d", [128, 192])
+def test_k7_mma_swizzle_is_a_permutation_of_the_tile(d):
+    """Every (row, chunk) of a 64-row tile of d/8 16-byte chunks has its own
+    16-byte slot, inside the tile, and a row's chunks stay in that row."""
+    chunks = d // 8
+    offsets = [fd.mma_chunk_offset(r, c, d) for r in range(64) for c in range(chunks)]
+    assert all(o % 16 == 0 for o in offsets)
+    assert sorted(o // 16 for o in offsets) == list(range(64 * chunks))
+    for r in range(64):
+        assert {fd.mma_chunk_offset(r, c, d) // (2 * d) for c in range(chunks)} == {r}
+
+
+@pytest.mark.parametrize("d", [128, 192])
+def test_k7_mma_ldmatrix_rows_take_distinct_bank_groups(d):
+    """Any 8 consecutive rows (one ldmatrix matrix) at one logical chunk fall
+    in 8 distinct 16-byte bank groups (of 8 in 128 bytes), at every chunk;
+    unswizzled they would share one (256- or 384-byte rows, 0 mod 128)."""
+    for first in range(64 - 7):
+        for c in range(d // 8):
+            rows = range(first, first + 8)
+            assert len({(fd.mma_chunk_offset(r, c, d) % 128) // 16 for r in rows}) == 8
+            assert len({(r * 2 * d + 16 * c) % 128 for r in rows}) == 1
+
+
+def test_k7_mma_warps_own_16_slot_slices():
+    assert fd.MMA_WARP_SLOTS == 16
+    assert [fd.mma_warp_slots(w) for w in range(fd.WARPS)] == [range(16 * w, 16 * w + 16) for w in range(4)]
+
+
+@pytest.mark.parametrize("d,resident", [(128, 396), (192, 264)])
+@pytest.mark.parametrize(
+    "b,s,kv", [(8, 32768, 8), (8, 8192, 8), (1, 32768, 8), (1, 100, 1), (2, 64, 2), (32, 32768, 8),
+               (600, 4096, 1), (3, 1000, 5)]
+)
+def test_k7_mma_splits_cover_every_slot_once_within_one_wave(b, s, kv, d, resident):
+    """Walking every split's tiles and every warp's slice of each covers
+    every slot of the cache once; the grid is B * KV * splits blocks, within
+    the blocks the card holds at once (3 an SM at D 128, 2 at D 192) unless
+    B * KV alone is more, and then one split per (b, kv)."""
+    plan = fd.launch_plan((b, 4 * kv, d), (b, s, kv, d), torch.bfloat16)
+    nsplit, per = plan["splits"], plan["tiles_per_split"]
+    assert plan["blocks"] == b * kv * nsplit and plan["blocks_per_sm"] * 132 == resident
+    assert (nsplit, per) == fd.resident_splits(b * kv, s, resident)
+    tiles = -(-s // 64)
+    seen = []
+    for split in range(nsplit):
+        for t in range(split * per, min(split * per + per, tiles)):
+            for w in range(fd.WARPS):
+                seen += [t * 64 + j for j in fd.mma_warp_slots(w)]
+    assert sorted(seen) == list(range(tiles * 64))
+    if b * kv <= resident:  # one wave, and a tile fewer per split would need more
+        assert plan["blocks"] <= resident
+        assert per == 1 or b * kv * -(-tiles // (per - 1)) > resident
+    else:
+        assert nsplit == 1
+
+
+def test_k7_mma_residency_follows_shared_memory_and_registers():
+    """Two 96 KB blocks (D 192) fit in an SM's 228 KB, three do not; three
+    64 KB blocks (D 128), not four.  The launch bounds' budgets, 255 and 168
+    registers a thread, allow as many blocks of 128 threads, so registers
+    never bind first; 169 would."""
+    assert (fd.mma_registers(192), fd.mma_registers(128)) == (255, 168)
+    assert fd.blocks_per_sm(98_304) == 2 and fd.blocks_per_sm(98_304, 255) == 2
+    assert fd.blocks_per_sm(65_536) == 3 and fd.blocks_per_sm(65_536, 168) == 3
+    assert fd.blocks_per_sm(65_536, 169) == 2  # registers bind
+    plan = fd.launch_plan((8, 96, 192), (8, 32768, 8, 192), torch.bfloat16)
+    assert (plan["splits"], plan["tiles_per_split"], plan["blocks"]) == (4, 128, 256)
+    assert fd.splits_for(64, 32768) == (9, 57)  # the ring's target: 576 blocks, 2.18 waves
+    serve = fd.launch_plan((8, 32, 128), (8, 8192, 8, 128), torch.bfloat16)  # llama3-8b's cache
+    assert (serve["instance"], serve["splits"], serve["tiles_per_split"], serve["blocks"]) == (
+        "mma_bf16", 6, 22, 384)
+    long = fd.launch_plan((32, 32, 128), (32, 32768, 8, 128), torch.bfloat16)  # decode_32k
+    assert (long["splits"], long["tiles_per_split"], long["blocks"]) == (1, 512, 256)
+
+
+def _mma_emulated(q, k, v, valid, splits, per):
+    """The mma instance's arithmetic with the plain version's operations, on
+    the CPU: per split, per 64-slot tile, each warp's 16 slots scored in f32
+    from bf16 products, scaled by log2(e)/sqrt(D), masked; an online softmax
+    per warp and head in log2 units with P rounded to bf16 (l sums the
+    rounded P); acc += P V.  Then the four warps merged, the split's m in
+    natural-log units, and the splits merged as the merge kernel does."""
+    b, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qf = q.float().reshape(b, kv, g, d)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B, KV, S, D)
+    scale = math.log2(math.e) / math.sqrt(d)
+    tiles = -(-valid // 64)
+    ms, ls, accs = [], [], []
+    for split in range(splits):
+        m = torch.full((b, kv, 4, g), -math.inf)
+        l = torch.zeros((b, kv, 4, g))
+        acc = torch.zeros((b, kv, 4, g, d))
+        for t in range(split * per, min(split * per + per, tiles)):
+            kt = kf[:, :, t * 64:(t + 1) * 64].reshape(b, kv, 4, 16, d)
+            vt = vf[:, :, t * 64:(t + 1) * 64].reshape(b, kv, 4, 16, d)
+            sc = torch.einsum("bkgd,bkwsd->bkwgs", qf, kt) * scale
+            slot = t * 64 + torch.arange(64).reshape(4, 1, 16)
+            sc = sc.masked_fill(slot >= valid, -math.inf)
+            mx = torch.maximum(m, sc.amax(-1))
+            sub = torch.where(mx == -math.inf, 0.0, mx)
+            alpha = torch.exp2(m - sub)
+            p = torch.exp2(sc - sub[..., None]).to(torch.bfloat16).float()
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkwgs,bkwsd->bkwgd", p, vt)
+            m = mx
+        mx = m.amax(2)
+        sub = torch.where(mx == -math.inf, 0.0, mx)
+        c = torch.exp2(m - sub[:, :, None])
+        ms.append(torch.where(mx == -math.inf, -1e30, mx * math.log(2)))
+        ls.append((l * c).sum(2))
+        accs.append((acc * c[..., None]).sum(2))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(0).clamp_min(-1e30))
+    out = (acc * w[..., None]).sum(0) / (l * w).sum(0).clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("d,g", [(192, 1), (192, 12), (128, 4), (128, 8)])
+def test_k7_mma_numerics_hold_the_smoke_gate(d, g):
+    """P rounded to bf16 per 16-slot warp chunk, then the four-warp and split
+    merges, over 4096 valid slots (nemotron-4's D 192 at groups 1 and 12,
+    D 128 at groups 4 and 8): within 3e-2 of ``flash_decode_plain`` and, per
+    head, 1e-2 relative L2 error (the gate the card's smoke holds the kernel
+    to)."""
+    b, kv, s = 2, 2, 4096
+    rng = np.random.default_rng(g)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(torch.bfloat16)
+               for sh in ((b, g * kv, d), (b, s, kv, d), (b, s, kv, d)))
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    got = _mma_emulated(q, k, v, s, plan["splits"], plan["tiles_per_split"]).float()
+    want = fd.flash_decode_plain(q, k, v, s).float()
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+    rel = ((got - want).square().sum(-1) / want.square().sum(-1)).sqrt()
+    assert float(rel.max()) <= 1e-2
+    # ragged: a last tile with some warps' slices past valid_len, some splits empty
+    got = _mma_emulated(q, k, v, 1000, plan["splits"], plan["tiles_per_split"]).float()
+    want = fd.flash_decode_plain(q, k, v, 1000).float()
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
 
 
 # --------------------------------------------------------------------------- #
@@ -267,6 +432,17 @@ def test_plans_match_the_cuda_sources():
     assert _constant(dec, "DBK") == str(fd.TILE)
     assert _constant(dec, "WARPS") == "THREADS / 32" and _constant(dec, "THREADS") == str(32 * fd.WARPS)
     assert "(110 * 1024) / (2 * DBK * D * 2) < 4" in dec and fd._RING_BYTES == 110 * 1024
+    mma = dec[dec.index("namespace mma {"):dec.index("}  // namespace mma")]
+    assert _constant(mma, "STAGES") == str(fd.MMA_STAGES)
+    assert _constant(mma, "WARP_SLOTS") == "DBK / WARPS" and fd.MMA_WARP_SLOTS == fd.TILE // fd.WARPS
+    assert _constant(mma, "MAX_GROUP") == str(fd.MMA_MAX_GROUP)
+    assert "return D > 128 ? 2 : 3;" in mma  # min_blocks: mma_min_blocks
+    assert [fd.mma_min_blocks(d) for d in fd.MMA_HEAD_DIMS] == [3, 2]
+    assert "return STAGES * 2 * DBK * D * 2;" in mma
+    assert "return r * (D * 2) + ((c ^ (r & 7)) << 4);" in mma  # mma_chunk_offset
+    assert "__launch_bounds__(THREADS, min_blocks<D>())" in mma
+    assert "constexpr bool on_mma(int D) { return D == 128 || D == 192; }" in dec
+    assert fd.MMA_HEAD_DIMS == (128, 192)
 
 
 def test_ptxas_report_parses_registers_spills_and_shared_memory():
