@@ -23,12 +23,13 @@ comes out:
 
 1. environment: the card, torch/CUDA versions, the kernels' build time;
    what ``ptxas`` gave each attention kernel instance (registers, static
-   shared memory, spills; the head-dim-80 instances, the bf16 K6
-   instance at head dim 192 and K7's tensor-core instances (head dims 128
-   and 192) must not spill), and
-   the ``HGMMA`` (wgmma) instructions in the SASS of the bf16
-   ``flash_attention`` instances (``cuobjdump -sass``), which must not be
-   zero;
+   shared memory, spills; every bf16 K6 instance (head dims 64, 80, 128,
+   192), the head-dim-80 instances and K7's tensor-core instances (head
+   dims 128 and 192) must not spill, and the flash_attention compiler log
+   must hold no C7508 (``setmaxnreg`` ignored) or C7512 (wgmma
+   serialised)), and the ``HGMMA`` (wgmma) and ``USETMAXREG``
+   (``setmaxnreg``) instructions in the SASS of each bf16
+   ``flash_attention`` instance (``cuobjdump -sass``): at least one and two;
 2. kernels vs their plain versions at the main path's shapes (exact,
    ``lap_bid_fused_batched`` bit for bit also on non-integer costs; the bid
    kernels also at 1x4096x4096, more than the L2 holds, and
@@ -3019,15 +3020,22 @@ def scalability_phase(device, scale):
     return out
 
 
+#: what ``ptxas`` says when it undoes the bf16 K6 design: ``setmaxnreg``
+#: ignored (C7508) or wgmma serialised (C7512, e.g. "insufficient register
+#: resources"); either in the flash_attention compiler log fails phase 1
+K6_PTXAS_FAULTS = ("C7508", "C7512")
+
+
 def build_report():
     """Phase 1's record of what was built: ``ptxas``'s registers, static
-    shared memory and spills for every attention kernel instance (the D = 80
-    instances, the bf16 K6 instance at D = 192 and K7's tensor-core instances
-    must not spill), and the
-    ``HGMMA`` instructions in the SASS of
-    each bf16 ``flash_attention`` instance (it must be a tensor-core kernel:
-    none is a failure)."""
+    shared memory and spills for every attention kernel instance (every
+    bf16 K6 instance, the D = 80 instances and K7's tensor-core instances
+    must not spill), the flash_attention compiler log free of
+    ``K6_PTXAS_FAULTS``, and in the SASS of each bf16 K6 instance its
+    ``HGMMA`` instructions (it must be a tensor-core kernel) and the two
+    ``USETMAXREG`` of its register hand-off (none is a failure)."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     ptxas = {}
     for name in ("flash_attention", "flash_decode"):
@@ -3040,33 +3048,40 @@ def build_report():
             log(f"[build] {name}: {fn}: {r.get('registers')} registers, {r.get('smem')} B static "
                 f"shared memory, {r.get('spill_stores')} B spill stores, "
                 f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B stack")
+    faults = [line.strip() for line in build.compiler_log("flash_attention").splitlines()
+              if any(code in line for code in K6_PTXAS_FAULTS)]
+    check(not faults, f"ptxas undid the bf16 flash_attention design: {faults}")
     d80 = {fn: r for fn, r in ptxas.items() if "Li80E" in fn}  # zamba2's head dim
     check(d80 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in d80.values()),
           f"the D = 80 attention instances spill (or were not built): {d80}")
-    for sym, what in (("flash_attention_wgmmaILi192E", "K6's bf16 D = 192 instance"),  # nemotron-4's
-                      ("flash_decode_partial_mmaILi128E", "K7's tensor-core D = 128 instance"),
-                      ("flash_decode_partial_mmaILi192E", "K7's tensor-core D = 192 instance")):
+    k6 = [(f"flash_attention_wgmmaILi{d}E", f"K6's bf16 D = {d} instance") for d in HEAD_DIMS]
+    for sym, what in k6 + [("flash_decode_partial_mmaILi128E", "K7's tensor-core D = 128 instance"),
+                           ("flash_decode_partial_mmaILi192E", "K7's tensor-core D = 192 instance")]:
         inst = {fn: r for fn, r in ptxas.items() if sym in fn}
         check(inst and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                            for r in inst.values()), f"{what} spills (or was not built): {inst}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[build] cuobjdump not found: the SASS of the bf16 flash_attention instances was NOT checked")
-        return dict(ptxas=ptxas, hgmma=None)
+        return dict(ptxas=ptxas, hgmma=None, setmaxnreg=None)
     sass = subprocess.run([tool, "-sass", str(build._target("flash_attention"))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    hgmma, fn = {}, None
+    hgmma, setmaxnreg, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if "flash_attention_wgmma" in fn:
-                hgmma[fn] = 0
-        elif fn in hgmma and "HGMMA" in line:
-            hgmma[fn] += 1
+                hgmma[fn] = setmaxnreg[fn] = 0
+        elif fn in hgmma:
+            hgmma[fn] += "HGMMA" in line
+            setmaxnreg[fn] += "USETMAXREG" in line
     log(f"[build] HGMMA instructions per bf16 flash_attention instance: {json.dumps(hgmma)}")
-    check(hgmma and all(n > 0 for n in hgmma.values()),
+    log(f"[build] USETMAXREG per bf16 flash_attention instance: {json.dumps(setmaxnreg)}")
+    check(len(hgmma) == len(HEAD_DIMS) and all(n > 0 for n in hgmma.values()),
           f"the bf16 flash_attention instances hold no HGMMA instruction: {hgmma}")
-    return dict(ptxas=ptxas, hgmma=hgmma)
+    check(all(n >= 2 for n in setmaxnreg.values()),
+          f"a bf16 flash_attention instance lost its setmaxnreg hand-off: {setmaxnreg}")
+    return dict(ptxas=ptxas, hgmma=hgmma, setmaxnreg=setmaxnreg)
 
 
 def run(device, scale):
@@ -3101,7 +3116,7 @@ def run(device, scale):
 
     device = torch.device(device)
     gen = torch.Generator().manual_seed(0)
-    built = dict(ptxas={}, hgmma=None)
+    built = dict(ptxas={}, hgmma=None, setmaxnreg=None)
 
     # ---- phase 1: environment + build -------------------------------------- #
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3372,6 +3387,7 @@ def run(device, scale):
             kernels[-1]["instances"] = {fn: r for fn, r in built["ptxas"].items() if name in fn}
             if name == "flash_attention":
                 kernels[-1]["hgmma"] = built["hgmma"]
+                kernels[-1]["setmaxnreg"] = built["setmaxnreg"]
     next(k for k in kernels if k["name"] == "flash_attention")["head_dim_routing"] = routing_row
     return kernels
 

@@ -21,43 +21,76 @@
 //
 // Two instances:
 //
-// * bf16 (namespace tc): the tensor-core kernel, in the shape of
-//   FlashAttention-3.  One CTA per (b*h, 128-query tile): two consumer
-//   warpgroups of 64 query rows each and one producer warp, one of whose
-//   threads loads Q once and K/V tiles of 128 keys through a 3-stage ring with TMA
-//   (a 4-D tensor map per operand, dims (D, heads, S, B), read through the
-//   caller's strides; 128-byte swizzle, so a row of D = 128 is two 64-wide
-//   boxes, "panels"), each stage guarded by a full and an empty mbarrier.
-//   S = Q K^T is a shared-memory wgmma (m64n128k16, both operands K-major);
-//   the online softmax runs on the f32 accumulator fragment (row max and sum
-//   over the 4 threads of a quad); P is rounded to bf16 in registers, where
-//   the accumulator's pairs are already the A fragment of the register-A
-//   wgmma that computes O += P V (V read MN-major, the transpose flag set).
-//   A warpgroup runs its tile's two GEMMs and softmax in turn; the two
-//   warpgroups drift apart, so one's softmax overlaps the other's GEMMs.
-//   A head dim that is not a whole number of panels (D = 80, zamba2's) is
-//   laid out at the padded width DP = 128, the D = 128 instance's shared
-//   memory, fragments and registers: the tensor maps keep the real D as
-//   their innermost dim, so TMA zero-fills columns D .. DP-1 of the second
-//   panel (out of the map's bounds even where memory runs on, as in a
-//   fused-qkv view; the transaction count is the whole box).  Q K^T runs
-//   only the D/16 k-steps that hold data; P V runs at n = DP, its columns
-//   past D come out zero and are not stored.  At D = 80 that wastes 48 of
-//   every 128 P V columns, 23 % of the tile's tensor-core work (a later
-//   redesign: an n80 P V, a 64 + 16 panel split).
-//   Registers bound the design: ptxas budgets 168 per thread (the block
-//   rounded up to three warpgroups) whatever setmaxnreg grants, and the S
-//   and O fragments (64 floats each at D = 128) and P (32) fit it only
-//   while S(t+1) is not issued before P(t) V(t) completes (FA3's overlap
-//   inside a warpgroup spills and serialises its wgmma here).
-//   Past a 128-wide row (D = 192, nemotron-4's: three whole panels) the
-//   K/V tile is 64 keys instead of 128 (block_k): O is 96 floats a thread,
-//   S 32 and P 16, 144 in all where 128-key tiles would need 192; and Q
-//   (48 KB) plus three stages of 64-key K and V (144 KB) fit the 227 KB of
-//   shared memory, where 128-key stages (288 KB) would not.  Q K^T is then
-//   m64n64k16, P V one m64n192k16 over the three V panels, and a causal
-//   128-row query tile's last two key tiles reach above its diagonal, so
-//   both are masked.
+// * bf16 (namespace tc): the tensor-core kernel, in the layout of
+//   FlashAttention-3.
+//   - Work.  A work item is a (b*h, 128-query tile) pair.  A persistent
+//     grid of one CTA an SM (the block's registers and shared memory allow
+//     no second) walks the items heaviest first, each CTA taking one a
+//     round and the rounds running back and forth over the CTAs, so that
+//     their sums of work stay even.  The next item's Q and K/V then load
+//     under this one's last tiles and epilogue (2.5-5 % over one CTA an
+//     item at S 8192).
+//   - Roles.  384 threads, three warpgroups, split by one if/else that
+//     never reconverges.  Warpgroup 2, the producer, runs setmaxnreg.dec to
+//     24 registers; one of its threads issues every TMA load: each item's Q,
+//     then its K/V tiles of 128 keys through a 3-stage ring whose stages
+//     and phases run on across the items.  A 4-D tensor map per operand,
+//     dims (D, heads, S, B), reads through the caller's strides; with the
+//     128-byte swizzle a row of D = 128 is two 64-wide boxes, "panels".
+//     Q and each stage have a full and an empty mbarrier.  Warpgroups 0 and
+//     1, the consumers, own 64 query rows each and run setmaxnreg.inc to
+//     240: 24 x 128 + 240 x 256 = 168 x 384, the block's grant under
+//     __launch_bounds__(384, 1).  The launch refuses an instance that ptxas
+//     granted fewer, since setmaxnreg.inc would then wait for ever.  ptxas
+//     allocates past 168 in the consumers' branch only while that branch
+//     holds no trap instruction (with one it spills and serialises the
+//     wgmma, C7512), so only the producer's barrier waits trap (after ~10 s).
+//   - Q in registers.  Each consumer loads its 64 rows of an item's Q once,
+//     by ldmatrix, into the A fragments of Q K^T (D/4 registers a thread)
+//     and gives Q's buffer back (its empty barrier counts the 8 consumer
+//     warps).  S = Q K^T is then a register-A wgmma (m64n128k16, K K-major
+//     in shared memory) that reads only K there: at D = 192 an m64n64k16
+//     step from shared memory would read as many bytes of Q as of K (Q in
+//     registers measured 1-6 % faster at every D).
+//   - Softmax.  The online softmax runs on the f32 accumulator fragment
+//     (row max and sum over the 4 threads of a quad, exp2 on the SFU); P is
+//     rounded to bf16 in registers, where the accumulator's pairs are
+//     already the A fragment of the register-A wgmma that computes
+//     O += P V (V read MN-major, the transpose flag set).
+//   - Overlap inside a warpgroup.  S(t+1) = Q K(t+1)^T and O += P(t) V(t)
+//     are issued together as two commit groups; the warpgroup waits for
+//     S(t+1) only (wgmma.wait_group 1) and runs softmax(t+1) while P(t) V(t)
+//     is still on the tensor cores, then rescales O once that group has
+//     retired.  O, S(t+1), P(t) and Q are live at once (D 128: 64 + 64 + 32
+//     + 32 registers), which is what the 240 registers are for.  A stage
+//     goes back to the producer (its empty barrier counts one arrival per
+//     warpgroup) once the P V that read its V has retired.
+//   - Overlap between the warpgroups, up to a 128-wide row.  Two named
+//     barriers (ids 1 and 2, 256 threads: a warpgroup waits on its own, the
+//     other arrives) hand the turn to issue GEMMs back and forth: warpgroup
+//     0 issues its tile's GEMMs, then lets warpgroup 1 issue its own and
+//     runs its softmax while they run.  Per item, warpgroup 1 arrives once
+//     before its first tile, so warpgroup 0 goes first, and skips its
+//     arrival after its last: both see the same number of tiles, so every
+//     wait meets its arrival and none is left over.  Past a 128-wide row
+//     (D = 192, 64-key tiles) the warpgroups issue as they come
+//     (takes_turns): with turns that instance measured 4-8 % slower.
+//   - D = 80 (zamba2's), not a whole number of panels, is laid out at the
+//     padded width DP = 128, the D = 128 instance's shared memory.  The
+//     tensor maps keep the real D as their innermost dim, so TMA zero-fills
+//     columns D .. DP-1 of the second panel (out of the map's bounds even
+//     where memory runs on, as in a fused-qkv view; the transaction count
+//     is the whole box).  Q K^T runs only the D/16 k-steps that hold data;
+//     P V runs at n = D (m64n80k16: the first panel whole and 16 columns of
+//     the second, the leading byte offset apart), so no zero column is
+//     computed and O holds D/2 floats a thread.
+//   - D = 192 (nemotron-4's: three whole panels) takes K/V tiles of 64 keys
+//     instead of 128 (block_k): Q (48 KB) plus three stages of 64-key K and
+//     V (144 KB) fit the 227 KB of shared memory, where 128-key stages
+//     (288 KB) would not.  Q K^T is then m64n64k16, P V one m64n192k16 over
+//     the three V panels (O 96 floats, S 32, P 16, Q 48), and a causal
+//     128-row query tile's last two key tiles reach above its diagonal, so
+//     both are masked.
 //   TMA fills rows past S with zeros, so keys >= S are masked from their
 //   indices, not by their contents.
 // * f32 (namespace cc): the CUDA-core kernel (the f32 path must stay
@@ -70,9 +103,11 @@
 //
 // The wrapper (kernels/flash_attention.py, launch_plan) computes the
 // dynamic shared memory and the three tensor maps' dims, strides and boxes
-// (and the grid, to hold it to one launch's limits); this file encodes the maps (cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint, so the library links no -lcuda) and
-// checks the shared-memory size against its own.
+// (and the work grid, to hold it to one launch's limits); this file
+// encodes the maps (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so the library links no -lcuda), checks the
+// shared-memory size against its own and sizes the persistent grid to the
+// card's SMs.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -263,29 +298,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // --------------------------------------------------------------------------
 namespace tc {
 
-constexpr int BM = 128;                  // query rows per CTA (two warpgroups of 64)
-constexpr int BN = 128;                  // keys per K/V tile up to a 128-wide row
-constexpr int BN_WIDE = 64;              // keys per K/V tile past it (D = 192)
-constexpr int STAGES = 3;                // K/V ring depth
-constexpr int CONSUMERS = 256;           // two consumer warpgroups
-constexpr int THREADS = CONSUMERS + 32;  // plus one producer warp
-constexpr int PANEL = 64;                // bf16 per 128-byte swizzled row
+constexpr int BM = 128;                   // query rows per CTA (two warpgroups of 64)
+constexpr int BN = 128;                   // keys per K/V tile up to a 128-wide row
+constexpr int BN_WIDE = 64;               // keys per K/V tile past it (D = 192)
+constexpr int STAGES = 3;                 // K/V ring depth
+constexpr int CONSUMERS = 256;            // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // plus the producer warpgroup
+constexpr int PRODUCER_REGS = 24;         // setmaxnreg.dec: the producer only issues TMA
+constexpr int CONSUMER_REGS = 240;        // setmaxnreg.inc: O, S(t+1) and P(t) at once
+constexpr int TURN_BAR = 1;               // named barriers TURN_BAR + wg: warpgroup wg's turn
+constexpr int PANEL = 64;                 // bf16 per 128-byte swizzled row
+// the registers the launch grants (168 a thread under __launch_bounds__(THREADS, 1))
+// cover what the roles take after setmaxnreg
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <= 168 * THREADS,
+              "setmaxnreg would ask for more registers than the block holds");
 
 // The width an instance lays a row of head dim d out at: whole panels.
 __host__ __device__ constexpr int padded(int d) { return (d + PANEL - 1) / PANEL * PANEL; }
 
-// Keys per K/V tile at laid-out row width dp: registers and shared memory
-// (see the header) allow 128 keys up to dp = 128 and 64 past it.
+// Keys per K/V tile at laid-out row width dp: shared memory (see the
+// header) allows 128 keys up to dp = 128 and 64 past it.
 __host__ __device__ constexpr int block_k(int dp) { return dp > 128 ? BN_WIDE : BN; }
+
+// Whether the consumer warpgroups take turns to issue GEMMs (named
+// barriers) at laid-out row width dp: up to dp = 128.  Past it the 64-key
+// tiles make a turn too short to hide the other's softmax, and waiting for
+// the turn costs more than it orders (FA3 drops its scheduler barrier past
+// head dim 128 too).
+__host__ __device__ constexpr bool takes_turns(int dp) { return dp <= 128; }
 
 // Dynamic shared memory at row width D (a whole number of panels): Q, then
 // STAGES x (K, V), each a multiple of the 1024-byte swizzle atom, then the
-// mbarriers; 1024 bytes of slack to align the base to the atom.
+// mbarriers (Q full and empty, a full and an empty one per stage); 1024
+// bytes of slack to align the base to the atom.
 template <int D>
 struct Smem {
   static constexpr int Q = BM * D * 2;
   static constexpr int TILE = block_k(D) * D * 2;
-  static constexpr int BARRIERS = 8 * (1 + 2 * STAGES);
+  static constexpr int BARRIERS = 8 * (2 + 2 * STAGES);
   static constexpr int BYTES = 1024 + Q + STAGES * 2 * TILE + BARRIERS;
 };
 
@@ -306,22 +356,35 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-// Wait until the phase of parity `parity` of the barrier has completed.  A
-// wait that lasts ~10 s of SM clock traps: a pipeline fault then ends the
-// launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// The producer's wait: one that lasts ~10 s of SM clock traps, so a
+// pipeline fault (consumers that stop releasing stages) ends the launch
+// with an error instead of hanging the card.  Only the producer traps: a
+// trap in the consumers' code holds their registers to the launch's 168
+// whatever setmaxnreg grants (ptxas then spills and serialises their
+// wgmma, C7512).
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
   const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > 20000000000LL) asm volatile("trap;");
-  } while (!done);
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > 20000000000LL) asm volatile("trap;");
+  }
 }
 
 // One box of a 4-D tensor map (coordinates innermost first) into shared
@@ -350,8 +413,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+// Wait until at most N of this warpgroup's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 // Pin a fragment's registers at this point of the program: after a wait,
 // no read of it moves above the wait; before a batch of wgmma, no copy of it
@@ -361,48 +426,62 @@ __device__ __forceinline__ void fence_all(float* x) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+// The two consumer warpgroups' turns to issue GEMMs: wait on one's own
+// named barrier, arrive on the other's (CONSUMERS threads complete either).
+__device__ __forceinline__ void turn_wait(int bar) {
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "n"(CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int bar) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(bar), "n"(CONSUMERS) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
 
 #define ACC8(d, i)                                                                       \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define ACC32(d) ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
+#define ACC40(d) ACC32(d), ACC8(d, 32)
 #define ACC64(d) ACC32(d), ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
 #define ACC96(d) ACC64(d), ACC8(d, 64), ACC8(d, 72), ACC8(d, 80), ACC8(d, 88)
 
-// D (64 x 128, f32) = A (64 x 16) * B (128 x 16)^T [+ D], A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+// S (64 x 128, f32) = A (64 x 16, bf16 in registers) * B (128 x 16)^T [+ S], B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rk_n128(float* d, const uint32_t* a, uint64_t db, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : ACC64(d)
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
-// D (64 x 64, f32) = A (64 x 16) * B (64 x 16)^T [+ D], A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+// S (64 x 64, f32) = A (64 x 16, bf16 in registers) * B (64 x 16)^T [+ S], B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rk_n64(float* d, const uint32_t* a, uint64_t db, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : ACC32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// S = Q K^T at BK keys: m64n128k16 or m64n64k16.
-template <int BK>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
-  if constexpr (BK == 128) {
-    wgmma_ss_n128(d, da, db, accumulate);
-  } else {
-    wgmma_ss_n64(d, da, db, accumulate);
-  }
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128), B MN-major in shared memory.
@@ -448,12 +527,30 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, f32) += A (64 x 16, bf16 in registers) * B (16 x 80), B MN-major in shared memory:
+// the first 64-wide panel whole and the first 16 columns of the next, a leading byte offset on.
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : ACC40(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V over one k16 step at n = D, the real head dim.
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(D == 64 || D == 80 || D == 128 || D == 192, "no P V instruction for this D");
   if constexpr (D == 192) {
     wgmma_rs_n192(d, a, db);
   } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a, db);
+  } else if constexpr (D == 80) {
+    wgmma_rs_n80(d, a, db);
   } else {
     wgmma_rs_n64(d, a, db);
   }
@@ -464,31 +561,63 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// S (64 x BK) = Q K^T for this warpgroup's 64 rows: D/16 k-steps (the
-// real head dim's; padded columns are zero and skipped), 4 per 64-wide
-// panel; both operands K-major, the k-step advances 32 bytes inside the
-// swizzled 128-byte rows.
-template <int D, int BK>
-__device__ __forceinline__ void qk(float* s, uint32_t sq_wg, uint32_t sk) {
+// This warpgroup's 64 rows of Q as the A fragments of the D/16 k-steps of
+// Q K^T, 4 registers a step (the layout of an mma.m16n8k16 A fragment for
+// the warp's 16 rows): ldmatrix.x4 from the 128-byte-swizzled panels, lane
+// l giving the address of row l % 16 and 8-column half l / 16 of the step.
+// Held in registers, Q is read from shared memory once instead of at every
+// Q K^T, whose m64n64k16 steps (D = 192) would otherwise read as many bytes
+// of A as of B.
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t* qa, uint32_t sq_wg, int warp_in_wg, int lane) {
+  const int r = 16 * warp_in_wg + (lane & 15);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int p = kk / 4, c = kk % 4;
-    const uint64_t da = desc_sw128(sq_wg + p * BM * 128 + c * 32, 16, 1024);
-    const uint64_t db = desc_sw128(sk + p * BK * 128 + c * 32, 16, 1024);
-    wgmma_ss<BK>(s, da, db, kk > 0);
+    const int p = kk / 4, chunk = 2 * (kk % 4) + (lane >> 4);
+    const uint32_t addr = sq_wg + p * BM * 128 + r * 128 + ((chunk ^ (r & 7)) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(qa[4 * kk]), "=r"(qa[4 * kk + 1]), "=r"(qa[4 * kk + 2]), "=r"(qa[4 * kk + 3])
+                 : "r"(addr)
+                 : "memory");
+  }
+}
+
+// S (64 x BK) = Q K^T for this warpgroup's 64 rows: D/16 k-steps (the
+// real head dim's; padded columns are zero and skipped), Q from registers,
+// K K-major in shared memory, 4 steps per 64-wide panel, the k-step
+// advancing 32 bytes inside the swizzled 128-byte rows.
+template <int D, int BK>
+__device__ __forceinline__ void qk(float* s, const uint32_t* qa, uint32_t sk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t db = desc_sw128(sk + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024);
+    if constexpr (BK == 128) {
+      wgmma_rk_n128(s, qa + 4 * kk, db, kk > 0);
+    } else {
+      wgmma_rk_n64(s, qa + 4 * kk, db, kk > 0);
+    }
   }
 }
 
 // O += P V: P (64 x BK) in bf16 registers, V key-major with D contiguous
 // (MN-major B): 8 keys are a 1024-byte atom (stride byte offset), the next
-// 64 columns of D the next panel (leading byte offset).  D here is the
-// padded width.
+// 64 columns of D the next panel (leading byte offset).  D is the real head
+// dim: the columns past it in a padded panel are never read.
 template <int D, int BK>
 __device__ __forceinline__ void pv(float* acc, const uint32_t* pa, uint32_t sv) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     wgmma_rs<D>(acc, pa + 4 * kk, desc_sw128(sv + kk * 16 * 128, BK * 128, 1024));
   }
+}
+
+// 2^x in one SFU instruction.  exp2f adds a range check and two scalings
+// around it to keep results below 2^-126; those are flushed to zero here,
+// far below what a P that is rounded to bf16 beside a row maximum of 1 keeps.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Online-softmax step on the S fragment of one BK-key tile (rows r0 and
@@ -525,17 +654,17 @@ __device__ __forceinline__ void softmax(float* s, float& m0, float& m1, float& l
   // a row with no key yet keeps max -inf: subtract 0 so exp2 gives 0, not NaN
   const float sub0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
   const float sub1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
-  alpha0 = exp2f(m0 * scale_log2 - sub0);
-  alpha1 = exp2f(m1 * scale_log2 - sub1);
+  alpha0 = exp2_ftz(m0 * scale_log2 - sub0);
+  alpha1 = exp2_ftz(m1 * scale_log2 - sub1);
   m0 = mx0;
   m1 = mx1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
-    s[4 * j] = exp2f(fmaf(s[4 * j], scale_log2, -sub0));
-    s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -sub0));
-    s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -sub1));
-    s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -sub1));
+    s[4 * j] = exp2_ftz(fmaf(s[4 * j], scale_log2, -sub0));
+    s[4 * j + 1] = exp2_ftz(fmaf(s[4 * j + 1], scale_log2, -sub0));
+    s[4 * j + 2] = exp2_ftz(fmaf(s[4 * j + 2], scale_log2, -sub1));
+    s[4 * j + 3] = exp2_ftz(fmaf(s[4 * j + 3], scale_log2, -sub1));
     rs0 += s[4 * j] + s[4 * j + 1];
     rs1 += s[4 * j + 2] + s[4 * j + 3];
   }
@@ -543,38 +672,80 @@ __device__ __forceinline__ void softmax(float* s, float& m0, float& m1, float& l
   l1 = l1 * alpha1 + rs1;
 }
 
+// O *= alpha, row by row (alpha0 for row r0, alpha1 for r0 + 8).
+template <int N>
+__device__ __forceinline__ void rescale(float* acc, float alpha0, float alpha1) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    acc[4 * j] *= alpha0;
+    acc[4 * j + 1] *= alpha0;
+    acc[4 * j + 2] *= alpha1;
+    acc[4 * j + 3] *= alpha1;
+  }
+}
+
+// P in bf16: the pairs of the S fragment, in order, are the A fragments of
+// the k16 steps of P V (step kk = keys 16kk .. 16kk + 15).
+template <int NS>
+__device__ __forceinline__ void to_bf16(const float* s, uint32_t* pa) {
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// One work item: a (b*h, 128-query tile) pair.  Items are numbered
+// heaviest query tiles first (every head of the last query tile, then the
+// one before it, ...), so the long causal rows do not trail the walk.
+struct Item {
+  int b, h, kvh, q0, ntiles, first_masked;
+};
+
+template <int BK>
+__device__ __forceinline__ Item item_at(int i, int BH, int QT, int S, int H, int G, int causal) {
+  Item w;
+  const int bh = i % BH;
+  w.q0 = (QT - 1 - i / BH) * BM;
+  w.b = bh / H;
+  w.h = bh - w.b * H;
+  w.kvh = w.h / G;
+  const int key_end = causal ? min(w.q0 + BM, S) : S;
+  w.ntiles = (key_end + BK - 1) / BK;  // the same for both consumer warpgroups
+  // the tiles that may hold keys >= S or above a row's diagonal: the last
+  // one, and with BK < BM under causality every tile of the query tile's
+  // own BM keys
+  w.first_masked = w.ntiles - (causal ? BM / BK : 1);
+  return w;
+}
+
+// The item CTA c takes in round r of a persistent grid of g CTAs: the
+// rounds run back and forth (c, then 2g - 1 - c, ...), so that the heavier
+// end of a round goes to every CTA in turn and their sums of work stay even.
+__device__ __forceinline__ int item_of(int r, int c, int g) { return r * g + ((r & 1) ? g - 1 - c : c); }
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-                      int H, int G, int causal, float scale_log2) {
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int B,
+                      int S, int H, int G, int causal, float scale_log2) {
   static_assert(D % 16 == 0, "a k-step of Q K^T takes 16 columns");
   constexpr int DP = padded(D);           // the row's laid-out width
   constexpr int NP = DP / PANEL;          // 64-wide panels per row
   constexpr int BK = block_k(DP);         // keys per K/V tile
   constexpr int Q_BYTES = Smem<DP>::Q, T_BYTES = Smem<DP>::TILE;
-  constexpr int NACC = DP / 2;            // O fragment: 64 x DP over 128 threads
+  constexpr int NACC = D / 2;             // O fragment: 64 x D over 128 threads
   constexpr int NS = BK / 2;              // S fragment: 64 x BK over 128 threads
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
   const uint32_t ring = base + Q_BYTES;   // stage st: K at ring + 2*st*T, V after it
-  const uint32_t q_full = ring + STAGES * 2 * T_BYTES;
-  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * STAGES;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - (bh / H) * H, kvh = h / G;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest tiles first
-  const int key_end = causal ? min(q0 + BM, S) : S;
-  const int ntiles = (key_end + BK - 1) / BK;
-  // the tiles that may hold keys >= S or above a row's diagonal: the last
-  // one, and with BK < BM under causality every tile of the query tile's
-  // own BM keys
-  const int first_masked = ntiles - (causal ? BM / BK : 1);
-  const int warp = threadIdx.x >> 5;
+  const uint32_t q_full = ring + STAGES * 2 * T_BYTES, q_empty = q_full + 8;
+  const uint32_t full0 = q_empty + 8, empty0 = full0 + 8 * STAGES;
+  const int BH = B * H, QT = (S + BM - 1) / BM, items = BH * QT;
+  // the warpgroup, read through a shuffle so that ptxas sees it uniform per warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMERS / 32);  // one arrival per consumer warp
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(full0 + 8 * st, 1);
       mbar_init(empty0 + 8 * st, 2);  // one arrival per consumer warpgroup
@@ -583,92 +754,138 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
   }
   __syncthreads();
 
-  if (warp == CONSUMERS / 32) {
-    // ---- producer warp: one thread issues every TMA load -----------------
+  // The roles split here and never meet again (ptxas honours setmaxnreg only so).
+  // Both walk the same items; the K/V ring's stages and phases run on across
+  // them (tile g of the CTA's walk uses stage g % STAGES), and so does Q's
+  // buffer, which a consumer warp gives back once it holds its rows in
+  // registers: the producer loads the next item's Q and K/V while the
+  // consumers finish this one.
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread issues every TMA load -------------
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(q_full, Q_BYTES);
-      for (int p = 0; p < NP; ++p) tma_load(sq + p * BM * 128, &tq, q_full, p * PANEL, h, q0, b);
-      for (int t = 0; t < ntiles; ++t) {
-        const int st = t % STAGES;
-        const uint32_t sk = ring + 2 * st * T_BYTES, sv = sk + T_BYTES;
-        mbar_wait(empty0 + 8 * st, ((t / STAGES) & 1) ^ 1);  // the first pass is free
-        mbar_expect_tx(full0 + 8 * st, 2 * T_BYTES);
-        for (int p = 0; p < NP; ++p) {
-          tma_load(sk + p * BK * 128, &tk, full0 + 8 * st, p * PANEL, kvh, t * BK, b);
-          tma_load(sv + p * BK * 128, &tv, full0 + 8 * st, p * PANEL, kvh, t * BK, b);
+      int g = 0;
+      for (int r = 0, i = item_of(0, blockIdx.x, gridDim.x); i < items;
+           i = item_of(++r, blockIdx.x, gridDim.x)) {
+        const Item w = item_at<BK>(i, BH, QT, S, H, G, causal);
+        mbar_wait_or_trap(q_empty, (r & 1) ^ 1);  // the first pass is free
+        mbar_expect_tx(q_full, Q_BYTES);
+        for (int p = 0; p < NP; ++p) tma_load(sq + p * BM * 128, &tq, q_full, p * PANEL, w.h, w.q0, w.b);
+        for (int t = 0; t < w.ntiles; ++t, ++g) {
+          const int st = g % STAGES;
+          const uint32_t sk = ring + 2 * st * T_BYTES, sv = sk + T_BYTES;
+          mbar_wait_or_trap(empty0 + 8 * st, ((g / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full0 + 8 * st, 2 * T_BYTES);
+          for (int p = 0; p < NP; ++p) {
+            tma_load(sk + p * BK * 128, &tk, full0 + 8 * st, p * PANEL, w.kvh, t * BK, w.b);
+            tma_load(sv + p * BK * 128, &tv, full0 + 8 * st, p * PANEL, w.kvh, t * BK, w.b);
+          }
         }
       }
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64*wg .. +63 ----------
-    const int wg = warp >> 2, lane = threadIdx.x & 31;
-    // accumulator fragment: this thread holds rows r0 and r0 + 8, and in every
-    // 8-column chunk j the columns 8j + cq and 8j + cq + 1
-    const int r0 = q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
-    const int cq = 2 * (lane & 3);
-    float acc[NACC];
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's share
-
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const bool leader = (threadIdx.x & 127) == 0;
+    const int my_turn = TURN_BAR + wg, their_turn = TURN_BAR + (wg ^ 1);
+    constexpr bool TURNS = takes_turns(DP);
     const uint32_t sq_wg = sq + wg * 64 * 128;
-    mbar_wait(q_full, 0);
-    for (int t = 0; t < ntiles; ++t) {
-      const int st = t % STAGES;
-      const uint32_t sk = ring + 2 * st * T_BYTES;
-      mbar_wait(full0 + 8 * st, (t / STAGES) & 1);
+    float acc[NACC], s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    uint32_t pa[NS / 2], qa[D / 4];
+    float alpha0, alpha1;
+    int g = 0;
+    for (int r = 0, i = item_of(0, blockIdx.x, gridDim.x); i < items;
+         i = item_of(++r, blockIdx.x, gridDim.x)) {
+      const Item w = item_at<BK>(i, BH, QT, S, H, G, causal);
+      // accumulator fragment: this thread holds rows r0 and r0 + 8, and in every
+      // 8-column chunk j the columns 8j + cq and 8j + cq + 1
+      const int r0 = w.q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+      const int cq = 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) acc[j] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's share
+
+      if (TURNS && wg == 1) turn_pass(TURN_BAR);  // warpgroup 0 issues first
+      mbar_wait(q_full, r & 1);
+      load_q<D>(qa, sq_wg, warp & 3, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);  // this warp holds its rows of Q
+
+      // tile 0: S(0) alone (O is still zero)
+      mbar_wait(full0 + 8 * (g % STAGES), (g / STAGES) & 1);
+      if (TURNS) turn_wait(my_turn);
       // The fragments are defined and fenced before each batch of wgmma, so
       // ptxas can keep the batch asynchronous instead of serialising it.
-      float s[NS];
-#pragma unroll
-      for (int i = 0; i < NS; ++i) s[i] = 0.f;
       fence_all<NS>(s);
-      fence_all<NACC>(acc);
       wgmma_fence();
-      qk<D, BK>(s, sq_wg, sk);
+      qk<D, BK>(s, qa, ring + 2 * (g % STAGES) * T_BYTES);
       wgmma_commit();
-      wgmma_wait_all();
+      if (TURNS && (wg == 0 || w.ntiles > 1)) turn_pass(their_turn);
+      wgmma_wait<0>();
       fence_all<NS>(s);
-
-      float alpha0, alpha1;
-      softmax<BK>(s, m0, m1, l0, l1, alpha0, alpha1,
-                  t >= first_masked, t * BK, r0, cq, S, causal,
+      softmax<BK>(s, m0, m1, l0, l1, alpha0, alpha1, 0 >= w.first_masked, 0, r0, cq, S, causal,
                   scale_log2);
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        acc[4 * j] *= alpha0;
-        acc[4 * j + 1] *= alpha0;
-        acc[4 * j + 2] *= alpha1;
-        acc[4 * j + 3] *= alpha1;
-      }
-      // P in bf16: the pairs of the fragment, in order, are the A fragments
-      // of the k16 steps of P V (step kk = keys 16kk .. 16kk + 15)
-      uint32_t pa[BK / 4];
-#pragma unroll
-      for (int i = 0; i < BK / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-      fence_all<NACC>(acc);
-      wgmma_fence();
-      pv<DP, BK>(acc, pa, sk + T_BYTES);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_all<NACC>(acc);
-      if ((threadIdx.x & 127) == 0) mbar_arrive(empty0 + 8 * st);  // this warpgroup is done with the stage
-    }
+      to_bf16<NS>(s, pa);
 
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    __nv_bfloat16* o0 = o + (((long long)b * S + r0) * H + h) * D + cq;
-    __nv_bfloat16* o1 = o0 + 8LL * H * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {  // the real columns only
-      if (r0 < S) {
-        *reinterpret_cast<uint32_t*>(o0 + 8 * j) = pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      for (int t = 1; t < w.ntiles; ++t) {
+        const int st = (g + t) % STAGES, prev = (g + t - 1) % STAGES;
+        mbar_wait(full0 + 8 * st, ((g + t) / STAGES) & 1);
+        if (TURNS) turn_wait(my_turn);
+        // S(t) = Q K(t)^T and O += P(t-1) V(t-1), two commit groups
+        fence_all<NS>(s);
+        fence_all<NACC>(acc);
+        fence_all<NS / 2>(pa);
+        wgmma_fence();
+        qk<D, BK>(s, qa, ring + 2 * st * T_BYTES);
+        wgmma_commit();
+        pv<D, BK>(acc, pa, ring + 2 * prev * T_BYTES + T_BYTES);
+        wgmma_commit();
+        if (TURNS && (wg == 0 || t + 1 < w.ntiles)) turn_pass(their_turn);
+        wgmma_wait<1>();  // S(t) is in; P(t-1) V(t-1) may still run
+        fence_all<NS>(s);
+        softmax<BK>(s, m0, m1, l0, l1, alpha0, alpha1, t >= w.first_masked, t * BK, r0, cq, S,
+                    causal, scale_log2);
+        wgmma_wait<0>();
+        fence_all<NACC>(acc);
+        fence_all<NS / 2>(pa);
+        if (leader) mbar_arrive(empty0 + 8 * prev);  // this warpgroup is done with stage prev
+        rescale<NACC>(acc, alpha0, alpha1);
+        to_bf16<NS>(s, pa);
       }
-      if (r0 + 8 < S) {
-        *reinterpret_cast<uint32_t*>(o1 + 8 * j) = pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+
+      // the last tile's P V
+      g += w.ntiles;
+      const int last = (g - 1) % STAGES;
+      fence_all<NACC>(acc);
+      fence_all<NS / 2>(pa);
+      wgmma_fence();
+      pv<D, BK>(acc, pa, ring + 2 * last * T_BYTES + T_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all<NACC>(acc);
+      if (leader) mbar_arrive(empty0 + 8 * last);
+
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      // 1 / max(l, 1e-30) by the SFU's reciprocal (l >= 1 in every row that
+      // sees a key): an IEEE division is a call to a slow path, and a call
+      // holds the consumers' registers to the ABI's budget
+      const float inv0 = __fdividef(1.f, fmaxf(l0, 1e-30f)), inv1 = __fdividef(1.f, fmaxf(l1, 1e-30f));
+      __nv_bfloat16* o0 = o + (((long long)w.b * S + r0) * H + w.h) * D + cq;
+      __nv_bfloat16* o1 = o0 + 8LL * H * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        if (r0 < S) {
+          *reinterpret_cast<uint32_t*>(o0 + 8 * j) = pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        }
+        if (r0 + 8 < S) {
+          *reinterpret_cast<uint32_t*>(o1 + 8 * j) = pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+        }
       }
     }
   }  // consumers
@@ -727,14 +944,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (opt_in != cudaSuccess) return opt_in;
+  // The block is granted numRegs a thread at launch; setmaxnreg.inc waits
+  // until the producer's setmaxnreg.dec has freed enough of them, for ever
+  // if the grant is smaller than what the roles take.
+  static const int granted = [] {
+    cudaFuncAttributes attr;
+    return cudaFuncGetAttributes(&attr, flash_attention_wgmma<D>) == cudaSuccess ? attr.numRegs : 0;
+  }();
+  if (granted * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS) {
+    return cudaErrorInvalidConfiguration;
+  }
   CUtensorMap tq, tk, tv;
   cudaError_t e = encode(&tq, q, maps);
   if (e == cudaSuccess) e = encode(&tk, k, maps + 11);
   if (e == cudaSuccess) e = encode(&tv, v, maps + 22);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (S + BM - 1) / BM);
-  flash_attention_wgmma<D><<<grid, THREADS, BYTES, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, S, H, H / KV, causal, 1.4426950408889634f / sqrtf((float)D));
+  // a persistent grid: one CTA an SM (the block's registers and shared
+  // memory allow no second), each walking its share of the items
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)B * H * ((S + BM - 1) / BM);
+  flash_attention_wgmma<D><<<(unsigned)(items < sms ? items : sms), THREADS, BYTES, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, B, S, H, H / KV, causal, 1.4426950408889634f / sqrtf((float)D));
   return cudaGetLastError();
 }
 

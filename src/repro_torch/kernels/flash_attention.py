@@ -34,9 +34,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: query rows per CTA, keys per K/V tile, ring stages, bf16 per 128-byte
 #: swizzled TMA box row
 TC_BLOCK_Q, TC_BLOCK_K, TC_STAGES, TC_PANEL = 128, 128, 3, 64
-#: keys per K/V tile past a 128-wide row (``tc::BN_WIDE``, D = 192): O, S and
-#: P fit ptxas's 168 registers, and Q plus the ring the 227 KB of shared memory
+#: keys per K/V tile past a 128-wide row (``tc::BN_WIDE``, D = 192): Q plus
+#: the ring fit the 227 KB of shared memory
 TC_BLOCK_K_WIDE = 64
+#: threads per CTA: two consumer warpgroups and the producer warpgroup
+TC_THREADS = 384
+#: registers a thread after ``setmaxnreg``: the producer warpgroup's and
+#: the consumers' (24 x 128 + 240 x 256 = 168 x 384, the launch's grant)
+TC_PRODUCER_REGS, TC_CONSUMER_REGS = 24, 240
+#: the named barriers on which consumer warpgroups 0 and 1 wait their turn
+#: to issue GEMMs (0 is ``__syncthreads``)
+TC_TURN_BARRIERS = (1, 2)
 #: the f32 CUDA-core instance (namespace cc): query rows per tile
 CC_BLOCK_Q = 64
 
@@ -126,19 +134,44 @@ def tc_block_k(d: int) -> int:
     return TC_BLOCK_K_WIDE if tc_padded_dim(d) > 128 else TC_BLOCK_K
 
 
+def tc_takes_turns(d: int) -> bool:
+    """Whether the bf16 instance's two consumer warpgroups take turns to
+    issue their GEMMs by named barriers (``tc::takes_turns``): up to a
+    128-wide row; past it (D = 192) they issue as they come."""
+    return tc_padded_dim(d) <= 128
+
+
+def tc_walk(items: int, ctas: int) -> list:
+    """The work items each CTA of the bf16 instance's persistent grid takes,
+    in order (``tc::item_of``): CTA c takes one a round, the rounds running
+    back and forth over the CTAs (c, then 2 * ctas - 1 - c, ...)."""
+    walks = []
+    for c in range(ctas):
+        walk, r = [], 0
+        while (i := r * ctas + (ctas - 1 - c if r & 1 else c)) < items:
+            walk.append(i)
+            r += 1
+        walks.append(walk)
+    return walks
+
+
 def _tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of the bf16 instance for head dim ``d``
     (``tc::Smem<padded(D)>::BYTES``): 1 KB to align to the swizzle atom, Q,
-    the K/V ring, its mbarriers."""
+    the K/V ring, its mbarriers (Q full and empty, a full and an empty one
+    per stage)."""
     dp = tc_padded_dim(d)
-    return 1024 + 2 * TC_BLOCK_Q * dp + TC_STAGES * 2 * 2 * tc_block_k(d) * dp + 8 * (1 + 2 * TC_STAGES)
+    return 1024 + 2 * TC_BLOCK_Q * dp + TC_STAGES * 2 * 2 * tc_block_k(d) * dp + 8 * (2 + 2 * TC_STAGES)
 
 
 def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v_strides=None) -> dict:
     """What a launch of ``flash_attention`` on q (B, S, H, D) and k/v
     (B, S, ``kv_heads``, D) of ``dtype`` hands the C entry or checks before
-    it: the instance, the grid (checked against one launch's limits), the
-    dynamic shared memory and the bf16 instance's keys per K/V tile and
+    it: the instance, the grid of work items, (b * h, query tiles), checked
+    against one launch's limits (the f32 instance runs a block an item; the
+    bf16 instance's persistent grid, one CTA an SM, walks them), the
+    threads per block, the dynamic shared memory and the bf16 instance's
+    keys per K/V tile, whether its consumer warpgroups take turns, and its
     tensor maps (the C entry checks the bytes and the maps' box rows against
     its own).  Strides (elements, default contiguous) matter only to the
     maps."""
@@ -148,8 +181,8 @@ def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v
         contiguous = (s * h * d, h * d, d, 1), (s * kv_heads * d, kv_heads * d, d, 1)
         bk = tc_block_k(d)
         return dict(
-            instance="tc_bf16", grid=(b * h, -(-s // TC_BLOCK_Q)), dynamic_smem_bytes=_tc_smem_bytes(d),
-            block_k=bk,
+            instance="tc_bf16", grid=(b * h, -(-s // TC_BLOCK_Q)), threads=TC_THREADS,
+            dynamic_smem_bytes=_tc_smem_bytes(d), block_k=bk, turns=tc_takes_turns(d),
             maps=dict(
                 q=tensor_map(q_shape, q_strides or contiguous[0], TC_BLOCK_Q),
                 k=tensor_map(kv_shape, k_strides or contiguous[1], bk),
@@ -157,7 +190,8 @@ def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v
             ),
         )
     if dtype == torch.float32:
-        return dict(instance="cc_f32", grid=(b * h, -(-s // CC_BLOCK_Q)), dynamic_smem_bytes=0, maps=None)
+        return dict(instance="cc_f32", grid=(b * h, -(-s // CC_BLOCK_Q)), threads=2 * CC_BLOCK_Q,
+                    dynamic_smem_bytes=0, maps=None)
     raise ValueError(f"flash_attention: the kernel takes float32 or bfloat16, got {dtype}")
 
 
@@ -207,7 +241,7 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     view = _tma_view if q.dtype == torch.bfloat16 else build.aligned_view
     q, k, v = view(q), view(k), view(v)
     plan = launch_plan(q.shape, kvh, q.dtype, q.stride(), k.stride(), v.stride())
-    if plan["grid"][1] > 65535 or plan["grid"][0] > (1 << 31) - 1:
+    if plan["grid"][1] > 65535 or plan["grid"][0] * plan["grid"][1] > (1 << 31) - 1:
         raise ValueError(f"flash_attention: {tuple(q.shape)} exceeds one launch")
     fn = build.library("flash_attention").flash_attention
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 + [

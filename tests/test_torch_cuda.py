@@ -844,6 +844,57 @@ def test_flash_attention_bf16_rescale_when_the_max_is_in_the_last_tile(cuda, cau
 
 
 @pytest.mark.parametrize("d", [64, 80, 128, 192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_repeats_bitwise(cuda, causal, d):
+    """The consumer warpgroups take turns by named barriers and run their
+    softmax under each other's GEMMs, and the producer loads the next work
+    item under this one: nothing of the result may depend on that timing,
+    so one call made again gives the same bits (many query and key tiles,
+    G 4)."""
+    q, k, v = _cuda_attn(d + causal, 2, 1000, 8, 2, d, torch.bfloat16, cuda)
+    got = flash_attention(q, k, v, causal)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v, causal), got)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_grid_under_one_wave(cuda, causal, d):
+    """(1, 256, 2 / 1 KV heads): four work items, so a persistent grid of
+    four CTAs on a card of 132 SMs whose walk ends after one round, each
+    item with up to two query tiles' worth of key tiles (four at D 192)."""
+    q, k, v = _cuda_attn(3 * d, 1, 256, 2, 1, d, torch.bfloat16, cuda)
+    from repro_torch.kernels.flash_attention import launch_plan
+
+    assert launch_plan(q.shape, 1, q.dtype)["grid"] == (2, 2)
+    got = flash_attention(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+def test_flash_attention_bf16_non_causal_rows_of_both_warpgroups_peak_in_every_tile(cuda, d):
+    """Non-causal, so both consumer warpgroups run every key tile: the rows
+    of each warpgroup (the first and second 64 of a query tile) have their
+    maximum planted in a different key tile each, from the first to the
+    last, so the running max moves in every tile of both warpgroups' turns."""
+    s = 640
+    q, k, v = _cuda_attn(11 * d, 1, s, 2, 1, d, torch.bfloat16, cuda)
+    rows = torch.arange(0, s, 37, device=cuda)
+    keys = (rows * 97) % s  # rows in both halves of every query tile, keys in every tile
+    k[0, keys, 0] = q[0, rows, 0]
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+    scores = q[0, rows, 0].float() @ k[0, :, 0].float().T
+    assert bool((scores.argmax(-1) == keys).all())  # the maximum does sit there
+    assert {int(r) % 128 >= 64 for r in rows} == {False, True}
+    assert len({int(j) // 64 for j in keys}) == s // 64
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("s,causal", [(65, True), (257, False), (1000, True)])
 def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
     """f32 inputs stay on the f32 CUDA-core instance, within 2e-5 of the

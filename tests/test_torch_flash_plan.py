@@ -44,23 +44,27 @@ def test_k6_plan_rejects_other_dtypes():
     "shape,kv", [((1, 8192, 32, 128), 8), ((2, 63, 4, 64), 4), ((2, 129, 8, 128), 1), ((3, 4113, 16, 64), 2)]
 )
 def test_k6_tiles_and_grid(shape, kv):
-    """One block per (b * h, query tile): 128 rows in bf16, 64 in f32 (the
-    tile sizes are held to the sources below)."""
+    """One work item per (b * h, query tile): 128 rows in bf16, 64 in f32
+    (the tile sizes are held to the sources below); the bf16 block is three
+    warpgroups, two consumers and the producer, the f32 block two threads a
+    row."""
     b, s, h, _ = shape
-    assert fa.launch_plan(shape, kv, torch.bfloat16)["grid"] == (b * h, -(-s // 128))
-    assert fa.launch_plan(shape, kv, torch.float32)["grid"] == (b * h, -(-s // 64))
+    tc, cc = fa.launch_plan(shape, kv, torch.bfloat16), fa.launch_plan(shape, kv, torch.float32)
+    assert tc["grid"] == (b * h, -(-s // 128)) and tc["threads"] == 384 == 3 * 128
+    assert cc["grid"] == (b * h, -(-s // 64)) and cc["threads"] == 128
 
 
-@pytest.mark.parametrize("d,dynamic", [(64, 115_768), (80, 230_456), (128, 230_456), (192, 197_688)])
+@pytest.mark.parametrize("d,dynamic", [(64, 115_776), (80, 230_464), (128, 230_464), (192, 197_696)])
 def test_k6_shared_memory_fits(d, dynamic):
-    """Q + three K/V stages + alignment slack + seven mbarriers, under the
+    """Q + three K/V stages + alignment slack + eight mbarriers (Q full and
+    empty, a full and an empty one per stage), under the
     227 KB a block may use, at the padded row width (D = 80 is laid out as
     128, the D = 128 instance's bytes) and the instance's keys per K/V tile
-    (64 at D = 192: 128-key stages would take 345,144 bytes); the f32
+    (64 at D = 192: 128-key stages would take 345,152 bytes); the f32
     instance has none dynamic."""
     tc = fa.launch_plan((1, 256, 2, d), 1, torch.bfloat16)
     dp, bk = fa.tc_padded_dim(d), fa.tc_block_k(d)
-    assert tc["dynamic_smem_bytes"] == dynamic == 1024 + 2 * 128 * dp + 3 * 2 * 2 * bk * dp + 8 * 7
+    assert tc["dynamic_smem_bytes"] == dynamic == 1024 + 2 * 128 * dp + 3 * 2 * 2 * bk * dp + 8 * 8
     assert tc["dynamic_smem_bytes"] <= LIMIT
     assert fa.launch_plan((1, 256, 2, d), 1, torch.float32)["dynamic_smem_bytes"] == 0
 
@@ -84,26 +88,27 @@ def test_k6_tensor_maps_at_head_dim_80_keep_the_real_width():
 
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_k6_plans_up_to_a_128_wide_row_keep_128_key_tiles(d):
-    """The D 64/80/128 instances as they were before D = 192 came: 128-key
-    K/V tiles, so their maps' boxes, shared memory and grid are unchanged."""
+    """The D 64/80/128 instances: 128-key K/V tiles, so their maps' boxes
+    and grid are those from before D = 192 came; their consumer warpgroups
+    take turns."""
     plan = fa.launch_plan((2, 1000, 8, d), 2, torch.bfloat16)
-    assert fa.tc_block_k(d) == fa.TC_BLOCK_K == plan["block_k"] == 128
+    assert fa.tc_block_k(d) == fa.TC_BLOCK_K == plan["block_k"] == 128 and plan["turns"]
     assert plan["grid"] == (16, 8)
     for name in ("q", "k", "v"):
         assert plan["maps"][name]["box"] == (64, 1, 128, 1)
-    assert plan["dynamic_smem_bytes"] == {64: 115_768, 80: 230_456, 128: 230_456}[d]
+    assert plan["dynamic_smem_bytes"] == {64: 115_776, 80: 230_464, 128: 230_464}[d]
 
 
 def test_k6_plan_at_head_dim_192():
     """nemotron-4's (1, 8192, 96 / 8 heads, 192): three whole 64-wide panels,
     no padding; 128-row query tiles (the q map's box) and 64-key K/V tiles
-    (the k/v maps' boxes); 197,688 bytes of shared memory, under the limit;
+    (the k/v maps' boxes); 197,696 bytes of shared memory, under the limit;
     one CTA per (head, query tile)."""
     plan = fa.launch_plan((1, 8192, 96, 192), 8, torch.bfloat16)
     assert fa.tc_padded_dim(192) == 192 and fa.tc_block_k(192) == fa.TC_BLOCK_K_WIDE == 64
-    assert plan["instance"] == "tc_bf16" and plan["block_k"] == 64
+    assert plan["instance"] == "tc_bf16" and plan["block_k"] == 64 and not plan["turns"]
     assert plan["grid"] == (96, 64)
-    assert plan["dynamic_smem_bytes"] == 1024 + 49_152 + 3 * 2 * 24_576 + 56 == 197_688 <= LIMIT
+    assert plan["dynamic_smem_bytes"] == 1024 + 49_152 + 3 * 2 * 24_576 + 64 == 197_696 <= LIMIT
     assert plan["maps"]["q"] == dict(dims=(192, 96, 8192, 1), strides=(384, 96 * 384, 8192 * 96 * 384),
                                      box=(64, 1, 128, 1))
     for name in ("k", "v"):
@@ -166,11 +171,130 @@ def test_k6_tma_view_copies_broadcast_operands():
     assert fa._tma_view(k).is_contiguous()
 
 
+def test_k6_register_budget_fits_the_launch_grant():
+    """``__launch_bounds__(384, 1)`` grants 168 registers a thread (65,536
+    over 384, rounded down to the allocation unit of 8); after
+    ``setmaxnreg`` the producer warpgroup holds 24 and the two consumer
+    warpgroups 240 each, exactly the grant, and every count is a multiple of
+    8 in [24, 256] as ``setmaxnreg`` wants."""
+    grant = 65_536 // fa.TC_THREADS // 8 * 8
+    assert grant == 168
+    assert fa.TC_PRODUCER_REGS * 128 + fa.TC_CONSUMER_REGS * (fa.TC_THREADS - 128) == grant * fa.TC_THREADS
+    for n in (fa.TC_PRODUCER_REGS, fa.TC_CONSUMER_REGS):
+        assert n % 8 == 0 and 24 <= n <= 256
+    # the fragments a consumer holds at once, over 128 threads: O (64 x D)
+    # and S(t+1) (64 x block_k) in f32, P(t) (64 x block_k) and Q (64 x D)
+    # in bf16
+    for d, live in ((64, 144), (80, 156), (128, 192), (192, 192)):
+        bk = fa.tc_block_k(d)
+        assert d // 2 + bk // 2 + bk // 4 + d // 4 == live < fa.TC_CONSUMER_REGS
+
+
+@pytest.mark.parametrize("items,ctas", [(1, 1), (4, 132), (132, 132), (133, 132), (2048, 132), (8192, 132),
+                                         (6144, 132), (1000, 7)])
+def test_k6_persistent_walk_takes_every_item_once(items, ctas):
+    """The persistent grid (min(items, SMs) CTAs) covers every work item
+    once, each CTA in increasing order, one a round."""
+    walks = fa.tc_walk(items, min(items, ctas))
+    assert sorted(i for w in walks for i in w) == list(range(items))
+    assert all(w == sorted(w) and len(w) >= 1 for w in walks)
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+
+
+@pytest.mark.parametrize("shape,kv", [((1, 8192, 32, 128), 8), ((1, 8192, 48, 128), 8), ((1, 8192, 96, 192), 8),
+                                      ((1, 8192, 16, 64), 16), ((1, 32768, 32, 128), 8)])
+def test_k6_persistent_walk_evens_causal_work(shape, kv):
+    """The phase-2 rows, causal, items heaviest first on 132 CTAs: walking
+    back and forth, every CTA's K/V tiles are within 0.5 % of the mean (a
+    plain stride, CTA c taking c, c + 132, ..., would leave the heaviest
+    1.6-13 % over it)."""
+    b, s, h, d = shape
+    plan = fa.launch_plan(shape, kv, torch.bfloat16)
+    bh, qt = plan["grid"]
+    bk = plan["block_k"]
+
+    def tiles(i):  # a causal query tile's key tiles
+        return (qt - 1 - i // bh + 1) * 128 // bk
+
+    work = [sum(map(tiles, w)) for w in fa.tc_walk(bh * qt, 132)]
+    mean = sum(work) / len(work)
+    assert max(work) <= 1.005 * mean
+
+
 def test_k6_maps_argument_layout():
     plan = fa.launch_plan((1, 300, 4, 64), 2, torch.bfloat16)
     arg = fa._maps_arg(plan["maps"])
     assert len(arg) == 33
     assert list(arg)[:11] == [64, 4, 300, 1, 128, 512, 300 * 512, 64, 1, 128, 1]
+
+
+def _k6_emulated(q, k, v, causal):
+    """The bf16 instance's arithmetic in its order, with the plain version's
+    operations, on the CPU: per 128-row query tile and per K/V tile of
+    ``tc_block_k(D)`` keys, S in f32 from bf16 products, masked from indices
+    on the last tiles only; the online softmax in log2 units (l sums P in
+    f32); S(t) formed and its softmax run before O, which holds P(t-1) V(t-1)
+    by then, is rescaled for tile t; P rounded to bf16 for P V; O times
+    1 / max(l, 1e-30) rounded to bf16."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    bk = fa.tc_block_k(d)
+    scale = math.log2(math.e) / math.sqrt(d)
+    qf = q.float().permute(0, 2, 1, 3)
+    kf, vf = (x.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1) for x in (k, v))
+    out = torch.empty((b, h, s, d))
+    for q0 in range(0, s, fa.TC_BLOCK_Q):
+        rows = torch.arange(q0, min(q0 + fa.TC_BLOCK_Q, s))
+        ntiles = -(-(min(q0 + fa.TC_BLOCK_Q, s) if causal else s) // bk)
+        first_masked = ntiles - (fa.TC_BLOCK_Q // bk if causal else 1)
+        m = torch.full((b, h, len(rows)), -math.inf)
+        l = torch.zeros((b, h, len(rows)))
+        o = torch.zeros((b, h, len(rows), d))
+
+        def softmax(t):
+            nonlocal m, l
+            keys = torch.arange(t * bk, min(t * bk + bk, s))
+            sc = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            if t >= first_masked and causal:
+                sc = sc.masked_fill(keys[None, :] > rows[:, None], -math.inf)
+            mx = torch.maximum(m, sc.amax(-1))
+            sub = torch.where(mx == -math.inf, 0.0, mx * scale)
+            alpha = torch.exp2(m * scale - sub)
+            p = torch.exp2(sc * scale - sub[..., None])
+            l, m = l * alpha + p.sum(-1), mx
+            return p, alpha, keys
+
+        p, _, keys = softmax(0)
+        for t in range(1, ntiles):
+            p_next, alpha, keys_next = softmax(t)  # S(t) before O's rescale for tile t
+            o = (o + p.to(torch.bfloat16).float() @ vf[:, :, keys]) * alpha[..., None]
+            p, keys = p_next, keys_next
+        o = o + p.to(torch.bfloat16).float() @ vf[:, :, keys]
+        out[:, :, rows] = o * (1 / l.clamp_min(1e-30))[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("g", [1, 5, 6, 12])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+def test_k6_pipelined_numerics_hold_the_smoke_gate(d, g):
+    """The redesigned order (S(t+1) issued under softmax(t), O rescaled
+    after P(t) V(t) retires, P in bf16) over 300 queries (three query tiles,
+    the last ragged) at group g: within 3e-2 of ``flash_attention_plain``
+    and, per 128-row query tile, 1e-2 relative L2 error (the gate the
+    card's smoke holds the kernel to), causal and not."""
+    b, kv, s = 1, 2, 300
+    rng = np.random.default_rng(d + g)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(torch.bfloat16)
+               for sh in ((b, s, g * kv, d), (b, s, kv, d), (b, s, kv, d)))
+    for causal in (True, False):
+        got = _k6_emulated(q, k, v, causal).float()
+        want = fa.flash_attention_plain(q, k, v, causal).float()
+        torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+        d2 = (got - want).square().reshape(b, s, -1).sum(-1)
+        w2 = want.square().reshape(b, s, -1).sum(-1)
+        tiles = [slice(i, i + 128) for i in range(0, s, 128)]
+        rel = max(float((d2[:, t].sum(-1) / w2[:, t].sum(-1)).sqrt().max()) for t in tiles)
+        assert rel <= 1e-2
 
 
 # --------------------------------------------------------------------------- #
@@ -426,6 +550,27 @@ def test_plans_match_the_cuda_sources():
     assert _constant(tc, "PANEL") == str(fa.TC_PANEL)
     assert "padded(int d) { return (d + PANEL - 1) / PANEL * PANEL; }" in tc
     assert "Smem<padded(D)>::BYTES" in tc
+    # warp-specialised roles: two consumer warpgroups and the producer
+    # warpgroup, registers handed over by setmaxnreg, turns by named barriers
+    assert _constant(tc, "CONSUMERS") == "256" and _constant(tc, "THREADS") == "CONSUMERS + 128"
+    assert 256 + 128 == fa.TC_THREADS
+    assert _constant(tc, "PRODUCER_REGS") == str(fa.TC_PRODUCER_REGS)
+    assert _constant(tc, "CONSUMER_REGS") == str(fa.TC_CONSUMER_REGS)
+    assert "setmaxnreg_dec<PRODUCER_REGS>();" in tc and "setmaxnreg_inc<CONSUMER_REGS>();" in tc
+    assert "__launch_bounds__(THREADS, 1)\nflash_attention_wgmma" in tc
+    assert _constant(tc, "TURN_BAR") == str(fa.TC_TURN_BARRIERS[0])
+    assert "my_turn = TURN_BAR + wg, their_turn = TURN_BAR + (wg ^ 1);" in tc
+    assert fa.TC_TURN_BARRIERS == (1, 2)  # 0 is __syncthreads
+    assert "takes_turns(int dp) { return dp <= 128; }" in tc and "constexpr bool TURNS = takes_turns(DP);" in tc
+    assert [fa.tc_takes_turns(d) for d in fa.HEAD_DIMS] == [True, True, True, False]
+    assert "static constexpr int BARRIERS = 8 * (2 + 2 * STAGES);" in tc
+    assert 'bar.sync %0, %1;" ::"r"(bar), "n"(CONSUMERS)' in tc
+    assert "wgmma_wait<1>();" in tc  # S(t) retires while P(t-1) V(t-1) runs
+    assert "qa[D / 4];" in tc and "load_q<D>(qa, sq_wg, warp & 3, lane);" in tc  # Q in registers
+    # the persistent walk (tc_walk) and the grid of min(items, SMs) CTAs
+    assert "int item_of(int r, int c, int g) { return r * g + ((r & 1) ? g - 1 - c : c); }" in tc
+    assert "<<<(unsigned)(items < sms ? items : sms), THREADS, BYTES, stream>>>" in tc
+    assert "w.q0 = (QT - 1 - i / BH) * BM;" in tc  # heaviest query tiles first
     cc = attn[attn.index("namespace cc {"):attn.index("namespace tc {")]
     assert _constant(cc, "BQ") == str(fa.CC_BLOCK_Q)
     dec = (CSRC / "flash_decode.cu").read_text()
