@@ -30,6 +30,8 @@ comes out:
    serialised)), and the ``HGMMA`` (wgmma) and ``USETMAXREG``
    (``setmaxnreg``) instructions in the SASS of each bf16
    ``flash_attention`` instance (``cuobjdump -sass``): at least one and two;
+   every f32 K6 instance must not spill either, and its SASS must hold
+   ``FFMA``s and no ``HMMA`` or ``HGMMA`` (exact f32 products);
 2. kernels vs their plain versions at the main path's shapes (exact,
    ``lap_bid_fused_batched`` bit for bit also on non-integer costs; the bid
    kernels also at 1x4096x4096, more than the L2 holds, and
@@ -54,7 +56,9 @@ comes out:
    ``flash_attention`` and ``flash_decode`` in bf16 at 3e-2 and within 1e-2
    relative L2 error per 128-query tile / per head, at the serving path's
    shapes, at ``prefill_32k`` / ``decode_32k``'s length, at zamba2's
-   head dim 80 and nemotron-4's 192 (K6 also in f32 at both, within 2e-5)
+   head dim 80 and nemotron-4's 192 (K6 also in f32 at both and at 128 and
+   64, within 2e-5; K7 in f32 on (e)'s cache and over whole 32768-slot
+   caches at D 128 and 192, within 2e-5)
    and at deepseek-67b's 64 / 8 heads (K7 also over a whole 32768-slot
    cache at D 192, groups 12 and 1, and at D 128, group 8, on its
    tensor-core instance), with
@@ -247,16 +251,20 @@ FULL = dict(
         # deepseek-67b's 64/8 heads (group 8, a K7 warp holds 2 heads; its
         # path has no whole-model row), seamless-m4t-medium's 16 heads at
         # D 64 (the encoder-decoder's decoder prefill, row (e6)); K6 in f32
-        # at D 80 and D 192 too; K7
+        # at D 80, 192, 128 (row (e)'s heads) and 64 (row (e6)'s) too; K7
         # at D 192 over a whole 32768-slot cache at group 12 and, on the
         # same bytes, at group 1: a twelfth of the scoring, so its time
         # says whether the 2-stage ring hides the copies; K7 on (e6)'s
         # served cache (D 64, group 1); the whole cache at D 128 and
-        # deepseek-67b's group 8
+        # deepseek-67b's group 8; K7 in f32 on row (e)'s served cache, over a
+        # whole 32768-slot cache at D 128 and at D 192, group 12
         k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128),
                    (1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192), (1, 8192, 64, 8, 128),
                    (1, 8192, 16, 16, 64)],
-        k6_f32_shapes=[(1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192)],
+        k6_f32_shapes=[(1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192), (1, 8192, 32, 8, 128),
+                       (1, 8192, 16, 16, 64)],
+        k7_f32_shapes=[(8, 8192, 32, 8, 128, 63), (8, 32768, 32, 8, 128, 32768),
+                       (8, 32768, 96, 8, 192, 32768)],
         k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768),
                    (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63),
                    (8, 8192, 96, 8, 192, 63), (8, 8192, 64, 8, 128, 63),
@@ -340,7 +348,8 @@ SCALABILITY_REHEARSAL = dict(job_counts=[128], clusters=[(16, 4)])
 SERVE_REHEARSAL = dict(
     arch="llama3-8b", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64,
     k6_shapes=[(1, 64, 4, 2, 64), (1, 64, 4, 4, 80), (1, 64, 12, 1, 192)],
-    k6_f32_shapes=[(1, 64, 4, 4, 80), (1, 64, 12, 1, 192)],
+    k6_f32_shapes=[(1, 64, 4, 4, 80), (1, 64, 12, 1, 192), (1, 64, 4, 2, 128), (1, 64, 2, 2, 64)],
+    k7_f32_shapes=[(2, 64, 4, 2, 128, 15), (2, 64, 12, 1, 192, 64)],
     k7_shapes=[(2, 64, 4, 2, 64, 15), (2, 64, 4, 4, 80, 15), (2, 64, 12, 1, 192, 15)],
 )
 
@@ -1007,19 +1016,23 @@ def compare_flash_attention(shape, device, seed, long=False, dtype="bfloat16"):
 
 
 def k7_symbol(plan, d):
-    """The part of the mangled name of the bf16 partial kernel a K7 ``plan``
-    at head dim ``d`` launches, as ``ptxas`` reports it."""
+    """The part of the mangled name of the partial kernel a K7 ``plan`` at
+    head dim ``d`` launches, as ``ptxas`` reports it."""
     if plan["instance"] == "mma_bf16":
         return f"flash_decode_partial_mmaILi{d}E"
+    if plan["instance"] == "cc_f32":
+        return f"flash_decode_partialIfLi{d}EE"
     return f"flash_decode_partial_ringILi{d}ELi{plan['heads_per_warp']}EE"
 
 
-def compare_flash_decode(shape, device, seed, ptxas=None):
-    """``flash_decode`` (K7) against its plain version on a random bf16
-    cache (B, S, KV, D), ``valid_len`` slots valid, at 3e-2 and, per head,
-    within ``REL_TOL`` relative L2 error; on the card the plan's blocks per
-    SM held to the occupancy calculator's, and (``ptxas``: phase 1's
-    report) the instance's registers and spills beside the row."""
+def compare_flash_decode(shape, device, seed, ptxas=None, dtype="bfloat16"):
+    """``flash_decode`` (K7) against its plain version on a random cache
+    (B, S, KV, D) of ``dtype``, ``valid_len`` slots valid, at ``ATTN_TOL``
+    and, per head, within ``REL_TOL`` relative L2 error; on the card a bf16
+    plan's blocks per SM held to the occupancy calculator's, and
+    (``ptxas``: phase 1's report) the instance's registers and spills
+    beside the row.  The bound counts bytes of ``dtype`` and bf16 work at
+    the tensor cores' peak, f32 work at the CUDA cores'."""
     import torch
     import torch.nn.functional as F
 
@@ -1028,18 +1041,19 @@ def compare_flash_decode(shape, device, seed, ptxas=None):
 
     b, s, h, kv, d, valid = shape
     gen = torch.Generator(device=device).manual_seed(seed)
+    tdtype, tol = getattr(torch, dtype), ATTN_TOL[dtype]
 
     def rand(*sh):
-        return torch.randn(sh, generator=gen, device=device).to(torch.bfloat16)
+        return torch.randn(sh, generator=gen, device=device).to(tdtype)
 
     q, k, v = rand(b, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
     plan = fd.launch_plan(q.shape, k.shape, q.dtype)
     got = flash_decode(q, k, v, valid)
     want = flash_decode_plain(q, k, v, valid)
-    err, ok = logits_close(got, want, 3e-2)
-    check(ok, f"flash_decode {shape}: differs from plain beyond 3e-2 (max {err})")
+    err, ok = logits_close(got, want, tol)
+    check(ok, f"flash_decode {shape} {dtype}: differs from plain beyond {tol} (max {err})")
     rel = rel_err(got, want)
-    check(rel <= REL_TOL, f"flash_decode {shape}: a head's relative error {rel} > {REL_TOL}")
+    check(rel <= REL_TOL, f"flash_decode {shape} {dtype}: a head's relative error {rel} > {REL_TOL}")
     mask = (torch.arange(s, device=device) < valid)[None, None, None, :]
 
     def library():
@@ -1048,13 +1062,14 @@ def compare_flash_decode(shape, device, seed, ptxas=None):
         )
 
     lib_err, lib_ok = logits_close(library()[:, :, 0], want, 3e-2)
-    check(lib_ok, f"flash_decode {shape}: scaled_dot_product_attention disagrees ({lib_err})")
-    nbytes = 2 * (2 * b * valid * kv * d + 2 * b * h * d)  # valid K, V slots; q, out
+    check(lib_ok, f"flash_decode {shape} {dtype}: scaled_dot_product_attention disagrees ({lib_err})")
+    # valid K, V slots; q, out
+    nbytes = q.element_size() * (2 * b * valid * kv * d + 2 * b * h * d)
     ops = 4 * b * h * valid * d
-    bnd, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S)
+    bnd, by = bound_ms(nbytes, ops, PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_F32_OPS_PER_S)
     g = dict(reps=10, replays=3)
     row = dict(
-        shape=list(shape), dtype="bfloat16", max_abs_err=err, rel_err=rel, library_err=lib_err,
+        shape=list(shape), dtype=dtype, max_abs_err=err, rel_err=rel, library_err=lib_err,
         **{key: plan[key] for key in ("instance", "splits", "tiles_per_split", "blocks",
                                        "blocks_per_sm")},
         ms=graph_ms(lambda: flash_decode(q, k, v, valid), device, **g),
@@ -1067,13 +1082,14 @@ def compare_flash_decode(shape, device, seed, ptxas=None):
     row["gb_per_s"] = nbytes / row["ms"] / 1e6
     row.update(share_of_bound=bnd / row["ms"], x_library=row["ms"] / row["library_ms"])
     if device.type == "cuda":
-        row["card_blocks_per_sm"] = fd.card_blocks_per_sm(plan, d)
-        check(row["card_blocks_per_sm"] == plan["blocks_per_sm"],
-              f"flash_decode {shape}: the plan counts {plan['blocks_per_sm']} blocks an SM, the "
-              f"card's occupancy calculator {row['card_blocks_per_sm']}")
+        if dtype == "bfloat16":
+            row["card_blocks_per_sm"] = fd.card_blocks_per_sm(plan, d)
+            check(row["card_blocks_per_sm"] == plan["blocks_per_sm"],
+                  f"flash_decode {shape}: the plan counts {plan['blocks_per_sm']} blocks an SM, the "
+                  f"card's occupancy calculator {row['card_blocks_per_sm']}")
         sym = k7_symbol(plan, d)
         row["ptxas"] = {fn: r for fn, r in (ptxas or {}).items() if sym in fn}
-    log(f"[kernel] flash_decode {shape}: within 3e-2 of plain, worst head's relative error "
+    log(f"[kernel] flash_decode {shape} {dtype}: within {tol} of plain, worst head's relative error "
         f"{rel:.3g} (limit {REL_TOL}); " + json.dumps(row))
     return row
 
@@ -1585,6 +1601,8 @@ def serve_row(device, scale):
         check(bool(torch.isfinite(logits).all()), f"{c.name} {c.dtype} forward: logits are not finite")
         want = attention_calls(c) if (flash and gqa and cuda) else 0
         expect["flash_attention"] += want
+        if c.dtype == "float32":  # K6's f32 instance: the f32 checks
+            out["k6_f32_launches"] = out.get("k6_f32_launches", 0) + want
         if cuda:
             check(fa.flash_attention.launches - n0 == want,
                   f"{c.name} forward: K6 launched {fa.flash_attention.launches - n0} times, wanted {want}")
@@ -1743,8 +1761,14 @@ def serve_row(device, scale):
                 out["bf16_prefill_flash_vs_f32"] = logits_stats(logits, ref, 0.05)
                 out["bf16_prefill_einsum_vs_f32"] = logits_stats(einsum_logits, ref, 0.05)
                 del logits, einsum_logits
+            if cuda:
+                torch.cuda.synchronize()
+            t32 = time.perf_counter()
             with RouteRecorder() as flash_routes:
                 flash32, _ = forward(params32, cfg32, tokens32, images=image, frames=frames)
+            if cuda:
+                torch.cuda.synchronize()
+            out["f32_flash_prefill_s"] = time.perf_counter() - t32  # K6's f32 instance on a gqa row
             diff = routing_diff(ref_routes.calls, flash_routes.calls, k)
             n32 = n_img + cs  # positions of the f32 prefill
             cut = n32 if diff["cut"] is None else diff["cut"]
@@ -1851,7 +1875,8 @@ def serve_row(device, scale):
            f"{out['prefill_layer_max_rel_err']:.3g}); K7 (group {out['k7_group']}, valid "
            f"{out['k7_shape'][-1]}) vs plain {out['k7_vs_plain_max_err']:.3g} (relative "
            f"{out['k7_vs_plain_rel_err']:.3g}), vs sdpa {out['k7_vs_sdpa_max_err']:.3g}" if gqa else "")
-        + (f"; f32 flash vs einsum: {f32p['routing']['flips']} flips, "
+        + (f"; f32 flash prefill {out['f32_flash_prefill_s']:.3f} s vs einsum: "
+           f"{f32p['routing']['flips']} flips, "
            f"{f32p['routing']['reorders']} reorders (+{f32p['routing']['downstream']} "
            f"downstream), {f32p['positions_held']} of "
            f"{f32p['tokens']} positions held at 1e-4, max err "
@@ -3028,12 +3053,14 @@ K6_PTXAS_FAULTS = ("C7508", "C7512")
 
 def build_report():
     """Phase 1's record of what was built: ``ptxas``'s registers, static
-    shared memory and spills for every attention kernel instance (every
-    bf16 K6 instance, the D = 80 instances and K7's tensor-core instances
-    must not spill), the flash_attention compiler log free of
-    ``K6_PTXAS_FAULTS``, and in the SASS of each bf16 K6 instance its
-    ``HGMMA`` instructions (it must be a tensor-core kernel) and the two
-    ``USETMAXREG`` of its register hand-off (none is a failure)."""
+    shared memory and spills for every attention kernel instance (every K6
+    instance, bf16 and f32, the D = 80 instances and K7's tensor-core
+    instances must not spill), the flash_attention compiler log free of
+    ``K6_PTXAS_FAULTS``, in the SASS of each bf16 K6 instance its ``HGMMA``
+    instructions (it must be a tensor-core kernel) and the two
+    ``USETMAXREG`` of its register hand-off (none is a failure), and in the
+    SASS of each f32 K6 instance its ``FFMA`` count and no ``HMMA`` or
+    ``HGMMA`` (its products must stay exact f32)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
@@ -3055,6 +3082,7 @@ def build_report():
     check(d80 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in d80.values()),
           f"the D = 80 attention instances spill (or were not built): {d80}")
     k6 = [(f"flash_attention_wgmmaILi{d}E", f"K6's bf16 D = {d} instance") for d in HEAD_DIMS]
+    k6 += [(f"flash_attention_ffmaILi{d}E", f"K6's f32 D = {d} instance") for d in HEAD_DIMS]
     for sym, what in k6 + [("flash_decode_partial_mmaILi128E", "K7's tensor-core D = 128 instance"),
                            ("flash_decode_partial_mmaILi192E", "K7's tensor-core D = 192 instance")]:
         inst = {fn: r for fn, r in ptxas.items() if sym in fn}
@@ -3063,25 +3091,34 @@ def build_report():
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[build] cuobjdump not found: the SASS of the bf16 flash_attention instances was NOT checked")
-        return dict(ptxas=ptxas, hgmma=None, setmaxnreg=None)
+        return dict(ptxas=ptxas, hgmma=None, setmaxnreg=None, ffma=None)
     sass = subprocess.run([tool, "-sass", str(build._target("flash_attention"))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    hgmma, setmaxnreg, fn = {}, {}, None
+    hgmma, setmaxnreg, ffma, fn = {}, {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if "flash_attention_wgmma" in fn:
                 hgmma[fn] = setmaxnreg[fn] = 0
+            elif "flash_attention_ffma" in fn:
+                ffma[fn] = dict(FFMA=0, HMMA=0, HGMMA=0)
         elif fn in hgmma:
             hgmma[fn] += "HGMMA" in line
             setmaxnreg[fn] += "USETMAXREG" in line
+        elif fn in ffma:
+            for op in ffma[fn]:
+                ffma[fn][op] += f" {op}" in line
     log(f"[build] HGMMA instructions per bf16 flash_attention instance: {json.dumps(hgmma)}")
     log(f"[build] USETMAXREG per bf16 flash_attention instance: {json.dumps(setmaxnreg)}")
+    log(f"[build] FFMA / HMMA / HGMMA per f32 flash_attention instance: {json.dumps(ffma)}")
     check(len(hgmma) == len(HEAD_DIMS) and all(n > 0 for n in hgmma.values()),
           f"the bf16 flash_attention instances hold no HGMMA instruction: {hgmma}")
     check(all(n >= 2 for n in setmaxnreg.values()),
           f"a bf16 flash_attention instance lost its setmaxnreg hand-off: {setmaxnreg}")
-    return dict(ptxas=ptxas, hgmma=hgmma, setmaxnreg=setmaxnreg)
+    check(len(ffma) == len(HEAD_DIMS) and all(
+        c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0 for c in ffma.values()),
+        f"an f32 flash_attention instance is not an exact f32 FFMA kernel: {ffma}")
+    return dict(ptxas=ptxas, hgmma=hgmma, setmaxnreg=setmaxnreg, ffma=ffma)
 
 
 def run(device, scale):
@@ -3116,7 +3153,7 @@ def run(device, scale):
 
     device = torch.device(device)
     gen = torch.Generator().manual_seed(0)
-    built = dict(ptxas={}, hgmma=None, setmaxnreg=None)
+    built = dict(ptxas={}, hgmma=None, setmaxnreg=None, ffma=None)
 
     # ---- phase 1: environment + build -------------------------------------- #
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3162,6 +3199,8 @@ def run(device, scale):
                 for i, shape in enumerate(serve.get("k6_f32_shapes", []))]
     k7_rows = [compare_flash_decode(shape, device, seed=20 + i, ptxas=built["ptxas"])
                for i, shape in enumerate(serve["k7_shapes"])]
+    k7_rows += [compare_flash_decode(shape, device, seed=40 + i, ptxas=built["ptxas"], dtype="float32")
+                for i, shape in enumerate(serve.get("k7_f32_shapes", []))]
     routing_row = check_flash_routing(device)
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3258,7 +3297,8 @@ def run(device, scale):
         t0 = time.perf_counter()
         row, expect = serve_row(device, row_scale)
         got = read_counts()
-        log(f"[{path} path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(got)}")
+        log(f"[{path} path] {time.perf_counter() - t0:.3f} s; launches {json.dumps(got)} (K6 in f32: "
+            f"{row.get('k6_f32_launches', 0)})")
         if device.type == "cuda":
             want = dict.fromkeys(counted, 0)
             want.update(expect)
@@ -3374,6 +3414,9 @@ def run(device, scale):
                       + dryrun_launches[name]),
             launches_by_path={**{path: n[name] for path, n in serve_paths.items()},
                               "train": train_launches[name], "dryrun": dryrun_launches[name]},
+            **({"f32_launches_by_path": {path: r.get("k6_f32_launches", 0)
+                                         for path, r in serve_rows.items()}}
+               if name == "flash_attention" else {}),
             max_abs_err=row["max_abs_err"], rel_err=row["rel_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"], share_of_bound=row["share_of_bound"],
@@ -3388,6 +3431,7 @@ def run(device, scale):
             if name == "flash_attention":
                 kernels[-1]["hgmma"] = built["hgmma"]
                 kernels[-1]["setmaxnreg"] = built["setmaxnreg"]
+                kernels[-1]["ffma"] = built["ffma"]
     next(k for k in kernels if k["name"] == "flash_attention")["head_dim_routing"] = routing_row
     return kernels
 

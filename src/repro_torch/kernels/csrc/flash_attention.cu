@@ -93,201 +93,331 @@
 //     both are masked.
 //   TMA fills rows past S with zeros, so keys >= S are masked from their
 //   indices, not by their contents.
-// * f32 (namespace cc): the CUDA-core kernel (the f32 path must stay
-//   within 2e-5 of the plain version, which TF32 would not).  One block of
-//   128 threads per (b*h, 64-query tile), two threads per query row, each
-//   holding an interleaved half of D of the scaled query and of the
-//   accumulator in registers; K and V tiles of 32 keys staged in shared
-//   memory as f32 and read as broadcast float4 loads (D a multiple of 8:
-//   at D = 80 a row is 320 bytes, so every float4 stays 16-byte aligned).
+// * f32 (namespace cc): the CUDA-core kernel, a register-tiled SIMT flash
+//   attention laid out like an SGEMM.  Its products stay exact f32 FFMAs
+//   (no mma of any kind, no TF32): the f32 path must stay within 2e-5 of
+//   the plain version, which TF32 would not.  Bound: operations at the 67
+//   TFLOP/s f32 rate, so the FFMA issue rate is what the layout serves.
+//   - Work.  One CTA of 256 threads per (b*h, 128-query tile), heaviest
+//     tiles first; 157-231 KB of shared memory, so one CTA an SM.
+//   - Micro-tiles.  A warp owns 16 query rows.  TPR lanes share a row
+//     (16, or 8 at D = 192); a lane holds an 8 x 4 (4 x 4 at D = 192)
+//     micro-tile of S and the same rows' D / TPR columns of O in
+//     registers, so each FFMA takes both operands from registers, loaded
+//     from shared memory as float4s: at least 8 FFMAs a load (Q K^T: 8 rows
+//     x 4 keys from 12 float4s per 4 columns; P V: D / 2 FFMAs from P's 2
+//     float4s and V's D / 64 per key).
+//   - Shared memory.  Q once per item (rows swizzled by their group, so the
+//     groups of a warp read distinct banks); K/V tiles of 4 * TPR keys (64,
+//     32 at D = 192) in two stages, K's rows padded to an odd number of
+//     float4s (a row group's keys hit distinct banks), V row-major; each
+//     warp's P (keys x its 16 rows, float4s swizzled by key).  Q, K and V
+//     are read as they lie, row-major, so every copy is a 16-byte cp.async.
+//   - Copies in flight.  Tile t + 1's cp.async is issued before tile t is
+//     scored, into the other stage: one barrier per tile.  P is written and
+//     read only by its own warp (__syncwarp).
+//   - Softmax on the micro-tile: the row max by shuffles over the row's
+//     lanes, exp2 (ex2.approx.ftz) of scores scaled by log2(e)/sqrt(D) in
+//     one FFMA, O rescaled once a tile, the row sum kept per lane until the
+//     epilogue; only tiles that reach past S or above a warp's first row
+//     are masked, and a warp skips a tile above all of its rows.
+//   - Epilogue: one reciprocal of max(l, 1e-30) a row and float4 stores.
 //
-// The wrapper (kernels/flash_attention.py, launch_plan) computes the
-// dynamic shared memory and the three tensor maps' dims, strides and boxes
-// (and the work grid, to hold it to one launch's limits); this file
-// encodes the maps (cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, so the library links no -lcuda), checks the
-// shared-memory size against its own and sizes the persistent grid to the
-// card's SMs.
+// The wrapper (kernels/flash_attention.py, launch_plan) computes each
+// instance's dynamic shared memory, the work items and grid it launches
+// (to hold them to one launch's limits) and the three tensor maps' dims,
+// strides and boxes; this file encodes the maps (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library links no -lcuda),
+// checks each instance's shared-memory size against its own and sizes the
+// persistent grid to the card's SMs.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
-#include <type_traits>
 
 // --------------------------------------------------------------------------
 // f32: CUDA cores
 // --------------------------------------------------------------------------
 namespace cc {
 
-constexpr float kNegInf = -1e30f;
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 32;           // keys per shared-memory tile
-constexpr int THREADS = 2 * BQ;  // two threads per query row
-constexpr int CH = 16;           // keys scored per online-softmax update
+constexpr int BQ = 128;       // query rows per CTA
+constexpr int THREADS = 256;  // eight warps
+constexpr int WARP_ROWS = BQ / (THREADS / 32);  // query rows a warp owns: 16
+constexpr int P_ROW = 16;     // P's floats per key in a warp's buffer (one per row)
+constexpr float kNegInf = -1e30f;  // the running max before any key
+
+// Threads that share a query row (a row group): 16, or 8 past a 128-wide
+// row, where O's 24 columns a thread are what the registers are for.
+__host__ __device__ constexpr int threads_per_row(int d) { return d > 128 ? 8 : 16; }
+// Keys per K/V tile: four a thread of a row group (64, or 32 at D = 192,
+// where Q and two 64-key K/V stages would not fit the shared memory).
+__host__ __device__ constexpr int block_k(int d) { return 4 * threads_per_row(d); }
+
+// Dynamic shared memory in floats: Q (BQ x D, each row's float4 chunks
+// XOR-swizzled by the row's group), two K stages (BK x KS: rows padded by
+// one float4, an odd number of chunks, so the row group's keys fall in
+// distinct banks), two V stages (BK x D) and each warp's P (BK x 16).
+template <int D>
+struct Smem {
+  static constexpr int BK = block_k(D);
+  static constexpr int KS = D + 4;
+  static constexpr int Q = BQ * D;
+  static constexpr int K = BK * KS;
+  static constexpr int V = BK * D;
+  static constexpr int P = (THREADS / 32) * BK * P_ROW;
+  static constexpr int BYTES = 4 * (Q + 2 * K + 2 * V + P);
+};
 
 struct Strides {
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// 16 bytes of T from global memory (16-byte aligned) into floats.
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-  if constexpr (std::is_same<T, float>::value) {
-    dst[0] = __uint_as_float(raw.x);
-    dst[1] = __uint_as_float(raw.y);
-    dst[2] = __uint_as_float(raw.z);
-    dst[3] = __uint_as_float(raw.w);
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Dim of the c-th float4 chunk a thread of `half` owns: the two halves
-// interleave by 4, so the warp's two broadcast addresses sit in different
-// banks.
-__device__ __forceinline__ int chunk_dim(int c, int half) { return (2 * c + half) * 4; }
+// 16 bytes from global to shared memory, asynchronously; zeros where !ok
+// (src then points at a valid row and is not read).
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                       int G, int causal, float scale, Strides st) {
-  static_assert(D % 8 == 0, "each thread's half of D is whole float4 chunks");
-  constexpr int HD = D / 2;   // dims per thread
-  constexpr int NC = HD / 4;  // float4 chunks per thread
-  constexpr int VN = Vec<T>::N;
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
+// Register-tiled flash attention on the CUDA cores, one CTA per (b*h,
+// 128-query tile).  Warp w owns rows 16w .. 16w + 15 of the tile; within
+// it, row group g (TPR lanes) owns rows 16w + RGW*r + g (r < RG) and lane t
+// of the group keys t + TPR*i (i < 4) of each K/V tile and O's columns
+// 4(t + TPR*c) .. +3 (c < NC), plus, at D = 80, column 64 + t.  So S is an
+// RG x 4 micro-tile and O an RG x D/TPR one, both in registers; every FFMA
+// takes both operands from registers, loaded from shared memory as float4s.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_ffma(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int S, int H, int G,
+                     int causal, float scale_log2, Strides st) {
+  constexpr int TPR = threads_per_row(D);
+  constexpr int RGW = 32 / TPR;           // row groups a warp
+  constexpr int RG = WARP_ROWS / RGW;     // rows a thread: 8, or 4
+  constexpr int QUADS = RG / 4;           // its float4s of P a key
+  constexpr int BK = block_k(D);
+  constexpr int NK = BK / TPR;            // keys a thread a tile: 4
+  constexpr int CH = D / 4;               // float4 chunks a row
+  constexpr int NC = D / (4 * TPR);       // O's float4 chunks a thread
+  constexpr int NR = (D - 4 * TPR * NC) / TPR;  // O's single columns a thread (D 80: 1)
+  constexpr int NO = 4 * NC + NR;         // O's columns a thread
+  constexpr int KS = Smem<D>::KS;
+  static_assert(NK == 4 && RG % 4 == 0 && (D - 4 * TPR * NC) % TPR == 0, "micro-tiles");
+  static_assert((KS / 4) % 2 == 1 && CH % RGW == 0, "conflict-free layouts");
+  static_assert((BQ * CH) % THREADS == 0 && (BK * CH) % THREADS == 0, "whole copy rounds");
 
+  extern __shared__ __align__(16) float smem[];
+  float* const sq = smem;
+  float* const sk = sq + Smem<D>::Q;
+  float* const sv = sk + 2 * Smem<D>::K;
+  float* const pw = sv + 2 * Smem<D>::V + (threadIdx.x >> 5) * BK * P_ROW;  // this warp's P
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / TPR, t = lane % TPR;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - (bh / H) * H, kvh = h / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
-  const int tid = threadIdx.x;
-  const int row = q0 + (tid >> 1);
-  const int half = tid & 1;
+  const int w0 = q0 + warp * WARP_ROWS;               // the warp's first row
+  const float* const qb = q + b * st.qb + h * st.qh;
+  const float* const kb = k + b * st.kb + kvh * st.kh;
+  const float* const vb = v + b * st.vb + kvh * st.vh;
 
-  float qr[HD], acc[HD];
-  const T* qp = q + b * st.qb + (long long)row * st.qs + h * st.qh;
+  // Q once (rows >= S zero), K/V tile 0 with it
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      qr[4 * c + e] = row < S ? to_f32(qp[chunk_dim(c, half) + e]) * scale : 0.f;
-      acc[4 * c + e] = 0.f;
-    }
+  for (int n = 0; n < BQ * CH / THREADS; ++n) {
+    const int i = tid + n * THREADS, r = i / CH, c = i - (i / CH) * CH;
+    const bool ok = q0 + r < S;
+    cp16(sq + r * D + 4 * (c ^ (r % RGW)), qb + (ok ? (long long)(q0 + r) * st.qs : 0) + 4 * c, ok);
   }
-  float m = kNegInf, l = 0.f;
-
-  const T* kbase = k + b * st.kb + kvh * st.kh;
-  const T* vbase = v + b * st.vb + kvh * st.vh;
+  auto load_kv = [&](int tile, int stage) {
+#pragma unroll
+    for (int n = 0; n < BK * CH / THREADS; ++n) {
+      const int i = tid + n * THREADS, r = i / CH, c = i - (i / CH) * CH;
+      const int key = tile * BK + r;
+      const bool ok = key < S;
+      const long long kk = ok ? key : 0;
+      cp16(sk + stage * Smem<D>::K + r * KS + 4 * c, kb + kk * st.ks + 4 * c, ok);
+      cp16(sv + stage * Smem<D>::V + r * D + 4 * c, vb + kk * st.vs + 4 * c, ok);
+    }
+    cp_commit();
+  };
   const int key_end = causal ? min(q0 + BQ, S) : S;  // keys this tile can see
   const int ntiles = (key_end + BK - 1) / BK;
+  load_kv(0, 0);
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid * VN; idx < BK * D; idx += THREADS * VN) {
-      const int r = idx / D, c = idx - (idx / D) * D;
-      const int key = k0 + r;
-      if (key < S) {
-        load16(kbase + (long long)key * st.ks + c, &ks[r][c]);
-        load16(vbase + (long long)key * st.vs + c, &vs[r][c]);
-      } else {
+  float acc[RG][NO], m[RG], l[RG];
 #pragma unroll
-        for (int e = 0; e < VN; ++e) {
-          ks[r][c + e] = 0.f;
-          vs[r][c + e] = 0.f;
+  for (int r = 0; r < RG; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[r][j] = 0.f;
+  }
+  // this thread's rows of Q (chunk c of row RGW*r + g sits at c ^ g)
+  const float* const qrow = sq + (warp * WARP_ROWS + g) * D;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    // tile's K/V landed, and every warp is done with tile - 1's stage
+    cp_wait_all();
+    __syncthreads();
+    if (tile + 1 < ntiles) load_kv(tile + 1, (tile + 1) & 1);
+    const int k0 = tile * BK;
+    if (w0 >= S || (causal && k0 > w0 + WARP_ROWS - 1)) continue;  // no key for the warp's rows
+    const float* const kt = sk + (tile & 1) * Smem<D>::K + t * KS;
+    const float* const vt = sv + (tile & 1) * Smem<D>::V;
+
+    // S = Q K^T on the RG x 4 micro-tile
+    float s[RG][NK];
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+#pragma unroll
+      for (int i = 0; i < NK; ++i) s[r][i] = 0.f;
+    }
+#pragma unroll
+    for (int c0 = 0; c0 < CH; c0 += RGW) {
+#pragma unroll
+      for (int u = 0; u < RGW; ++u) {
+        float4 kv[NK];
+#pragma unroll
+        for (int i = 0; i < NK; ++i) {
+          kv[i] = *reinterpret_cast<const float4*>(kt + i * TPR * KS + 4 * (c0 + u));
+        }
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(qrow + r * RGW * D + 4 * (c0 + (u ^ g)));
+#pragma unroll
+          for (int i = 0; i < NK; ++i) {
+            s[r][i] = fmaf(qv.x, kv[i].x, s[r][i]);
+            s[r][i] = fmaf(qv.y, kv[i].y, s[r][i]);
+            s[r][i] = fmaf(qv.z, kv[i].z, s[r][i]);
+            s[r][i] = fmaf(qv.w, kv[i].w, s[r][i]);
+          }
         }
       }
     }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int c0 = 0; c0 < BK; c0 += CH) {
-      float p[CH];
-      float cmax = kNegInf;
+    // the scores below the diagonal of a causal tile and past S
+    if (k0 + BK > S || (causal && k0 + BK - 1 > w0)) {
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float* kr = &ks[c0 + j][0];
-        float dot = 0.f;
+      for (int r = 0; r < RG; ++r) {
+        const int row = w0 + RGW * r + g;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr + chunk_dim(c, half));
-          dot = fmaf(qr[4 * c], kk.x, dot);
-          dot = fmaf(qr[4 * c + 1], kk.y, dot);
-          dot = fmaf(qr[4 * c + 2], kk.z, dot);
-          dot = fmaf(qr[4 * c + 3], kk.w, dot);
+        for (int i = 0; i < NK; ++i) {
+          const int key = k0 + t + TPR * i;
+          if (key >= S || (causal && key > row)) s[r][i] = __int_as_float(0xff800000);  // -inf
         }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        const int key = k0 + c0 + j;
-        const bool ok = key < S && (!causal || key <= row);
-        p[j] = ok ? dot : kNegInf;
-        cmax = fmaxf(cmax, p[j]);
       }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      float psum = 0.f;
+    }
+    // online softmax: the row max over the row group's lanes, P = exp2 of
+    // log2-scaled scores, O rescaled once a tile; l stays per lane until the end
+    float alpha[RG];
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const int key = k0 + c0 + j;
-        const bool ok = key < S && (!causal || key <= row);
-        p[j] = ok ? expf(p[j] - m_new) : 0.f;
-        psum += p[j];
+    for (int r = 0; r < RG; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[r], mx);
+      alpha[r] = exp2_ftz((m[r] - mn) * scale_log2);
+      m[r] = mn;
+      const float nb = -mn * scale_log2;
+      float ps = 0.f;
+#pragma unroll
+      for (int i = 0; i < NK; ++i) {
+        s[r][i] = exp2_ftz(fmaf(s[r][i], scale_log2, nb));
+        ps += s[r][i];
       }
-      l = l * alpha + psum;
-      m = m_new;
+      l[r] = fmaf(l[r], alpha[r], ps);
 #pragma unroll
-      for (int i = 0; i < HD; ++i) acc[i] *= alpha;
+      for (int j = 0; j < NO; ++j) acc[r][j] *= alpha[r];
+    }
+    // P to the warp's buffer, key-major: float4 (g * QUADS + qd) of key j
+    // sits at chunk (g * QUADS + qd) ^ ((j >> 1) & 3), so a warp's stores
+    // and loads meet no bank twice more than their width needs
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float* vr = &vs[c0 + j][0];
+    for (int i = 0; i < NK; ++i) {
+      const int j = t + TPR * i;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + chunk_dim(c, half));
-          acc[4 * c] = fmaf(p[j], vv.x, acc[4 * c]);
-          acc[4 * c + 1] = fmaf(p[j], vv.y, acc[4 * c + 1]);
-          acc[4 * c + 2] = fmaf(p[j], vv.z, acc[4 * c + 2]);
-          acc[4 * c + 3] = fmaf(p[j], vv.w, acc[4 * c + 3]);
+      for (int qd = 0; qd < QUADS; ++qd) {
+        *reinterpret_cast<float4*>(pw + j * P_ROW + 4 * ((g * QUADS + qd) ^ ((j >> 1) & 3))) =
+            make_float4(s[4 * qd][i], s[4 * qd + 1][i], s[4 * qd + 2][i], s[4 * qd + 3][i]);
+      }
+    }
+    __syncwarp();
+    // O += P V on the RG x D/TPR micro-tile
+#pragma unroll 16
+    for (int j = 0; j < BK; ++j) {
+      float p[RG];
+#pragma unroll
+      for (int qd = 0; qd < QUADS; ++qd) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(pw + j * P_ROW + 4 * ((g * QUADS + qd) ^ ((j >> 1) & 3)));
+        p[4 * qd] = p4.x;
+        p[4 * qd + 1] = p4.y;
+        p[4 * qd + 2] = p4.z;
+        p[4 * qd + 3] = p4.w;
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vt + j * D + 4 * (t + TPR * c));
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          acc[r][4 * c] = fmaf(p[r], v4.x, acc[r][4 * c]);
+          acc[r][4 * c + 1] = fmaf(p[r], v4.y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(p[r], v4.z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(p[r], v4.w, acc[r][4 * c + 3]);
         }
+      }
+#pragma unroll
+      for (int e = 0; e < NR; ++e) {
+        const float x = vt[j * D + 4 * TPR * NC + t + TPR * e];
+#pragma unroll
+        for (int r = 0; r < RG; ++r) acc[r][4 * NC + e] = fmaf(p[r], x, acc[r][4 * NC + e]);
       }
     }
   }
 
-  if (row < S) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* op = o + (((long long)b * S + row) * H + h) * D;
+  // epilogue: l over the row group, one reciprocal a row, float4 stores
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
+  for (int r = 0; r < RG; ++r) {
+    float lt = l[r];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(op + chunk_dim(c, half) + e, acc[4 * c + e] / denom);
+    for (int off = TPR / 2; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const float inv = __frcp_rn(fmaxf(lt, 1e-30f));
+    const int row = w0 + RGW * r + g;
+    if (row < S) {
+      float* const op = o + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        *reinterpret_cast<float4*>(op + 4 * (t + TPR * c)) =
+            make_float4(acc[r][4 * c] * inv, acc[r][4 * c + 1] * inv, acc[r][4 * c + 2] * inv,
+                        acc[r][4 * c + 3] * inv);
+      }
+#pragma unroll
+      for (int e = 0; e < NR; ++e) op[4 * TPR * NC + t + TPR * e] = acc[r][4 * NC + e] * inv;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int H, int KV, int causal, const Strides& st, cudaStream_t stream) {
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                   int KV, int causal, const Strides& st, int smem, cudaStream_t stream) {
+  constexpr int BYTES = Smem<D>::BYTES;
+  if (smem != BYTES) return cudaErrorInvalidValue;  // the plan and this file disagree
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      flash_attention_ffma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_kernel<T, D><<<grid, THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, H / KV, causal,
-      1.0f / sqrtf((float)D), st);
+  flash_attention_ffma<D><<<grid, THREADS, BYTES, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, H / KV, causal,
+      1.4426950408889634f / sqrtf((float)D), st);
   return cudaGetLastError();
 }
 
@@ -977,8 +1107,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements (the f32
 // instance reads through them); the last dim of q/k/v is contiguous and
 // the output is contiguous (B, S, H, D).  maps: the bf16 instance's tensor
-// maps for q, k, v (11 values each: dims[4], byte strides[3], box[4]);
-// smem: its dynamic shared memory in bytes.  Both are ignored for f32.
+// maps for q, k, v (11 values each: dims[4], byte strides[3], box[4]),
+// ignored for f32; smem: the instance's dynamic shared memory in bytes.
 // Returns a cudaError_t (cudaErrorInvalidValue for a D or dtype without an
 // instance, or a plan this file does not agree with).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -989,10 +1119,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int smem, void* stream) {
   const cc::Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64) return (int)cc::launch<float, 64>(q, k, v, o, B, S, H, KV, causal, st, s);
-  if (dtype == 0 && D == 80) return (int)cc::launch<float, 80>(q, k, v, o, B, S, H, KV, causal, st, s);
-  if (dtype == 0 && D == 128) return (int)cc::launch<float, 128>(q, k, v, o, B, S, H, KV, causal, st, s);
-  if (dtype == 0 && D == 192) return (int)cc::launch<float, 192>(q, k, v, o, B, S, H, KV, causal, st, s);
+  if (dtype == 0 && D == 64) return (int)cc::launch<64>(q, k, v, o, B, S, H, KV, causal, st, smem, s);
+  if (dtype == 0 && D == 80) return (int)cc::launch<80>(q, k, v, o, B, S, H, KV, causal, st, smem, s);
+  if (dtype == 0 && D == 128) return (int)cc::launch<128>(q, k, v, o, B, S, H, KV, causal, st, smem, s);
+  if (dtype == 0 && D == 192) return (int)cc::launch<192>(q, k, v, o, B, S, H, KV, causal, st, smem, s);
   if (dtype == 1 && D == 64) return (int)tc::launch<64>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   if (dtype == 1 && D == 80) return (int)tc::launch<80>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);
   if (dtype == 1 && D == 128) return (int)tc::launch<128>(q, k, v, o, B, S, H, KV, causal, maps, smem, s);

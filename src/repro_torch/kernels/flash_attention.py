@@ -12,9 +12,9 @@ the KV heads already repeated — ``ops.flash_attention`` keeps that
 contract.  :func:`flash_attention` launches the kernel for CUDA tensors
 and takes the plain version :func:`flash_attention_plain` only for CPU
 tensors.  :func:`launch_plan` is everything the wrapper computes for a
-launch — the instance (bf16 tensor cores or f32 CUDA cores), grid, shared
-memory and the bf16 instance's TMA tensor maps — so it is tested on a host
-without a card.
+launch — the instance (bf16 tensor cores or f32 CUDA cores), its work
+items and launched grid, shared memory and the bf16 instance's TMA tensor
+maps — so it is tested on a host without a card.
 """
 
 from __future__ import annotations
@@ -45,8 +45,15 @@ TC_PRODUCER_REGS, TC_CONSUMER_REGS = 24, 240
 #: the named barriers on which consumer warpgroups 0 and 1 wait their turn
 #: to issue GEMMs (0 is ``__syncthreads``)
 TC_TURN_BARRIERS = (1, 2)
-#: the f32 CUDA-core instance (namespace cc): query rows per tile
-CC_BLOCK_Q = 64
+#: the f32 CUDA-core instance (namespace cc): query rows per CTA, threads
+#: per CTA (eight warps of 16 rows), P's floats per key in a warp's buffer
+CC_BLOCK_Q, CC_THREADS, CC_P_ROW = 128, 256, 16
+#: SMs of an H100 SXM: the bf16 instance's persistent grid where no card is
+#: asked (the wrapper passes the card's own count)
+H100_SMS = 132
+#: one launch's limits: a grid's y dimension, and the int the bf16 walk
+#: indexes its items with
+GRID_Y_MAX, INT_MAX = 65535, (1 << 31) - 1
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, block_k: int = 512) -> torch.Tensor:
@@ -164,24 +171,47 @@ def _tc_smem_bytes(d: int) -> int:
     return 1024 + 2 * TC_BLOCK_Q * dp + TC_STAGES * 2 * 2 * tc_block_k(d) * dp + 8 * (2 + 2 * TC_STAGES)
 
 
-def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v_strides=None) -> dict:
+def cc_threads_per_row(d: int) -> int:
+    """Lanes of the f32 instance that share a query row (``cc::threads_per_row``):
+    16, or 8 past a 128-wide row (D = 192), where O's columns fill a lane's
+    registers."""
+    return 8 if d > 128 else 16
+
+
+def cc_block_k(d: int) -> int:
+    """Keys per K/V tile of the f32 instance (``cc::block_k``): four a lane
+    of a row group, 64 (32 at D = 192)."""
+    return 4 * cc_threads_per_row(d)
+
+
+def cc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the f32 instance for head dim ``d``
+    (``cc::Smem<D>::BYTES``): Q (128 x D), two K stages (rows padded by a
+    float4), two V stages, and each of the eight warps' P (keys x 16)."""
+    bk = cc_block_k(d)
+    return 4 * (CC_BLOCK_Q * d + 2 * bk * (d + 4) + 2 * bk * d + (CC_THREADS // 32) * bk * CC_P_ROW)
+
+
+def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v_strides=None,
+                sms: int = H100_SMS) -> dict:
     """What a launch of ``flash_attention`` on q (B, S, H, D) and k/v
     (B, S, ``kv_heads``, D) of ``dtype`` hands the C entry or checks before
-    it: the instance, the grid of work items, (b * h, query tiles), checked
-    against one launch's limits (the f32 instance runs a block an item; the
-    bf16 instance's persistent grid, one CTA an SM, walks them), the
-    threads per block, the dynamic shared memory and the bf16 instance's
-    keys per K/V tile, whether its consumer warpgroups take turns, and its
-    tensor maps (the C entry checks the bytes and the maps' box rows against
-    its own).  Strides (elements, default contiguous) matter only to the
-    maps."""
+    it: the instance, its work ``items`` (b * h x 128-query tiles) and the
+    ``grid`` it launches — the f32 instance a block an item, (b * h, query
+    tiles); the bf16 instance a persistent 1-D grid of min(items, ``sms``)
+    CTAs that walk them (:func:`fits_one_launch` holds each to its limits)
+    — the threads per block, the dynamic shared memory (the C entry checks
+    it against its own), the keys per K/V tile, and the bf16 instance's
+    turns and tensor maps (the C entry checks the maps' box rows too).
+    Strides (elements, default contiguous) matter only to the maps."""
     b, s, h, d = q_shape
     if dtype == torch.bfloat16:
         kv_shape = (b, s, kv_heads, d)
         contiguous = (s * h * d, h * d, d, 1), (s * kv_heads * d, kv_heads * d, d, 1)
         bk = tc_block_k(d)
+        items = b * h * -(-s // TC_BLOCK_Q)
         return dict(
-            instance="tc_bf16", grid=(b * h, -(-s // TC_BLOCK_Q)), threads=TC_THREADS,
+            instance="tc_bf16", items=items, grid=(min(items, sms),), threads=TC_THREADS,
             dynamic_smem_bytes=_tc_smem_bytes(d), block_k=bk, turns=tc_takes_turns(d),
             maps=dict(
                 q=tensor_map(q_shape, q_strides or contiguous[0], TC_BLOCK_Q),
@@ -190,9 +220,20 @@ def launch_plan(q_shape, kv_heads: int, dtype, q_strides=None, k_strides=None, v
             ),
         )
     if dtype == torch.float32:
-        return dict(instance="cc_f32", grid=(b * h, -(-s // CC_BLOCK_Q)), threads=2 * CC_BLOCK_Q,
-                    dynamic_smem_bytes=0, maps=None)
+        qt = -(-s // CC_BLOCK_Q)
+        return dict(instance="cc_f32", items=b * h * qt, grid=(b * h, qt), threads=CC_THREADS,
+                    dynamic_smem_bytes=cc_smem_bytes(d), block_k=cc_block_k(d),
+                    threads_per_row=cc_threads_per_row(d), maps=None)
     raise ValueError(f"flash_attention: the kernel takes float32 or bfloat16, got {dtype}")
+
+
+def fits_one_launch(plan) -> bool:
+    """Whether one launch takes ``plan``: the f32 grid's query tiles are its
+    y dimension (at most ``GRID_Y_MAX``) and its b * h its x; the bf16 grid
+    is at most one CTA an SM, and its walk indexes the items with an int."""
+    if plan["instance"] == "cc_f32":
+        return plan["grid"][1] <= GRID_Y_MAX and plan["grid"][0] <= INT_MAX
+    return plan["items"] <= INT_MAX
 
 
 def _maps_arg(maps) -> ctypes.Array:
@@ -240,8 +281,9 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
         return out
     view = _tma_view if q.dtype == torch.bfloat16 else build.aligned_view
     q, k, v = view(q), view(k), view(v)
-    plan = launch_plan(q.shape, kvh, q.dtype, q.stride(), k.stride(), v.stride())
-    if plan["grid"][1] > 65535 or plan["grid"][0] * plan["grid"][1] > (1 << 31) - 1:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(q.shape, kvh, q.dtype, q.stride(), k.stride(), v.stride(), sms=sms)
+    if not fits_one_launch(plan):
         raise ValueError(f"flash_attention: {tuple(q.shape)} exceeds one launch")
     fn = build.library("flash_attention").flash_attention
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 + [

@@ -868,7 +868,8 @@ def test_flash_attention_bf16_grid_under_one_wave(cuda, causal, d):
     q, k, v = _cuda_attn(3 * d, 1, 256, 2, 1, d, torch.bfloat16, cuda)
     from repro_torch.kernels.flash_attention import launch_plan
 
-    assert launch_plan(q.shape, 1, q.dtype)["grid"] == (2, 2)
+    plan = launch_plan(q.shape, 1, q.dtype, sms=torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan["items"] == 4 and plan["grid"] == (4,)
     got = flash_attention(q, k, v, causal)
     want = flash_attention_plain(q, k, v, causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
@@ -906,6 +907,71 @@ def test_flash_attention_f32_keeps_the_cuda_core_instance(cuda, s, causal, d):
     got = flash_attention(q, k, v, causal)
     want = flash_attention_plain(q, k, v, causal)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("g", [1, 4, 12])  # 12: nemotron-4's 96/8
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 1000])
+def test_flash_attention_f32_tile_edges(cuda, s, causal, d, g):
+    """The f32 instance at S on both sides of its 128-row query tiles and
+    its K/V tiles (64 keys, 32 at D = 192: zero-filled past S, those keys
+    masked from their indices), S = 1, G query heads per KV head at B = 2,
+    within 2e-5 of the plain version."""
+    q, k, v = _cuda_attn(s * 7 + d + g + 1, 2, s, 2 * g, 2, d, torch.float32, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+@pytest.mark.parametrize("s", [257, 1000])
+def test_flash_attention_f32_reads_fused_qkv_views(cuda, s, d):
+    """q, k and v as strided views of one f32 (B, S, H + 2 KV, D)
+    projection: the kernel reads through their strides, no copy is made."""
+    b, h, kv = 2, 8, 2
+    gen = torch.Generator(device=cuda).manual_seed(3 * s + d)
+    x = torch.randn((b, s, h + 2 * kv, d), generator=gen, device=cuda)
+    q, k, v = x[:, :, :h], x[:, :, h:h + kv], x[:, :, h + kv:]
+    assert build.aligned_view(q).data_ptr() == q.data_ptr()  # read in place
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_repeats_bitwise(cuda, causal, d):
+    """One f32 call made again gives the same bits (many query and key
+    tiles, G 4), within 2e-5 of the plain version."""
+    q, k, v = _cuda_attn(5 * d + causal, 2, 1000, 8, 2, d, torch.float32, cuda)
+    got = flash_attention(q, k, v, causal)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v, causal), got)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+def test_flash_attention_f32_non_causal_rows_peak_in_every_tile(cuda, d):
+    """Non-causal f32: rows of every warp's row groups have their maximum
+    planted in a different K/V tile each, from the first to the last, so
+    the running max moves and O is rescaled in every tile."""
+    s = 640
+    q, k, v = _cuda_attn(13 * d, 1, s, 2, 1, d, torch.float32, cuda)
+    rows = torch.arange(0, s, 19, device=cuda)  # rows of every row group of a warp
+    keys = (rows * 97) % s
+    k[0, keys, 0] = q[0, rows, 0]
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    scores = q[0, rows, 0] @ k[0, :, 0].T
+    assert bool((scores.argmax(-1) == keys).all())  # the maximum does sit there
+    assert {int(r) % 16 for r in rows} == set(range(16))
+    assert len({int(j) // 32 for j in keys}) == s // 32
 
 
 _RING = {64: 4 * 64, 80: 4 * 64, 128: 2 * 64, 192: 2 * 64}  # slots in a full ring of the bf16 kernel

@@ -44,14 +44,18 @@ def test_k6_plan_rejects_other_dtypes():
     "shape,kv", [((1, 8192, 32, 128), 8), ((2, 63, 4, 64), 4), ((2, 129, 8, 128), 1), ((3, 4113, 16, 64), 2)]
 )
 def test_k6_tiles_and_grid(shape, kv):
-    """One work item per (b * h, query tile): 128 rows in bf16, 64 in f32
-    (the tile sizes are held to the sources below); the bf16 block is three
-    warpgroups, two consumers and the producer, the f32 block two threads a
-    row."""
+    """One work item per (b * h, 128-query tile) in both instances (the tile
+    sizes are held to the sources below).  The bf16 grid is what its launch
+    runs, a persistent 1-D grid of min(items, SMs) CTAs of three
+    warpgroups, two consumers and the producer; the f32 grid is a block an
+    item, (b * h, query tiles), of eight warps."""
     b, s, h, _ = shape
+    items = b * h * -(-s // 128)
     tc, cc = fa.launch_plan(shape, kv, torch.bfloat16), fa.launch_plan(shape, kv, torch.float32)
-    assert tc["grid"] == (b * h, -(-s // 128)) and tc["threads"] == 384 == 3 * 128
-    assert cc["grid"] == (b * h, -(-s // 64)) and cc["threads"] == 128
+    assert tc["items"] == cc["items"] == items
+    assert tc["grid"] == (min(items, fa.H100_SMS),) and tc["threads"] == 384 == 3 * 128
+    assert fa.launch_plan(shape, kv, torch.bfloat16, sms=4)["grid"] == (min(items, 4),)
+    assert cc["grid"] == (b * h, -(-s // 128)) and cc["threads"] == 256 == 8 * 32
 
 
 @pytest.mark.parametrize("d,dynamic", [(64, 115_776), (80, 230_464), (128, 230_464), (192, 197_696)])
@@ -61,12 +65,133 @@ def test_k6_shared_memory_fits(d, dynamic):
     227 KB a block may use, at the padded row width (D = 80 is laid out as
     128, the D = 128 instance's bytes) and the instance's keys per K/V tile
     (64 at D = 192: 128-key stages would take 345,152 bytes); the f32
-    instance has none dynamic."""
+    instance takes its own (``test_k6_f32_plan``)."""
     tc = fa.launch_plan((1, 256, 2, d), 1, torch.bfloat16)
     dp, bk = fa.tc_padded_dim(d), fa.tc_block_k(d)
     assert tc["dynamic_smem_bytes"] == dynamic == 1024 + 2 * 128 * dp + 3 * 2 * 2 * bk * dp + 8 * 8
     assert tc["dynamic_smem_bytes"] <= LIMIT
-    assert fa.launch_plan((1, 256, 2, d), 1, torch.float32)["dynamic_smem_bytes"] == 0
+    assert fa.launch_plan((1, 256, 2, d), 1, torch.float32)["dynamic_smem_bytes"] == fa.cc_smem_bytes(d)
+
+
+@pytest.mark.parametrize("d,tpr,bk,smem", [(64, 16, 64, 133_120), (80, 16, 64, 157_696),
+                                           (128, 16, 64, 231_424), (192, 8, 32, 214_016)])
+def test_k6_f32_plan(d, tpr, bk, smem):
+    """The f32 instance: 256 threads a block, a block per (b * h, 128-query
+    tile), ``tpr`` lanes a row and 4 * tpr keys a K/V tile; its shared
+    memory (Q, two K stages with rows padded by a float4, two V stages,
+    eight warps' P) under the 227 KB a block may use (D = 128 is the
+    largest: 1,024 bytes to spare)."""
+    plan = fa.launch_plan((2, 1000, 8, d), 2, torch.float32)
+    assert plan["instance"] == "cc_f32" and plan["threads"] == fa.CC_THREADS == 256
+    assert plan["grid"] == (16, 8) and plan["items"] == 128
+    assert plan["threads_per_row"] == fa.cc_threads_per_row(d) == tpr
+    assert plan["block_k"] == fa.cc_block_k(d) == bk == 4 * tpr
+    assert plan["dynamic_smem_bytes"] == fa.cc_smem_bytes(d) == smem <= LIMIT
+    assert smem == 4 * (128 * d + 2 * bk * (d + 4) + 2 * bk * d + 8 * bk * 16)
+
+
+@pytest.mark.parametrize("s,launches", [(8192, True), (65535 * 128, True), (65535 * 128 + 1, False)])
+def test_k6_one_launch_follows_each_instance(s, launches):
+    """The f32 grid puts query tiles on its y dimension (at most 65,535);
+    the bf16 grid is one CTA an SM whatever S is, and only its walk's int
+    item index bounds it, so S past 65,535 tiles still takes one launch."""
+    cc = fa.launch_plan((1, s, 1, 64), 1, torch.float32)
+    tc = fa.launch_plan((1, s, 1, 64), 1, torch.bfloat16)
+    assert fa.fits_one_launch(cc) == launches
+    assert fa.fits_one_launch(tc) and tc["grid"] == (min(tc["items"], fa.H100_SMS),)
+    assert not fa.fits_one_launch(dict(tc, items=fa.INT_MAX + 1))
+
+
+def _cc_lanes(d):
+    """The f32 instance's ownership, mirrored from ``cc::flash_attention_ffma``:
+    for each lane (warp, row group g, lane t of the group) its rows of the
+    128-query tile, its keys of a K/V tile and its columns of O."""
+    tpr = fa.cc_threads_per_row(d)
+    rgw, nc = 32 // tpr, d // (4 * tpr)
+    rg = 16 // rgw
+    lanes = []
+    for warp in range(8):
+        for lane in range(32):
+            g, t = divmod(lane, tpr)
+            rows = [16 * warp + rgw * r + g for r in range(rg)]
+            keys = [t + tpr * i for i in range(4)]
+            cols = [4 * (t + tpr * c) + e for c in range(nc) for e in range(4)]
+            cols += list(range(4 * tpr * nc + t, d, tpr))
+            lanes.append(dict(warp=warp, g=g, t=t, rows=rows, keys=keys, cols=cols))
+    return lanes
+
+
+def _wavefronts(addrs):
+    """128-byte shared-memory wavefronts one warp's 16-byte accesses take:
+    distinct float4 addresses (16-byte units) per bank group of 4 banks,
+    the most in any group (the same address is a broadcast)."""
+    per = {}
+    for a in set(addrs):
+        per.setdefault(a % 8, set()).add(a)
+    return max(len(v) for v in per.values())
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+def test_k6_f32_micro_tiles_cover_the_tile_once(d):
+    """Every (row, key) of a 128 x BK tile of S and every (row, column) of
+    the 128 x D tile of O belongs to one lane; a lane's S and O rows are the
+    same rows, all in its own warp (P goes through the warp's own buffer);
+    a lane holds an RG x 4 micro-tile of S and RG x D / TPR of O."""
+    bk, tpr = fa.cc_block_k(d), fa.cc_threads_per_row(d)
+    s_own, o_own = {}, {}
+    for ln in _cc_lanes(d):
+        assert all(16 * ln["warp"] <= r < 16 * ln["warp"] + 16 for r in ln["rows"])
+        assert len(ln["rows"]) * len(ln["keys"]) == 128 * bk // 256
+        assert len(ln["cols"]) == d // tpr
+        for r in ln["rows"]:
+            for j in ln["keys"]:
+                assert s_own.setdefault((r, j), ln) is ln
+            for c in ln["cols"]:
+                assert o_own.setdefault((r, c), ln) is ln
+    assert len(s_own) == 128 * bk and len(o_own) == 128 * d
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+def test_k6_f32_shared_memory_reads_meet_no_bank_conflict(d):
+    """Every warp-wide 16-byte access of the f32 instance takes the fewest
+    wavefronts its distinct addresses need: Q's rows (float4 chunk c of row
+    r at c ^ (r % RGW)), K's padded rows (D + 4 floats), V's rows, and the
+    warp's P (float4 q of key j at q ^ ((j >> 1) & 3)), written and read.
+    Also: at least 8 FFMAs a shared-memory load in both products."""
+    bk, tpr = fa.cc_block_k(d), fa.cc_threads_per_row(d)
+    rgw = 32 // tpr
+    rg = 16 // rgw
+    lanes = [ln for ln in _cc_lanes(d) if ln["warp"] == 3]
+    ks, ch = (d + 4) // 4, d // 4  # float4s a K row, a Q or V row
+    assert ks % 2 == 1
+
+    def p_addr(j, quad):
+        return j * 4 + (quad ^ ((j >> 1) & 3))
+
+    for c in range(ch):
+        for r in range(rg):
+            q = [ln["rows"][r] * ch + (c ^ (ln["rows"][r] % rgw)) for ln in lanes]
+            assert _wavefronts(q) == 1
+            assert {ln["rows"][r] % rgw for ln in lanes} == set(range(rgw))
+        for i in range(4):
+            k = [ln["keys"][i] * ks + c for ln in lanes]
+            assert _wavefronts(k) == -(-len(set(k)) // 8) == tpr // 8
+    for j in range(bk):
+        for quad in range(rg // 4):
+            reads = [p_addr(j, ln["g"] * (rg // 4) + quad) for ln in lanes]
+            assert _wavefronts(reads) == 1
+        for c in range(d // (4 * tpr)):
+            v = [j * ch + ln["t"] + tpr * c for ln in lanes]
+            assert _wavefronts(v) == tpr // 8
+    for i in range(4):
+        for quad in range(rg // 4):
+            writes = [p_addr(ln["keys"][i], ln["g"] * (rg // 4) + quad) for ln in lanes]
+            assert len(set(writes)) == 32 and _wavefronts(writes) == 4
+    # FFMAs a shared-memory load: Q K^T, per 4 columns (RG Q and 4 K float4s);
+    # P V, per key (P's RG / 4 float4s, V's float4s and, at D 80, one float)
+    nc, nr = d // (4 * tpr), (d % (4 * tpr)) // tpr
+    assert 16 * rg / (rg + 4) >= 8
+    assert rg * (4 * nc + nr) / (rg // 4 + nc + nr) >= 8
 
 
 @pytest.mark.parametrize("d,dp", [(64, 64), (80, 128), (128, 128), (192, 192)])
@@ -89,11 +214,11 @@ def test_k6_tensor_maps_at_head_dim_80_keep_the_real_width():
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_k6_plans_up_to_a_128_wide_row_keep_128_key_tiles(d):
     """The D 64/80/128 instances: 128-key K/V tiles, so their maps' boxes
-    and grid are those from before D = 192 came; their consumer warpgroups
-    take turns."""
+    and items are those from before D = 192 came (16 x 8, under one CTA an
+    SM); their consumer warpgroups take turns."""
     plan = fa.launch_plan((2, 1000, 8, d), 2, torch.bfloat16)
     assert fa.tc_block_k(d) == fa.TC_BLOCK_K == plan["block_k"] == 128 and plan["turns"]
-    assert plan["grid"] == (16, 8)
+    assert plan["items"] == 16 * 8 and plan["grid"] == (128,)
     for name in ("q", "k", "v"):
         assert plan["maps"][name]["box"] == (64, 1, 128, 1)
     assert plan["dynamic_smem_bytes"] == {64: 115_776, 80: 230_464, 128: 230_464}[d]
@@ -103,11 +228,12 @@ def test_k6_plan_at_head_dim_192():
     """nemotron-4's (1, 8192, 96 / 8 heads, 192): three whole 64-wide panels,
     no padding; 128-row query tiles (the q map's box) and 64-key K/V tiles
     (the k/v maps' boxes); 197,696 bytes of shared memory, under the limit;
-    one CTA per (head, query tile)."""
+    6,144 work items (head, query tile), walked by one CTA an SM.  The f32
+    instance: a block an item, 8 lanes a row and 32-key tiles."""
     plan = fa.launch_plan((1, 8192, 96, 192), 8, torch.bfloat16)
     assert fa.tc_padded_dim(192) == 192 and fa.tc_block_k(192) == fa.TC_BLOCK_K_WIDE == 64
     assert plan["instance"] == "tc_bf16" and plan["block_k"] == 64 and not plan["turns"]
-    assert plan["grid"] == (96, 64)
+    assert plan["items"] == 96 * 64 and plan["grid"] == (132,)
     assert plan["dynamic_smem_bytes"] == 1024 + 49_152 + 3 * 2 * 24_576 + 64 == 197_696 <= LIMIT
     assert plan["maps"]["q"] == dict(dims=(192, 96, 8192, 1), strides=(384, 96 * 384, 8192 * 96 * 384),
                                      box=(64, 1, 128, 1))
@@ -117,7 +243,9 @@ def test_k6_plan_at_head_dim_192():
     arg = list(fa._maps_arg(plan["maps"]))
     assert (arg[9], arg[20], arg[31]) == (128, 64, 64)  # the box rows the C entry checks
     f32 = fa.launch_plan((1, 8192, 96, 192), 8, torch.float32)
-    assert f32["instance"] == "cc_f32" and f32["grid"] == (96, 128)
+    assert f32["instance"] == "cc_f32" and f32["grid"] == (96, 64) and f32["items"] == 96 * 64
+    assert f32["block_k"] == 32 and f32["threads_per_row"] == 8
+    assert f32["dynamic_smem_bytes"] == 214_016 <= LIMIT
 
 
 def test_k6_tensor_maps_of_contiguous_operands():
@@ -210,13 +338,14 @@ def test_k6_persistent_walk_evens_causal_work(shape, kv):
     1.6-13 % over it)."""
     b, s, h, d = shape
     plan = fa.launch_plan(shape, kv, torch.bfloat16)
-    bh, qt = plan["grid"]
+    bh, qt = b * h, -(-s // 128)
     bk = plan["block_k"]
+    assert plan["items"] == bh * qt and plan["grid"] == (132,)
 
     def tiles(i):  # a causal query tile's key tiles
         return (qt - 1 - i // bh + 1) * 128 // bk
 
-    work = [sum(map(tiles, w)) for w in fa.tc_walk(bh * qt, 132)]
+    work = [sum(map(tiles, w)) for w in fa.tc_walk(plan["items"], plan["grid"][0])]
     mean = sum(work) / len(work)
     assert max(work) <= 1.005 * mean
 
@@ -571,8 +700,28 @@ def test_plans_match_the_cuda_sources():
     assert "int item_of(int r, int c, int g) { return r * g + ((r & 1) ? g - 1 - c : c); }" in tc
     assert "<<<(unsigned)(items < sms ? items : sms), THREADS, BYTES, stream>>>" in tc
     assert "w.q0 = (QT - 1 - i / BH) * BM;" in tc  # heaviest query tiles first
-    cc = attn[attn.index("namespace cc {"):attn.index("namespace tc {")]
+    cc = attn[attn.index("namespace cc {"):attn.index("}  // namespace cc")]
     assert _constant(cc, "BQ") == str(fa.CC_BLOCK_Q)
+    assert _constant(cc, "THREADS") == str(fa.CC_THREADS)
+    assert _constant(cc, "P_ROW") == str(fa.CC_P_ROW)
+    assert "threads_per_row(int d) { return d > 128 ? 8 : 16; }" in cc
+    assert "block_k(int d) { return 4 * threads_per_row(d); }" in cc
+    assert "static constexpr int KS = D + 4;" in cc
+    assert "static constexpr int BYTES = 4 * (Q + 2 * K + 2 * V + P);" in cc
+    assert "if (smem != BYTES) return cudaErrorInvalidValue;" in cc
+    assert "const dim3 grid(B * H, (S + BQ - 1) / BQ);" in cc
+    # the swizzles and ownership the layout tests mirror
+    assert "sq + r * D + 4 * (c ^ (r % RGW))" in cc
+    assert "4 * ((g * QUADS + qd) ^ ((j >> 1) & 3))" in cc
+    assert "const int g = lane / TPR, t = lane % TPR;" in cc
+    assert "vt + j * D + 4 * (t + TPR * c)" in cc
+    # exact f32: FFMAs only, no tensor-core instruction, one barrier a tile
+    assert "mma" not in cc and "tf32" not in cc.lower() and cc.count("__syncthreads()") == 1
+    assert "ex2.approx.ftz.f32" in cc and "__frcp_rn(fmaxf(lt, 1e-30f))" in cc
+    # the bf16 overloads of the old f32 kernel are gone (only float is instantiated)
+    assert "bfloat16" not in cc and "load16" not in cc and "to_f32" not in cc
+    for d in fa.HEAD_DIMS:
+        assert f"cc::launch<{d}>(q, k, v, o, B, S, H, KV, causal, st, smem, s)" in attn
     dec = (CSRC / "flash_decode.cu").read_text()
     assert _constant(dec, "DBK") == str(fd.TILE)
     assert _constant(dec, "WARPS") == "THREADS / 32" and _constant(dec, "THREADS") == str(32 * fd.WARPS)
