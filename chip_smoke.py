@@ -30,8 +30,8 @@ comes out:
    serialised)), and the ``HGMMA`` (wgmma) and ``USETMAXREG``
    (``setmaxnreg``) instructions in the SASS of each bf16
    ``flash_attention`` instance (``cuobjdump -sass``): at least one and two;
-   every f32 K6 instance must not spill either, and its SASS must hold
-   ``FFMA``s and no ``HMMA`` or ``HGMMA`` (exact f32 products);
+   every f32 K6 and K7 instance must not spill either, and its SASS must
+   hold ``FFMA``s and no ``HMMA`` or ``HGMMA`` (exact f32 products);
 2. kernels vs their plain versions at the main path's shapes (exact,
    ``lap_bid_fused_batched`` bit for bit also on non-integer costs; the bid
    kernels also at 1x4096x4096, more than the L2 holds, and
@@ -57,8 +57,8 @@ comes out:
    relative L2 error per 128-query tile / per head, at the serving path's
    shapes, at ``prefill_32k`` / ``decode_32k``'s length, at zamba2's
    head dim 80 and nemotron-4's 192 (K6 also in f32 at both and at 128 and
-   64, within 2e-5; K7 in f32 on (e)'s cache and over whole 32768-slot
-   caches at D 128 and 192, within 2e-5)
+   64, within 2e-5; K7 in f32 on (e)'s and (e6)'s caches and over whole
+   32768-slot caches at D 128 and 192 and at D 80, group 1, within 2e-5)
    and at deepseek-67b's 64 / 8 heads (K7 also over a whole 32768-slot
    cache at D 192, groups 12 and 1, and at D 128, group 8, on its
    tensor-core instance), with
@@ -257,14 +257,17 @@ FULL = dict(
         # says whether the 2-stage ring hides the copies; K7 on (e6)'s
         # served cache (D 64, group 1); the whole cache at D 128 and
         # deepseek-67b's group 8; K7 in f32 on row (e)'s served cache, over a
-        # whole 32768-slot cache at D 128 and at D 192, group 12
+        # whole 32768-slot cache at D 128 and at D 192, group 12, on (e6)'s
+        # served cache (D 64, group 1) and over a whole cache at group 1 and
+        # D 80 (5.37 GB of f32 K and V)
         k6_shapes=[(1, 8192, 32, 8, 128), (1, 32768, 32, 8, 128), (1, 8192, 48, 8, 128),
                    (1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192), (1, 8192, 64, 8, 128),
                    (1, 8192, 16, 16, 64)],
         k6_f32_shapes=[(1, 8192, 32, 32, 80), (1, 8192, 96, 8, 192), (1, 8192, 32, 8, 128),
                        (1, 8192, 16, 16, 64)],
         k7_f32_shapes=[(8, 8192, 32, 8, 128, 63), (8, 32768, 32, 8, 128, 32768),
-                       (8, 32768, 96, 8, 192, 32768)],
+                       (8, 32768, 96, 8, 192, 32768), (8, 8192, 16, 16, 64, 63),
+                       (8, 32768, 32, 32, 80, 32768)],
         k7_shapes=[(8, 8192, 32, 8, 128, 63), (32, 32768, 32, 8, 128, 32768),
                    (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63),
                    (8, 8192, 96, 8, 192, 63), (8, 8192, 64, 8, 128, 63),
@@ -349,7 +352,8 @@ SERVE_REHEARSAL = dict(
     arch="llama3-8b", reduced=True, prefill_s=64, batch=2, prompt=8, gen=8, context=64,
     k6_shapes=[(1, 64, 4, 2, 64), (1, 64, 4, 4, 80), (1, 64, 12, 1, 192)],
     k6_f32_shapes=[(1, 64, 4, 4, 80), (1, 64, 12, 1, 192), (1, 64, 4, 2, 128), (1, 64, 2, 2, 64)],
-    k7_f32_shapes=[(2, 64, 4, 2, 128, 15), (2, 64, 12, 1, 192, 64)],
+    k7_f32_shapes=[(2, 64, 4, 2, 128, 15), (2, 64, 12, 1, 192, 64), (2, 64, 2, 2, 64, 15),
+                   (2, 64, 4, 4, 80, 64)],
     k7_shapes=[(2, 64, 4, 2, 64, 15), (2, 64, 4, 4, 80, 15), (2, 64, 12, 1, 192, 15)],
 )
 
@@ -1020,15 +1024,15 @@ def k7_symbol(plan, d):
     head dim ``d`` launches, as ``ptxas`` reports it."""
     if plan["instance"] == "mma_bf16":
         return f"flash_decode_partial_mmaILi{d}E"
-    if plan["instance"] == "cc_f32":
-        return f"flash_decode_partialIfLi{d}EE"
+    if plan["instance"] == "ffma_f32":
+        return f"flash_decode_partial_ffmaILi{d}ELi{plan['heads_per_warp']}EE"
     return f"flash_decode_partial_ringILi{d}ELi{plan['heads_per_warp']}EE"
 
 
 def compare_flash_decode(shape, device, seed, ptxas=None, dtype="bfloat16"):
     """``flash_decode`` (K7) against its plain version on a random cache
     (B, S, KV, D) of ``dtype``, ``valid_len`` slots valid, at ``ATTN_TOL``
-    and, per head, within ``REL_TOL`` relative L2 error; on the card a bf16
+    and, per head, within ``REL_TOL`` relative L2 error; on the card the
     plan's blocks per SM held to the occupancy calculator's, and
     (``ptxas``: phase 1's report) the instance's registers and spills
     beside the row.  The bound counts bytes of ``dtype`` and bf16 work at
@@ -1070,8 +1074,8 @@ def compare_flash_decode(shape, device, seed, ptxas=None, dtype="bfloat16"):
     g = dict(reps=10, replays=3)
     row = dict(
         shape=list(shape), dtype=dtype, max_abs_err=err, rel_err=rel, library_err=lib_err,
-        **{key: plan[key] for key in ("instance", "splits", "tiles_per_split", "blocks",
-                                       "blocks_per_sm")},
+        **{key: plan[key] for key in ("instance", "tile", "chunks", "splits", "tiles_per_split",
+                                       "blocks", "blocks_per_sm")},
         ms=graph_ms(lambda: flash_decode(q, k, v, valid), device, **g),
         eager_ms=timed(lambda: flash_decode(q, k, v, valid), device, 10, 2),
         plain_ms=timed(lambda: flash_decode_plain(q, k, v, valid), device, 3, 1),
@@ -1082,11 +1086,10 @@ def compare_flash_decode(shape, device, seed, ptxas=None, dtype="bfloat16"):
     row["gb_per_s"] = nbytes / row["ms"] / 1e6
     row.update(share_of_bound=bnd / row["ms"], x_library=row["ms"] / row["library_ms"])
     if device.type == "cuda":
-        if dtype == "bfloat16":
-            row["card_blocks_per_sm"] = fd.card_blocks_per_sm(plan, d)
-            check(row["card_blocks_per_sm"] == plan["blocks_per_sm"],
-                  f"flash_decode {shape}: the plan counts {plan['blocks_per_sm']} blocks an SM, the "
-                  f"card's occupancy calculator {row['card_blocks_per_sm']}")
+        row["card_blocks_per_sm"] = fd.card_blocks_per_sm(plan, d)
+        check(row["card_blocks_per_sm"] == plan["blocks_per_sm"],
+              f"flash_decode {shape} {dtype}: the plan counts {plan['blocks_per_sm']} blocks an SM, "
+              f"the card's occupancy calculator {row['card_blocks_per_sm']}")
         sym = k7_symbol(plan, d)
         row["ptxas"] = {fn: r for fn, r in (ptxas or {}).items() if sym in fn}
     log(f"[kernel] flash_decode {shape} {dtype}: within {tol} of plain, worst head's relative error "
@@ -3060,9 +3063,13 @@ def build_report():
     instructions (it must be a tensor-core kernel) and the two
     ``USETMAXREG`` of its register hand-off (none is a failure), and in the
     SASS of each f32 K6 instance its ``FFMA`` count and no ``HMMA`` or
-    ``HGMMA`` (its products must stay exact f32)."""
+    ``HGMMA`` (its products must stay exact f32), and the same of every K7
+    f32 instance (``ffma::flash_decode_partial_ffma<D, GP>``, 23: no spill,
+    ``FFMA``s, no ``HMMA`` or ``HGMMA`` in the flash_decode library's
+    SASS)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_decode import FFMA_HEAD_CLASSES, ffma_max_group
 
     ptxas = {}
     for name in ("flash_attention", "flash_decode"):
@@ -3083,18 +3090,20 @@ def build_report():
           f"the D = 80 attention instances spill (or were not built): {d80}")
     k6 = [(f"flash_attention_wgmmaILi{d}E", f"K6's bf16 D = {d} instance") for d in HEAD_DIMS]
     k6 += [(f"flash_attention_ffmaILi{d}E", f"K6's f32 D = {d} instance") for d in HEAD_DIMS]
-    for sym, what in k6 + [("flash_decode_partial_mmaILi128E", "K7's tensor-core D = 128 instance"),
-                           ("flash_decode_partial_mmaILi192E", "K7's tensor-core D = 192 instance")]:
+    k7 = [(f"flash_decode_partial_mmaILi{d}E", f"K7's tensor-core D = {d} instance") for d in (128, 192)]
+    k7 += [(f"flash_decode_partial_ffmaILi{d}E", f"K7's f32 D = {d} instances") for d in HEAD_DIMS]
+    for sym, what in k6 + k7:
         inst = {fn: r for fn, r in ptxas.items() if sym in fn}
         check(inst and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                            for r in inst.values()), f"{what} spills (or was not built): {inst}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[build] cuobjdump not found: the SASS of the bf16 flash_attention instances was NOT checked")
-        return dict(ptxas=ptxas, hgmma=None, setmaxnreg=None, ffma=None)
-    sass = subprocess.run([tool, "-sass", str(build._target("flash_attention"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    hgmma, setmaxnreg, ffma, fn = {}, {}, {}, None
+        return dict(ptxas=ptxas, hgmma=None, setmaxnreg=None, ffma=None, k7_ffma=None)
+    sass = "".join(subprocess.run([tool, "-sass", str(build._target(name))], capture_output=True,
+                                  text=True, check=True, timeout=300).stdout
+                   for name in ("flash_attention", "flash_decode"))
+    hgmma, setmaxnreg, ffma, k7_ffma, fn = {}, {}, {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
@@ -3102,12 +3111,15 @@ def build_report():
                 hgmma[fn] = setmaxnreg[fn] = 0
             elif "flash_attention_ffma" in fn:
                 ffma[fn] = dict(FFMA=0, HMMA=0, HGMMA=0)
+            elif "flash_decode_partial_ffma" in fn:
+                k7_ffma[fn] = dict(FFMA=0, HMMA=0, HGMMA=0)
         elif fn in hgmma:
             hgmma[fn] += "HGMMA" in line
             setmaxnreg[fn] += "USETMAXREG" in line
-        elif fn in ffma:
-            for op in ffma[fn]:
-                ffma[fn][op] += f" {op}" in line
+        elif fn in ffma or fn in k7_ffma:
+            counts = ffma.get(fn) or k7_ffma[fn]
+            for op in counts:
+                counts[op] += f" {op}" in line
     log(f"[build] HGMMA instructions per bf16 flash_attention instance: {json.dumps(hgmma)}")
     log(f"[build] USETMAXREG per bf16 flash_attention instance: {json.dumps(setmaxnreg)}")
     log(f"[build] FFMA / HMMA / HGMMA per f32 flash_attention instance: {json.dumps(ffma)}")
@@ -3118,7 +3130,12 @@ def build_report():
     check(len(ffma) == len(HEAD_DIMS) and all(
         c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0 for c in ffma.values()),
         f"an f32 flash_attention instance is not an exact f32 FFMA kernel: {ffma}")
-    return dict(ptxas=ptxas, hgmma=hgmma, setmaxnreg=setmaxnreg, ffma=ffma)
+    log(f"[build] FFMA / HMMA / HGMMA per f32 flash_decode instance: {json.dumps(k7_ffma)}")
+    n_k7 = sum(c <= ffma_max_group(d) for d in HEAD_DIMS for c in FFMA_HEAD_CLASSES)
+    check(len(k7_ffma) == n_k7 and all(
+        c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0 for c in k7_ffma.values()),
+        f"an f32 flash_decode instance is not an exact f32 FFMA kernel: {k7_ffma}")
+    return dict(ptxas=ptxas, hgmma=hgmma, setmaxnreg=setmaxnreg, ffma=ffma, k7_ffma=k7_ffma)
 
 
 def run(device, scale):
@@ -3153,7 +3170,7 @@ def run(device, scale):
 
     device = torch.device(device)
     gen = torch.Generator().manual_seed(0)
-    built = dict(ptxas={}, hgmma=None, setmaxnreg=None, ffma=None)
+    built = dict(ptxas={}, hgmma=None, setmaxnreg=None, ffma=None, k7_ffma=None)
 
     # ---- phase 1: environment + build -------------------------------------- #
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3405,7 +3422,7 @@ def run(device, scale):
          "src/repro/kernels/flash_attention.py:89", ()),
         ("flash_decode", k7_rows, "src/repro_torch/kernels/csrc/flash_decode.cu",
          "src/repro/kernels/flash_decode.py:86",
-         ("instance", "splits", "blocks", "blocks_per_sm")),
+         ("instance", "chunks", "splits", "blocks", "blocks_per_sm")),
     ):
         row = rows[0]  # the serving path's shape
         kernels.append(dict(
@@ -3432,6 +3449,8 @@ def run(device, scale):
                 kernels[-1]["hgmma"] = built["hgmma"]
                 kernels[-1]["setmaxnreg"] = built["setmaxnreg"]
                 kernels[-1]["ffma"] = built["ffma"]
+            else:
+                kernels[-1]["ffma"] = built["k7_ffma"]
     next(k for k in kernels if k["name"] == "flash_attention")["head_dim_routing"] = routing_row
     return kernels
 

@@ -81,9 +81,40 @@
 //      against this file's, and G <= 16.
 //   With two stages, the copy of tile t + 1 is in flight while tile t is
 //   scored.
-// * f32 (flash_decode_partial): tiles staged as f32 (K row-padded to D+1
-//   floats so the score loop is bank-conflict free), scores and the update
-//   through shared memory with four block barriers per tile.
+// * f32 (ffma::flash_decode_partial_ffma<D, GP>): exact f32 on the CUDA
+//   cores, FFMAs only.  Bytes bound it too (D = 192, B 8 x 32768 slots x 8
+//   KV heads: 3.22 GB, 0.962 ms at 3.35 TB/s; at group 12 its 9.7e9 FFMAs
+//   take 0.29 ms at 67 TFLOP/s), so the copies must stay in flight and the
+//   FFMAs must not wait on shared memory.
+//   1. cp.async.cg 16-byte copies into a ring of 32-slot K and V tiles, as
+//      many as fit in ~110 KB, at most 4 (4 at D = 64, 80, 3 at 128, 2 at
+//      192), zero-filled past valid_len; a staged row is D / 4 + 1 float4s
+//      (an odd count, so the 8 rows a quarter-warp reads at one chunk take 8
+//      distinct bank groups).  Tiles t + 1 .. t + stages - 1 are in flight
+//      while tile t is scored: 50-68 KB a block.
+//   2. Warp w owns slots [8w, 8w + 8) of every tile; its scores, online
+//      softmax (exp2, log2(e)/sqrt(D) folded into Q) and P stay in the
+//      warp, which keeps its own (m, l, O) in registers: one block barrier a
+//      tile.  After the last tile the warps merge through the freed ring and
+//      the split's state is written as the other instances write it, so the
+//      merge kernel serves all three.
+//   3. Lane (sl, dl) = (lane & 7, lane >> 3) scores slot sl against every
+//      head of the chunk over float4 chunks dl, dl + 4, ... of the row (a K
+//      float4 from the ring, Q's float4s broadcast from shared memory: 4
+//      FFMAs a load, the four lanes of a slot summed by two xor shuffles),
+//      so at group 1 no lane idles.  For P V a lane holds every head at
+//      float2 columns lane, lane + 32, ... of O (72 floats at D = 192,
+//      chunk 12), reading P as broadcast float4s from the warp's buffer:
+//      GP / 4 + D / 64 loads for 2 GP D / 32 FFMAs a slot.  Every sum is
+//      taken in a fixed order, so a second call gives the same bits.
+//   4. A block serves a chunk of at most 16 heads, 12 at D = 192 (16 heads'
+//      96 floats of O a lane spilled there, 40-120 B at 255 registers), a
+//      grid z for each chunk, each reading its KV head's cache once; the
+//      chunk runs on the instance of the least GP in {1, 2, 4, 8, 12, 16}
+//      that holds it.  The shared memory holds 3 blocks an SM at D = 64 and
+//      2 at D = 80, 128, 192, the launch bounds keep registers from binding
+//      first, and the wrapper sizes the split-K grid to those blocks (one
+//      wave where B * KV * chunks allows).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -102,151 +133,12 @@ struct Strides {
   long long qb, qh, kb, ks, kh, vb, vs, vh;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-  if constexpr (std::is_same<T, float>::value) {
-    dst[0] = __uint_as_float(raw.x);
-    dst[1] = __uint_as_float(raw.y);
-    dst[2] = __uint_as_float(raw.z);
-    dst[3] = __uint_as_float(raw.w);
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-}
 
 __device__ __forceinline__ int valid_of(const int* valid_ptr, long long valid_host, int S) {
   const long long vl = valid_ptr ? (long long)*valid_ptr : valid_host;
   return (int)(vl < 0 ? 0 : (vl > S ? S : vl));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ valid_ptr,
-                     long long valid_host, float* __restrict__ part, int S, int KV,
-                     int G, int tiles_per_split, float scale, Strides st) {
-  constexpr int VN = Vec<T>::N;
-  constexpr int KP = D + 1;  // padded K row
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;               // DBK x KP
-  float* vs = ks + DBK * KP;      // DBK x D
-  float* qs = vs + DBK * D;       // G x D, scaled
-  float* acc = qs + G * D;        // G x D
-  float* ps = acc + G * D;        // G x DBK: scores, then weights
-  float* mrow = ps + G * DBK;     // G
-  float* lrow = mrow + G;         // G
-  float* arow = lrow + G;         // G: this tile's rescale
-
-  const int bk = blockIdx.x;
-  const int b = bk / KV, kvh = bk - (bk / KV) * KV;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int valid = valid_of(valid_ptr, valid_host, S);
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, (valid + DBK - 1) / DBK);
-
-  for (int idx = tid; idx < G * D; idx += THREADS) {
-    const int g = idx / D, d = idx - (idx / D) * D;
-    qs[idx] = to_f32(q[b * st.qb + (long long)(kvh * G + g) * st.qh + d]) * scale;
-    acc[idx] = 0.f;
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    mrow[g] = kNegInf;
-    lrow[g] = 0.f;
-  }
-
-  const T* kbase = k + b * st.kb + kvh * st.kh;
-  const T* vbase = v + b * st.vb + kvh * st.vh;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int s0 = t * DBK;
-    __syncthreads();  // the previous tile is consumed (and the init is done)
-    for (int idx = tid * VN; idx < DBK * D; idx += THREADS * VN) {
-      const int r = idx / D, c = idx - (idx / D) * D;
-      const int slot = s0 + r;
-      float kf[VN], vf[VN];
-      if (slot < valid) {
-        load16(kbase + (long long)slot * st.ks + c, kf);
-        load16(vbase + (long long)slot * st.vs + c, vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VN; ++e) kf[e] = vf[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        ks[r * KP + c + e] = kf[e];
-        vs[r * D + c + e] = vf[e];
-      }
-    }
-    __syncthreads();
-    // scores: one (head, slot) pair per thread and step
-    for (int idx = tid; idx < G * DBK; idx += THREADS) {
-      const int g = idx / DBK, j = idx - (idx / DBK) * DBK;
-      const float* qg = qs + g * D;
-      const float* kr = ks + j * KP;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot = fmaf(qg[d], kr[d], dot);
-      ps[idx] = s0 + j < valid ? dot : kNegInf;
-    }
-    __syncthreads();
-    // online-softmax update: one warp per head
-    for (int g = warp; g < G; g += WARPS) {
-      const float x0 = ps[g * DBK + lane], x1 = ps[g * DBK + lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = mrow[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = s0 + lane < valid ? expf(x0 - m_new) : 0.f;
-      const float p1 = s0 + lane + 32 < valid ? expf(x1 - m_new) : 0.f;
-      ps[g * DBK + lane] = p0;
-      ps[g * DBK + lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        lrow[g] = lrow[g] * alpha + sum;
-        mrow[g] = m_new;
-        arow[g] = alpha;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + P V: one (head, dim) pair per thread and step
-    for (int idx = tid; idx < G * D; idx += THREADS) {
-      const int g = idx / D, d = idx - (idx / D) * D;
-      const float* pg = ps + g * DBK;
-      float a = acc[idx] * arow[g];
-#pragma unroll 16
-      for (int j = 0; j < DBK; ++j) a = fmaf(pg[j], vs[j * D + d], a);
-      acc[idx] = a;
-    }
-  }
-  __syncthreads();
-  // partial state of this split: part[(bk, split)] = [m (G), l (G), acc (G x D)]
-  float* out = part + ((long long)bk * nsplit + split) * G * (D + 2);
-  for (int g = tid; g < G; g += THREADS) {
-    out[g] = mrow[g];
-    out[G + g] = lrow[g];
-  }
-  for (int idx = tid; idx < G * D; idx += THREADS) out[2 * G + idx] = acc[idx];
 }
 
 // 16 bytes from global into shared memory, the rest of the 16 zero-filled
@@ -763,6 +655,340 @@ cudaError_t blocks_per_sm(int* blocks) {
 
 }  // namespace mma
 
+// ---- f32: register-tiled FFMA split-K --------------------------------------
+namespace ffma {
+
+constexpr int TS = 32;                      // cache slots per tile
+constexpr int WARP_SLOTS = TS / WARPS;      // warp w owns slots [8w, 8w + 8) of every tile
+constexpr int RING_BYTES = 110 * 1024;      // the ring's budget, at most MAX_STAGES tiles
+constexpr int MAX_STAGES = 4;
+constexpr int SM_SMEM = 233472, BLOCK_RESERVED = 1024;  // an H100 SM's shared memory
+
+// Query heads a block serves, a chunk of the group: 16, but 12 at D = 192,
+// where 16 heads' 96 floats of O a lane spill past 255 registers.
+__host__ __device__ constexpr int max_group(int d) { return d > 128 ? 12 : 16; }
+// The chunk sizes with an instance: a chunk of g heads runs on the least one
+// >= g, its rows past g zero.
+__host__ __device__ constexpr int head_class(int g) {
+  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : g <= 12 ? 12 : 16;
+}
+// float4s of a staged K or V row: D / 4 and one of padding, an odd count,
+// so the 8 rows a quarter-warp reads at one chunk take 8 distinct bank groups
+__host__ __device__ constexpr int row4(int d) { return d / 4 + 1; }
+__host__ __device__ constexpr int stage_bytes(int d) { return 2 * TS * row4(d) * 16; }
+__host__ __device__ constexpr int stages(int d) {
+  return RING_BYTES / stage_bytes(d) < MAX_STAGES ? RING_BYTES / stage_bytes(d) : MAX_STAGES;
+}
+// The ring, Q (gp x D, scaled) and each warp's P (WARP_SLOTS x gp).
+__host__ __device__ constexpr int smem_bytes(int d, int gp) {
+  return stages(d) * stage_bytes(d) + 4 * gp * d + 4 * WARPS * WARP_SLOTS * gp;
+}
+// Blocks per SM the launch bounds ask for: as many as the shared memory holds
+// at the largest chunk (3 at D = 64, 2 at D = 80, 128, 192; the smaller
+// chunks hold no more), so the registers (at most 168 or 255) never bind first.
+__host__ __device__ constexpr int min_blocks(int d) {
+  return SM_SMEM / (smem_bytes(d, max_group(d)) + BLOCK_RESERVED);
+}
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One block per (b, kv head, split, chunk of <= max_group(D) heads).  Lane (sl, dl) =
+// (lane & 7, lane >> 3) scores slot sl of its warp's 8 against every head of
+// the chunk over float4 chunks dl, dl + 4, ... of the row (K from the ring,
+// Q broadcast from shared memory), and the four lanes of a slot sum by xor
+// shuffles.  The online softmax runs per head in log2 units in every lane;
+// P goes through the warp's own buffer, and for P V a lane holds every head
+// of the chunk at float2 columns lane, lane + 32, ... of O.
+template <int D, int GP>
+__global__ void __launch_bounds__(THREADS, min_blocks(D))
+flash_decode_partial_ffma(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ valid_ptr,
+                          long long valid_host, float* __restrict__ part, int S, int KV, int G,
+                          int tiles_per_split, float scale_log2, Strides st) {
+  constexpr int CH = D / 4;                 // float4 chunks of a cache row
+  constexpr int R4 = row4(D);               // and of a staged row
+  constexpr int NST = stages(D);
+  constexpr int STAGE = 2 * TS * R4;        // float4s of a K+V stage
+  constexpr int KC = CH / 4;                // a score lane's chunks of a row
+  constexpr int NV = (D / 2 + 31) / 32;     // a P V lane's float2 columns (D = 80: lanes 8-31 one)
+  static_assert(CH % 4 == 0 && WARP_SLOTS == 8, "8 slots a warp, 4 lanes a slot");
+  static_assert((TS * CH) % THREADS == 0, "whole copy rounds");
+  static_assert(NST >= 2, "tile t + 1 in flight while tile t is scored");
+  static_assert(GP <= max_group(D), "a chunk's O fits in the registers");
+  static_assert(WARPS * GP * (D + 2) * 4 <= NST * stage_bytes(D), "the warps' states fit in the ring");
+  extern __shared__ __align__(16) float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4 + NST * STAGE);
+  float* const pw = qs + GP * D + (threadIdx.x >> 5) * WARP_SLOTS * GP;  // this warp's P
+
+  const int bk = blockIdx.x;
+  const int b = bk / KV, kvh = bk - (bk / KV) * KV;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int g0 = blockIdx.z * max_group(D);  // the chunk's first head of the group
+  const int gc = min(GP, G - g0);            // and its heads
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sl = lane & 7, dl = lane >> 3;
+  const int valid = valid_of(valid_ptr, valid_host, S);
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, (valid + TS - 1) / TS);
+  // this split's state: part[(bk, split)] = [m (G), l (G), acc (G x D)], the chunk's heads
+  float* const out = part + ((long long)bk * nsplit + split) * G * (D + 2);
+  if (t_begin >= t_end) {  // no valid tile: the empty state, without loading Q
+    for (int g = tid; g < gc; g += THREADS) {
+      out[g0 + g] = kNegInf;
+      out[G + g0 + g] = 0.f;
+    }
+    for (int i = tid; i < gc * D; i += THREADS) out[2 * G + g0 * D + i] = 0.f;
+    return;
+  }
+
+  const float* const kbase = k + b * st.kb + kvh * st.kh;
+  const float* const vbase = v + b * st.vb + kvh * st.vh;
+  const uint32_t ring0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
+  // tile t into stage `stage`: its K rows, then its V rows, R4 float4s each;
+  // slots at or past valid_len are zero-filled without a read
+  auto load_tile = [&](int t, int stage) {
+    const uint32_t ks = ring0 + stage * STAGE * 16, vs = ks + TS * R4 * 16;
+#pragma unroll
+    for (int n = 0; n < TS * CH / THREADS; ++n) {
+      const int i = tid + n * THREADS, r = i / CH, c = i - (i / CH) * CH;
+      const int slot = t * TS + r;
+      const bool ok = slot < valid;
+      const long long row = ok ? slot : 0;
+      cp_async16(ks + (r * R4 + c) * 16, kbase + row * st.ks + 4 * c, ok ? 16 : 0);
+      cp_async16(vs + (r * R4 + c) * 16, vbase + row * st.vs + 4 * c, ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {
+    if (t_begin + i < t_end) load_tile(t_begin + i, i);
+    cp_async_commit();
+  }
+  // Q of the chunk's heads, scaled by log2(e) / sqrt(D), zero rows past gc
+  const float* const qg = q + b * st.qb + (long long)(kvh * G + g0) * st.qh;
+  for (int i = tid; i < GP * CH; i += THREADS) {
+    const int g = i / CH, c = i - (i / CH) * CH;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g < gc) x = __ldg(reinterpret_cast<const float4*>(qg + g * st.qh + 4 * c));
+    reinterpret_cast<float4*>(qs)[i] =
+        make_float4(x.x * scale_log2, x.y * scale_log2, x.z * scale_log2, x.w * scale_log2);
+  }
+  const float4* const q4 = reinterpret_cast<const float4*>(qs);
+
+  float m[GP], l[GP], acc[GP][NV][2];  // m in log2 units; l over the lane's slot until the end
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[g][i][0] = acc[g][i][1] = 0.f;
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int it = t - t_begin;
+    cp_async_wait<NST - 2>();  // this thread's copies of tile t are done
+    __syncthreads();           // everyone's are (and Q is in); the stage reloaded below is consumed
+    if (t + NST - 1 < t_end) load_tile(t + NST - 1, (it + NST - 1) % NST);
+    cp_async_commit();
+    const int s0 = t * TS + WARP_SLOTS * warp;  // the warp's first slot
+    if (s0 >= valid) continue;                  // none of its slots is valid
+    const float4* const kt = smem4 + (it % NST) * STAGE + WARP_SLOTS * warp * R4;
+    const float* const vt = reinterpret_cast<const float*>(kt + TS * R4);
+
+    // S: the lane's slot against every head, over a quarter of the row
+    float s[GP];
+#pragma unroll
+    for (int g = 0; g < GP; ++g) s[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KC; ++i) {
+      const int c = dl + 4 * i;
+      const float4 kv = kt[sl * R4 + c];
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float4 qv = q4[g * CH + c];
+        s[g] = fmaf(qv.x, kv.x, s[g]);
+        s[g] = fmaf(qv.y, kv.y, s[g]);
+        s[g] = fmaf(qv.z, kv.z, s[g]);
+        s[g] = fmaf(qv.w, kv.w, s[g]);
+      }
+    }
+    // the row's four quarters summed; the online softmax over the warp's 8
+    // slots (a zero-filled slot would score 0, not -inf; slot s0 is valid,
+    // so the new max is finite), O rescaled by each head's alpha
+    const bool ok = s0 + sl < valid;
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      s[g] += __shfl_xor_sync(0xffffffffu, s[g], 8);
+      s[g] += __shfl_xor_sync(0xffffffffu, s[g], 16);
+      if (!ok) s[g] = -INFINITY;
+      float mx = fmaxf(s[g], __shfl_xor_sync(0xffffffffu, s[g], 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m[g], mx);
+      const float alpha = exp2_ftz(m[g] - mn);
+      m[g] = mn;
+      s[g] = exp2_ftz(s[g] - mn);
+      l[g] = fmaf(l[g], alpha, s[g]);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        acc[g][i][0] *= alpha;
+        acc[g][i][1] *= alpha;
+      }
+    }
+    if (dl == 0) {  // P[slot][head] into the warp's buffer
+      float* const prow = pw + sl * GP;
+      if constexpr (GP % 4 == 0) {
+#pragma unroll
+        for (int g = 0; g < GP; g += 4)
+          *reinterpret_cast<float4*>(prow + g) = make_float4(s[g], s[g + 1], s[g + 2], s[g + 3]);
+      } else {
+#pragma unroll
+        for (int g = 0; g < GP; ++g) prow[g] = s[g];
+      }
+    }
+    __syncwarp();
+    // O += P V on the lane's columns, every head of the chunk
+#pragma unroll
+    for (int j = 0; j < WARP_SLOTS; ++j) {
+      float p[GP];
+      const float* const prow = pw + j * GP;
+      if constexpr (GP % 4 == 0) {
+#pragma unroll
+        for (int g = 0; g < GP; g += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(prow + g);
+          p[g] = p4.x;
+          p[g + 1] = p4.y;
+          p[g + 2] = p4.z;
+          p[g + 3] = p4.w;
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < GP; ++g) p[g] = prow[g];
+      }
+      const float2* const vrow = reinterpret_cast<const float2*>(vt + j * R4 * 4);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c2 = lane + 32 * i;
+        if (NV * 64 == D || c2 < D / 2) {
+          const float2 x = vrow[c2];
+#pragma unroll
+          for (int g = 0; g < GP; ++g) {
+            acc[g][i][0] = fmaf(p[g], x.x, acc[g][i][0]);
+            acc[g][i][1] = fmaf(p[g], x.y, acc[g][i][1]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  __syncthreads();     // and no warp reads the ring any more: it holds the merge
+
+  // the four warps' (m, l, O) per head of the chunk, then one pass merges
+  // them and writes this split's state, m in natural-log units
+  float* const ms = reinterpret_cast<float*>(smem4);  // [WARPS][GP]
+  float* const ls = ms + WARPS * GP;                  // [WARPS][GP]
+  float* const as = ls + WARPS * GP;                  // [WARPS][GP][D]
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    l[g] += __shfl_xor_sync(0xffffffffu, l[g], 1);
+    l[g] += __shfl_xor_sync(0xffffffffu, l[g], 2);
+    l[g] += __shfl_xor_sync(0xffffffffu, l[g], 4);
+    if (lane == 0) {
+      ms[warp * GP + g] = m[g];
+      ls[warp * GP + g] = l[g];
+    }
+    float2* const arow = reinterpret_cast<float2*>(as + (warp * GP + g) * D);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c2 = lane + 32 * i;
+      if (NV * 64 == D || c2 < D / 2) arow[c2] = make_float2(acc[g][i][0], acc[g][i][1]);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < gc * D; idx += THREADS) {
+    const int g = idx / D, d = idx - (idx / D) * D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * GP + g]);
+    const float sub = mx == -INFINITY ? 0.f : mx;
+    float a = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = exp2f(ms[w * GP + g] - sub);
+      a = fmaf(as[(w * GP + g) * D + d], c, a);
+      lsum = fmaf(ls[w * GP + g], c, lsum);
+    }
+    out[2 * G + (g0 + g) * D + d] = a;
+    if (d == 0) {
+      out[g0 + g] = mx == -INFINITY ? kNegInf : mx * 0.6931471805599453f;
+      out[G + g0 + g] = lsum;
+    }
+  }
+}
+
+// f(std::integral_constant<int, GP>{}) for the chunk size gp (head_class's values)
+template <typename F>
+cudaError_t with_class(int gp, F&& f) {
+  switch (gp) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 12: return f(std::integral_constant<int, 12>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Opt the instance in to its shared memory, once (not a stream operation).
+template <int D, int GP>
+cudaError_t prepare() {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      flash_decode_partial_ffma<D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(D, GP));
+  return opt_in;
+}
+
+template <int D>
+cudaError_t launch(int gp, const void* q, const void* k, const void* v, const int* valid_ptr,
+                   long long valid_host, float* part, int B, int S, int KV, int G, int nsplit,
+                   int tiles_per_split, const Strides& st, cudaStream_t stream) {
+  const dim3 grid(B * KV, nsplit, (G + max_group(D) - 1) / max_group(D));
+  return with_class(gp, [&](auto c) {
+    constexpr int GP = decltype(c)::value;
+    if constexpr (GP > max_group(D)) {
+      return cudaErrorInvalidValue;  // no instance
+    } else {
+      const cudaError_t opt_in = prepare<D, GP>();
+      if (opt_in != cudaSuccess) return opt_in;
+      flash_decode_partial_ffma<D, GP><<<grid, THREADS, smem_bytes(D, GP), stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, valid_ptr, valid_host, part, S, KV,
+          G, tiles_per_split, 1.4426950408889634f / sqrtf((float)D), st);
+      return cudaGetLastError();
+    }
+  });
+}
+
+template <int D>
+cudaError_t blocks_per_sm(int gp, int* blocks) {
+  return with_class(gp, [&](auto c) {
+    constexpr int GP = decltype(c)::value;
+    if constexpr (GP > max_group(D)) {
+      return cudaErrorInvalidValue;  // no instance
+    } else {
+      cudaError_t e = prepare<D, GP>();
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_decode_partial_ffma<D, GP>,
+                                                          THREADS, smem_bytes(D, GP));
+      return e;
+    }
+  });
+}
+
+}  // namespace ffma
+
 // Merge the splits of every (b, h): one block of D threads per (b, h).
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
@@ -785,13 +1011,6 @@ flash_decode_merge(const float* __restrict__ part, T* __restrict__ o, int H, int
   store(o + (long long)bh * D + d, a / fmaxf(l, 1e-30f));
 }
 
-// The f32 partial kernel's dynamic shared memory.
-template <int D>
-size_t cc_smem_bytes(int G) {
-  return sizeof(float) * ((size_t)DBK * (D + 1) + (size_t)DBK * D + 2 * (size_t)G * D +
-                          (size_t)G * DBK + 3 * (size_t)G);
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* valid_ptr,
                    long long valid_host, void* o, float* part, int B, int S, int H,
@@ -800,23 +1019,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* valid
   const int G = H / KV;
   cudaError_t err;
   if constexpr (std::is_same<T, float>::value) {
-    if (smem != cc_smem_bytes<D>(G)) return cudaErrorInvalidValue;  // the plan disagrees
-    // Opt in to the card's full shared memory once per instance (outside any
-    // graph capture's stream work: it is not a stream operation).
-    static const cudaError_t opt_in = [] {
-      int dev = 0, optin = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(flash_decode_partial<T, D>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-      return e;
-    }();
-    if (opt_in != cudaSuccess) return opt_in;
-    flash_decode_partial<T, D><<<dim3(B * KV, nsplit), THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, valid_ptr, valid_host, part, S, KV, G,
-        tiles_per_split, 1.0f / sqrtf((float)D), st);
-    err = cudaGetLastError();
+    // every warp scores every head of a chunk of at most 16, 12 at D = 192
+    // (a chunk a grid z)
+    const int gp = ffma::head_class(G < ffma::max_group(D) ? G : ffma::max_group(D));
+    if (smem != (size_t)ffma::smem_bytes(D, gp) || hpw != gp)
+      return cudaErrorInvalidValue;  // the plan and this file disagree
+    err = ffma::launch<D>(gp, q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream);
   } else if constexpr (on_mma(D)) {
     // a warp scores every head of the group on the tensor cores
     if (smem != (size_t)mma::smem_bytes<D>() || hpw != G || G > mma::MAX_GROUP)
@@ -844,8 +1052,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* valid
 // contiguous; the output is contiguous (B, H, D).  valid_ptr (device int32)
 // wins over valid_host when it is not null.  part is f32 scratch of
 // B*KV*nsplit*G*(D+2) floats.  smem: the partial kernel's dynamic shared
-// memory and hpw the bf16 kernel's heads per warp (f32 ignores it), as the
-// wrapper's plan has them (checked against this file's).
+// memory and hpw its heads per warp (ring: G / 4 rounded up; mma: G; f32:
+// the chunk size, head_class of min(G, 16)), as the wrapper's plan has them
+// (checked against this file's).
 // Returns a cudaError_t.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* valid_ptr, long long valid_host, void* o,
@@ -877,11 +1086,22 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the bf16 partial kernel that one SM holds, as the runtime's
-// occupancy calculator has it: the instance the wrapper's plan takes for
-// head dim D and hpw heads per warp (the tensor-core instance at D = 128, 192).
-// Returns a cudaError_t.
-extern "C" int flash_decode_blocks_per_sm(int D, int hpw, int* blocks) {
+// Blocks of the partial kernel that one SM holds, as the runtime's occupancy
+// calculator has it: the instance the wrapper's plan takes for dtype (0 =
+// float32, 1 = bfloat16), head dim D and hpw heads per warp (f32: ffma:: at
+// chunk size hpw; bf16: the tensor-core instance at D = 128, 192, the ring's
+// at D = 64, 80).  Returns a cudaError_t.
+extern "C" int flash_decode_blocks_per_sm(int dtype, int D, int hpw, int* blocks) {
+  if (dtype == 0) {
+    switch (D) {
+      case 64: return (int)ffma::blocks_per_sm<64>(hpw, blocks);
+      case 80: return (int)ffma::blocks_per_sm<80>(hpw, blocks);
+      case 128: return (int)ffma::blocks_per_sm<128>(hpw, blocks);
+      case 192: return (int)ffma::blocks_per_sm<192>(hpw, blocks);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (D == 128) return (int)mma::blocks_per_sm<128>(blocks);
   if (D == 192) return (int)mma::blocks_per_sm<192>(blocks);
   switch (D * 8 + hpw) {

@@ -18,8 +18,8 @@ bounds it and how it is laid out); it replaces the Pallas kernel
 ``flash_decode_pallas`` of the JAX package.  :func:`flash_decode` launches
 it for CUDA tensors and takes the plain version :func:`flash_decode_plain`
 only for CPU tensors.  :func:`launch_plan` is everything the wrapper
-computes for a launch (instance, split-K grid, shared memory, heads per
-warp, blocks per SM), so it is tested on a host without a card.
+computes for a launch (instance, split-K grid, head chunks, shared memory,
+heads per warp, blocks per SM), so it is tested on a host without a card.
 
 Bytes bound it: every valid slot's K and V are read once.  Its instances:
 
@@ -27,7 +27,7 @@ Bytes bound it: every valid slot's K and V are read once.  Its instances:
   2 cache rows at once, each dot reduced by shuffles across the lanes that
   read the row.  Its shared memory holds 3 blocks on an SM at D 64 and 2
   at D 80 (ptxas's 64-152 registers a thread allow more); its split-K grid
-  aims at ``_TARGET_BLOCKS``.
+  aims at ``_TARGET_BLOCKS`` (:func:`splits_for`), the only grid that does.
 - ``mma_bf16`` (D 128, 192): the scores and P V on the tensor cores
   (``mma.sync`` m16n8k16, the group's heads as M), warp w owning slots
   [16w, 16w + 16) of every 64-slot tile, read through a swizzled ring
@@ -35,7 +35,18 @@ Bytes bound it: every valid slot's K and V are read once.  Its instances:
   at D 128 and 2 at D 192, the launch bounds keep registers to 168 and 255
   a thread so that they do not bind first, and its split-K grid is sized
   to those blocks (:func:`resident_splits`): one wave where B * KV allows.
-- ``cc_f32``: f32 tiles and scores through shared memory (the f32 checks).
+- ``ffma_f32`` (f32, every D): exact f32 FFMAs on the CUDA cores
+  (``ffma::flash_decode_partial_ffma``).  A ring of ``cp.async`` copies of
+  32-slot tiles (:func:`ffma_stages` of them, rows padded by a float4:
+  :func:`ffma_row_offset`), warp w owning slots [8w, 8w + 8) of each
+  (:func:`ffma_warp_slots`), every lane scoring one slot against every head
+  of a chunk of at most 16, 12 at D 192 (``heads_per_warp`` = the chunk's
+  size class, :func:`ffma_head_class`; a grid z per chunk, so a larger
+  group reads the cache once a chunk) and holding every head's O at its
+  columns for P V.  Its shared memory holds 3 blocks on an SM at D 64 and
+  2 at D 80, 128, 192, the launch bounds keep registers from binding first,
+  and its split-K grid is sized to those blocks (:func:`resident_splits`)
+  as ``mma_bf16``'s is.
 """
 
 from __future__ import annotations
@@ -58,8 +69,8 @@ WARPS = 4
 #: the H100: SMs, shared memory per SM (of which a block reserves 1 KB) and
 #: one block may use (227 KB), 32-bit registers per SM
 SMS, SM_SMEM, BLOCK_SMEM_RESERVED, SMEM_LIMIT, SM_REGISTERS = 132, 233_472, 1024, 232_448, 65_536
-#: blocks the ``ring_bf16`` and ``cc_f32`` split-K grids aim for: four per SM
-#: (never measured; the ring's shared memory holds 3 at D 64, 2 at D 80/128)
+#: blocks the ``ring_bf16`` split-K grid aims for (the only grid that does):
+#: four per SM (never measured; its shared memory holds 3 at D 64, 2 at D 80)
 _TARGET_BLOCKS = 4 * SMS
 #: the bf16 ring's budget: at most this much shared memory and at most
 #: ``_MAX_STAGES`` tiles
@@ -69,8 +80,14 @@ _RING_BYTES, _MAX_STAGES = 110 * 1024, 4
 #: warp owns in every tile
 MMA_HEAD_DIMS = (128, 192)
 MMA_STAGES, MMA_MAX_GROUP, MMA_WARP_SLOTS = 2, 16, TILE // WARPS
-#: the largest ``heads_per_warp`` each instance has (``cc_f32`` takes none)
-_MAX_HEADS_PER_WARP = dict(ring_bf16=4, mma_bf16=MMA_MAX_GROUP, cc_f32=0)
+#: the ``ffma_f32`` instance (csrc/flash_decode.cu ``ffma::``): cache slots
+#: per tile, the slots a warp owns in every tile, and the chunk sizes with
+#: an instance (a chunk of the group runs on the least that holds it; 16
+#: only below D 192, :func:`ffma_max_group`)
+FFMA_TILE, FFMA_WARP_SLOTS = 32, 32 // WARPS
+FFMA_HEAD_CLASSES = (1, 2, 4, 8, 12, 16)
+#: the largest ``heads_per_warp`` each instance has
+_MAX_HEADS_PER_WARP = dict(ring_bf16=4, mma_bf16=MMA_MAX_GROUP, ffma_f32=16)
 
 
 def flash_decode_plain(q, k, v, valid_len) -> torch.Tensor:
@@ -128,17 +145,19 @@ def _splits(tiles: int, want: int):
 
 
 def splits_for(batch_kv: int, cache_len: int):
-    """(splits, tiles per split) of the ``ring_bf16`` / ``cc_f32`` split-K
-    grid for ``batch_kv`` = B*KV blocks' worth of cache of ``cache_len``
+    """(splits, tiles per split) of the ``ring_bf16`` split-K grid (D 64,
+    80) for ``batch_kv`` = B*KV blocks' worth of cache of ``cache_len``
     slots: at least ``_TARGET_BLOCKS`` blocks where the tiles allow."""
     return _splits(max(1, -(-cache_len // TILE)), -(-_TARGET_BLOCKS // batch_kv))
 
 
-def resident_splits(batch_kv: int, cache_len: int, resident: int):
-    """(splits, tiles per split) of the ``mma_bf16`` split-K grid: as many
-    splits as keep B*KV*splits within the ``resident`` blocks the card holds
-    at once (one wave), and one split per (b, kv) when B*KV alone fills it."""
-    return _splits(max(1, -(-cache_len // TILE)), resident // batch_kv)
+def resident_splits(batch_kv: int, cache_len: int, resident: int, tile: int = TILE):
+    """(splits, tiles per split) of the ``mma_bf16`` and ``ffma_f32``
+    split-K grids over ``tile``-slot tiles: as many splits as keep
+    ``batch_kv`` (B*KV, times the head chunks) * splits within the
+    ``resident`` blocks the card holds at once (one wave), and one split per
+    block of ``batch_kv`` when that alone fills it."""
+    return _splits(max(1, -(-cache_len // tile)), resident // batch_kv)
 
 
 def blocks_per_sm(smem_bytes: int, registers: int | None = None) -> int:
@@ -182,33 +201,105 @@ def mma_warp_slots(warp: int) -> range:
     return range(MMA_WARP_SLOTS * warp, MMA_WARP_SLOTS * (warp + 1))
 
 
+def ffma_max_group(d: int) -> int:
+    """Query heads an ``ffma_f32`` block serves at head dim ``d``, a chunk of
+    the group (``ffma::max_group``): 16, but 12 at D 192, where 16 heads'
+    96 floats of O a lane spill past 255 registers."""
+    return 12 if d > 128 else 16
+
+
+def ffma_head_class(g: int, d: int) -> int:
+    """The chunk size whose ``ffma_f32`` instance serves ``g`` query heads
+    per KV head at head dim ``d`` (``ffma::head_class`` of the largest
+    chunk): the least of ``FFMA_HEAD_CLASSES`` that holds it, its rows past
+    the chunk's heads zero."""
+    return next(c for c in FFMA_HEAD_CLASSES if c >= min(g, ffma_max_group(d)))
+
+
+def ffma_head_chunks(g: int, d: int) -> range:
+    """The first heads of the chunks that the ``ffma_f32`` grid's z axis
+    walks for ``g`` query heads per KV head at head dim ``d``."""
+    return range(0, g, ffma_max_group(d))
+
+
+def ffma_row4(d: int) -> int:
+    """float4s of a K or V row staged by ``ffma_f32`` (``ffma::row4``):
+    ``d / 4`` and one of padding, an odd count."""
+    return d // 4 + 1
+
+
+def ffma_row_offset(row: int, chunk: int, d: int) -> int:
+    """Byte offset in a K or V tile of ``ffma_f32``'s ring of float4
+    ``chunk`` of cache row ``row``."""
+    return 16 * (row * ffma_row4(d) + chunk)
+
+
+def ffma_stages(d: int) -> int:
+    """32-slot K+V tiles in ``ffma_f32``'s ring (``ffma::stages``): as many
+    as fit in ~110 KB, at most four."""
+    return min(_MAX_STAGES, _RING_BYTES // (2 * FFMA_TILE * ffma_row4(d) * 16))
+
+
+def ffma_smem(d: int, gp: int) -> int:
+    """``ffma_f32``'s dynamic shared memory at head dim ``d`` and chunk size
+    ``gp`` (``ffma::smem_bytes``): the ring, Q (gp x d) and each warp's P
+    (8 slots x gp), f32."""
+    ring = ffma_stages(d) * 2 * FFMA_TILE * ffma_row4(d) * 16
+    return ring + 4 * gp * d + 4 * WARPS * FFMA_WARP_SLOTS * gp
+
+
+def ffma_min_blocks(d: int) -> int:
+    """Blocks per SM ``ffma_f32``'s launch bounds ask for at head dim ``d``
+    (``ffma::min_blocks``): what its shared memory holds at the largest
+    chunk."""
+    return SM_SMEM // (ffma_smem(d, ffma_max_group(d)) + BLOCK_SMEM_RESERVED)
+
+
+def ffma_registers(d: int) -> int:
+    """Registers a thread of ``ffma_f32`` may take at head dim ``d``: the
+    launch bounds' budget, in units of 8, at most 255."""
+    return min(255, SM_REGISTERS // (ffma_min_blocks(d) * WARPS * 32) // 8 * 8)
+
+
+def ffma_warp_slots(warp: int) -> range:
+    """The slots of every 32-slot tile that warp ``warp`` of ``ffma_f32``
+    scores: slot ``sl`` by lanes ``sl``, ``sl + 8``, ``sl + 16``, ``sl + 24``,
+    a quarter of the row each."""
+    return range(FFMA_WARP_SLOTS * warp, FFMA_WARP_SLOTS * (warp + 1))
+
+
 def launch_plan(q_shape, cache_shape, dtype) -> dict:
     """What a launch of ``flash_decode`` on q (B, H, D) against a cache
     (B, S, KV, D) of ``dtype`` hands the C entry: the partial kernel's
-    instance, split-K grid (``blocks`` = B * KV * splits), the scratch its
-    splits write, its dynamic shared memory and (bf16) heads per warp, which
-    the C entry checks against its own; and the blocks an SM holds."""
+    instance, its tile, split-K grid (``blocks`` = B * KV * splits *
+    chunks; ``chunks`` > 1 only for ``ffma_f32`` past its largest chunk),
+    the scratch its splits write, its dynamic shared memory and heads per
+    warp, which the C entry checks against its own; and the blocks an SM
+    holds."""
     b, h, d = q_shape
     s, kvh = cache_shape[1], cache_shape[2]
     g = h // kvh
-    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+    tile, chunks = TILE, 1
+    if dtype == torch.float32:
+        tile, chunks, gp = FFMA_TILE, len(ffma_head_chunks(g, d)), ffma_head_class(g, d)
+        smem = ffma_smem(d, gp)
+        per_sm = blocks_per_sm(smem, ffma_registers(d))
+        plan = dict(instance="ffma_f32", heads_per_warp=gp, smem_bytes=smem, blocks_per_sm=per_sm)
+        nsplit, per = resident_splits(b * kvh * chunks, s, per_sm * SMS, tile)
+    elif dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
         smem = MMA_STAGES * 2 * TILE * d * 2
         per_sm = blocks_per_sm(smem, mma_registers(d))
         plan = dict(instance="mma_bf16", heads_per_warp=g, smem_bytes=smem, blocks_per_sm=per_sm)
         nsplit, per = resident_splits(b * kvh, s, per_sm * SMS)
-    elif dtype in (torch.bfloat16, torch.float32):
-        if dtype == torch.bfloat16:
-            plan = dict(instance="ring_bf16", heads_per_warp=-(-g // WARPS),
-                        smem_bytes=ring_stages(d) * 2 * TILE * d * 2)
-        else:
-            plan = dict(instance="cc_f32", heads_per_warp=0,
-                        smem_bytes=4 * (TILE * (d + 1) + TILE * d + 2 * g * d + g * TILE + 3 * g))
-        plan["blocks_per_sm"] = blocks_per_sm(plan["smem_bytes"])
+    elif dtype == torch.bfloat16:
+        smem = ring_stages(d) * 2 * TILE * d * 2
+        plan = dict(instance="ring_bf16", heads_per_warp=-(-g // WARPS), smem_bytes=smem,
+                    blocks_per_sm=blocks_per_sm(smem))
         nsplit, per = splits_for(b * kvh, s)
     else:
         raise ValueError(f"flash_decode: the kernel takes float32 or bfloat16, got {dtype}")
-    plan.update(splits=nsplit, tiles_per_split=per, blocks=b * kvh * nsplit,
-                part_floats=b * kvh * nsplit * g * (d + 2))
+    plan.update(tile=tile, chunks=chunks, splits=nsplit, tiles_per_split=per,
+                blocks=b * kvh * nsplit * chunks, part_floats=b * kvh * nsplit * g * (d + 2))
     return plan
 
 
@@ -273,12 +364,13 @@ flash_decode.launches = 0
 
 
 def card_blocks_per_sm(plan, d: int) -> int:
-    """The blocks of a bf16 ``plan``'s partial kernel at head dim ``d`` that
-    one SM of the current card holds, by the runtime's occupancy calculator
-    (to hold ``plan["blocks_per_sm"]`` to; needs the card)."""
+    """The blocks of ``plan``'s partial kernel (any instance) at head dim
+    ``d`` that one SM of the current card holds, by the runtime's occupancy
+    calculator (to hold ``plan["blocks_per_sm"]`` to; needs the card)."""
     fn = build.library("flash_decode").flash_decode_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
-    build.check(fn(d, plan["heads_per_warp"], ctypes.byref(n)), "flash_decode_blocks_per_sm")
+    dtype = _DTYPES[torch.float32 if plan["instance"] == "ffma_f32" else torch.bfloat16]
+    build.check(fn(dtype, d, plan["heads_per_warp"], ctypes.byref(n)), "flash_decode_blocks_per_sm")
     return n.value

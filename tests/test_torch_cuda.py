@@ -42,7 +42,8 @@ from repro_torch.kernels import migration_cost as mc
 from repro_torch.kernels.migration_cost import migration_cost, migration_cost_plain
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, splits_for
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 
 
 @pytest.fixture
@@ -740,13 +741,14 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, b, h, kv, s, d, valid):
 
 
 def test_flash_decode_valid_len_across_a_split_boundary(cuda):
-    """valid_len at, just below and just past the end of a split's tiles, and
-    read on the device from a 0-d tensor; slots past it are ignored."""
+    """valid_len at, just below and just past the end of a split's tiles (the
+    f32 instance's split edge, from its launch plan), and read on the device
+    from a 0-d tensor; slots past it are ignored."""
     b, h, kv, s, d = 1, 8, 2, 8192, 128
-    nsplit, per = splits_for(b * kv, s)
-    assert nsplit > 1
-    edge = per * 64
     q, k, v = _decode_inputs(11, b, h, kv, s, d, torch.float32)
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    assert plan["instance"] == "ffma_f32" and plan["splits"] > 1
+    edge = plan["tiles_per_split"] * plan["tile"]
     qc, kc, vc = q.to(cuda), k.to(cuda), v.to(cuda)
     for valid in (edge - 1, edge, edge + 1, s):
         got = flash_decode(qc, kc, vc, torch.tensor(valid, device=cuda))
@@ -985,8 +987,6 @@ def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
     """valid_len at 0, one slot, both sides of a 64-slot tile, one and two
     ring wraps past a stage boundary and the whole cache; as the wrapper
     splits it and with B = 1 in one split that walks every tile."""
-    from repro_torch.kernels import flash_decode as fd
-
     s, kv = 1024, 2
     n = {"0": 0, "1": 1, "63": 63, "64": 64, "65": 65, "ring+1": _RING[d] + 1,
          "2ring+1": 2 * _RING[d] + 1, "S": s}[valid]
@@ -1124,8 +1124,6 @@ def test_flash_decode_mma_warp_slices(cuda, valid, g, d):
     last), groups 1-16 (zero M rows past G but at 16): within 3e-2 of the
     plain version and 1e-2 relative L2 error per head; slots past valid_len
     unread; a second launch gives the same bits."""
-    from repro_torch.kernels import flash_decode as fd
-
     b, kv, s = 2, 2, 1024
     gen = torch.Generator(device=cuda).manual_seed(31 * valid + g)
     q = torch.randn((b, g * kv, d), generator=gen, device=cuda).to(torch.bfloat16)
@@ -1152,8 +1150,6 @@ def test_flash_decode_d192_mma_whole_cache_is_deterministic(cuda):
     """nemotron-4's group over a whole 32768-slot cache (B 2 x 2 KV heads:
     64 splits of 8 tiles, 256 blocks): the gate, and bitwise the same
     output on repeated launches."""
-    from repro_torch.kernels import flash_decode as fd
-
     b, h, kv, s, d = 2, 24, 2, 32768, 192
     gen = torch.Generator(device=cuda).manual_seed(7)
     q = torch.randn((b, h, d), generator=gen, device=cuda).to(torch.bfloat16)
@@ -1176,11 +1172,73 @@ def test_flash_decode_plan_blocks_per_sm_match_the_card(cuda, d, g, per_sm):
     """Every bf16 instance's blocks per SM in the plan (the ring's by its
     shared memory; the mma instance's by its shared memory and launch
     bounds) are the occupancy calculator's."""
-    from repro_torch.kernels import flash_decode as fd
-
     plan = fd.launch_plan((1, 2 * g, d), (1, 512, 2, d), torch.bfloat16)
     assert plan["blocks_per_sm"] == per_sm
     assert fd.card_blocks_per_sm(plan, d) == per_sm
+
+
+# --------------------------------------------------------------------------- #
+# K7's f32 instance (ffma::): every head dim, groups 1 / 5 / 12 / 32 (32: two
+# chunks of 16 on the grid's z axis, three of 12 at D 192), valid_len at its
+# ring's and splits' edges
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("g", [1, 5, 12, 32])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+@pytest.mark.parametrize("valid", ["0", "1", "stage+1", "split-1", "split+1", "S"])
+def test_flash_decode_f32_edges(cuda, valid, d, g):
+    """valid_len 0 (zeros), one slot, one past a full ring of 32-slot tiles,
+    both sides of a split's last slot and the whole cache: within 2e-5 of
+    the plain version; a second call gives the same bits; slots past
+    valid_len (set to +-1e4) change nothing."""
+    b, kv, s = 2, 2, 4096
+    gen = torch.Generator(device=cuda).manual_seed(d + 7 * g)
+    q = torch.randn((b, g * kv, d), generator=gen, device=cuda)
+    k = torch.randn((b, s, kv, d), generator=gen, device=cuda)
+    v = torch.randn((b, s, kv, d), generator=gen, device=cuda)
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    assert plan["instance"] == "ffma_f32" and plan["chunks"] == -(-g // fd.ffma_max_group(d))
+    edge = plan["tiles_per_split"] * plan["tile"]
+    assert plan["splits"] > 1 and edge < s
+    n = {"0": 0, "1": 1, "stage+1": fd.ffma_stages(d) * plan["tile"] + 1, "split-1": edge - 1,
+         "split+1": edge + 1, "S": s}[valid]
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, torch.tensor(n, device=cuda))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    torch.testing.assert_close(got, flash_decode_plain(q, k, v, n), rtol=2e-5, atol=2e-5)
+    if n == 0:
+        assert not got.any()
+    assert torch.equal(flash_decode(q, k, v, n), got)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, n:] = 1e4
+    v2[:, n:] = -1e4
+    assert torch.equal(flash_decode(q, k2, v2, n), got)
+
+
+def test_flash_decode_f32_whole_cache_is_deterministic(cuda):
+    """nemotron-4's group 12 at D 192 over a whole 16384-slot cache (B 2 x 2
+    KV heads: 64 splits of 8 tiles, 256 blocks in one wave of 264): within
+    2e-5, and bitwise the same output on repeated launches."""
+    b, h, kv, s, d = 2, 24, 2, 16384, 192
+    q, k, v = (t.to(cuda) for t in _decode_inputs(5, b, h, kv, s, d, torch.float32))
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    assert (plan["splits"], plan["tiles_per_split"], plan["blocks"]) == (64, 8, 256)
+    got = flash_decode(q, k, v, s)
+    torch.testing.assert_close(got, flash_decode_plain(q, k, v, s), rtol=2e-5, atol=2e-5)
+    for _ in range(3):
+        assert torch.equal(flash_decode(q, k, v, s), got)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 12, 16])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+def test_flash_decode_f32_plan_blocks_per_sm_match_the_card(cuda, d, g):
+    """The f32 instance's blocks per SM in the plan (by its shared memory and
+    launch bounds: 3 at D 64, 2 elsewhere) are the occupancy calculator's,
+    at every chunk size (at D 192 a group of 16 runs in chunks of 12)."""
+    plan = fd.launch_plan((1, 2 * g, d), (1, 512, 2, d), torch.float32)
+    assert plan["heads_per_warp"] == (12 if (d, g) == (192, 16) else g)
+    assert plan["blocks_per_sm"] == (3 if d == 64 else 2)
+    assert fd.card_blocks_per_sm(plan, d) == plan["blocks_per_sm"]
 
 
 def test_nemotron_at_head_dim_192_on_card_equals_cpu_in_f32(cuda, monkeypatch):

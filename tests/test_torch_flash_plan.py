@@ -460,8 +460,10 @@ def test_k7_plan_at_head_dim_192():
     tensor-core instance: a ring of 2 stages (98,304 bytes), every warp
     scoring all 12 heads of the group (one at group 1), 2 blocks an SM, so 4
     splits of 32 tiles, 256 blocks in one wave of 264 (the ring's target of
-    4 x 132 gave 9 x 15); the f32 instance's shared memory under the limit
-    too."""
+    4 x 132 gave 9 x 15); the f32 instance (32-slot tiles, a 2-stage ring of
+    rows padded by a float4, Q and the warps' P at chunk size 12) under the
+    limit too, 2 blocks an SM, its grid sized to them: 4 splits of 64
+    tiles."""
     plan = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.bfloat16)
     assert plan["instance"] == "mma_bf16" and fd.ring_stages(192) == fd.MMA_STAGES == 2
     assert plan["heads_per_warp"] == 12
@@ -473,16 +475,20 @@ def test_k7_plan_at_head_dim_192():
     assert fd.launch_plan((2, 4, 192), (2, 512, 4, 192), torch.bfloat16)["heads_per_warp"] == 1
     f32 = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.float32)
     g = 12
-    assert f32["smem_bytes"] == 4 * (64 * 193 + 64 * 192 + 2 * g * 192 + g * 64 + 3 * g) == 120_208
-    assert f32["smem_bytes"] <= fd.SMEM_LIMIT
+    assert f32["instance"] == "ffma_f32" and f32["heads_per_warp"] == g and f32["tile"] == 32
+    assert f32["smem_bytes"] == 2 * 2 * 32 * 49 * 16 + 4 * g * 192 + 4 * 4 * 8 * g == 111_104
+    assert f32["smem_bytes"] <= fd.SMEM_LIMIT and f32["blocks_per_sm"] == 2
+    assert (f32["splits"], f32["tiles_per_split"], f32["blocks"]) == (4, 64, 256)
     assert 192 in fd.HEAD_DIMS
 
 
 def test_k7_f32_instance_keeps_its_shared_memory():
+    """f32 takes the FFMA instance at group 4: a 3-stage ring of 32-slot K
+    and V tiles (rows of 33 float4s), Q (4 x 128) and each warp's P (8 x 4)."""
     plan = fd.launch_plan((2, 8, 128), (2, 512, 2, 128), torch.float32)
-    assert plan["instance"] == "cc_f32" and plan["heads_per_warp"] == 0
+    assert plan["instance"] == "ffma_f32" and plan["heads_per_warp"] == 4
     g = 4
-    assert plan["smem_bytes"] == 4 * (64 * 129 + 64 * 128 + 2 * g * 128 + g * 64 + 3 * g) <= LIMIT
+    assert plan["smem_bytes"] == 3 * 2 * 32 * 33 * 16 + 4 * g * 128 + 4 * 4 * 8 * g == 103_936 <= LIMIT
 
 
 @pytest.mark.parametrize(
@@ -660,6 +666,199 @@ def test_k7_mma_numerics_hold_the_smoke_gate(d, g):
 
 
 # --------------------------------------------------------------------------- #
+# K7's f32 instance (ffma::): ring, residency, grid, warp slices, head chunks
+# --------------------------------------------------------------------------- #
+FFMA_GROUPS = [1, 4, 5, 6, 8, 12, 16, 32]
+
+
+@pytest.mark.parametrize("g", FFMA_GROUPS)
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_k7_ffma_shared_memory_is_the_sources(d, g):
+    """The plan's shared memory is ``ffma::smem_bytes``: as many 32-slot K+V
+    stages of (D / 4 + 1)-float4 rows as fit in ~110 KB (at most 4; two at
+    least), Q at the chunk size and each warp's P (8 slots x chunk size);
+    under the block limit, and the four warps' states fit in the ring."""
+    plan = fd.launch_plan((2, 2 * g, d), (2, 1024, 2, d), torch.float32)
+    gp = plan["heads_per_warp"]
+    assert plan["instance"] == "ffma_f32" and gp == fd.ffma_head_class(g, d)
+    stages = min(4, 110 * 1024 // (2 * 32 * (d // 4 + 1) * 16))
+    assert stages == fd.ffma_stages(d) == {64: 4, 80: 4, 128: 3, 192: 2}[d] >= 2
+    ring = stages * 2 * 32 * (d // 4 + 1) * 16
+    assert plan["smem_bytes"] == ring + 4 * gp * d + 4 * 4 * 8 * gp == fd.ffma_smem(d, gp) <= fd.SMEM_LIMIT
+    assert 4 * gp * (d + 2) * 4 <= ring
+    assert 2 * 32 * d * 4 * (stages - 1) >= 32 * 1024  # the tiles in flight under a scored one
+
+
+@pytest.mark.parametrize("g", FFMA_GROUPS)
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_k7_ffma_blocks_per_sm_and_registers(d, g):
+    """At least two blocks an SM at every D and chunk size (3 at D 64); the
+    launch bounds' register budget (168 at D 64, 255 elsewhere) holds as
+    many, so the shared memory binds first."""
+    plan = fd.launch_plan((1, g, d), (1, 512, 1, d), torch.float32)
+    per_sm, regs = plan["blocks_per_sm"], fd.ffma_registers(d)
+    assert per_sm == fd.ffma_min_blocks(d) == (3 if d == 64 else 2) >= 2
+    assert regs == (168 if d == 64 else 255)
+    assert per_sm * (plan["smem_bytes"] + 1024) <= fd.SM_SMEM
+    assert fd.blocks_per_sm(plan["smem_bytes"]) == per_sm  # the smaller chunks hold no more
+    assert per_sm * 4 * -(-regs * 32 // 256) * 256 <= fd.SM_REGISTERS
+    assert fd.blocks_per_sm(plan["smem_bytes"], regs) == per_sm
+
+
+@pytest.mark.parametrize("g", FFMA_GROUPS)
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_k7_ffma_grid_covers_every_slot_and_head_once(d, g):
+    """For a serving cache, a whole 32768-slot cache, batch 1 and a ragged
+    small one: walking every chunk's splits, their 32-slot tiles and each
+    warp's 8 slots covers every (head, slot) of a KV head once; the grid is
+    B * KV * chunks * splits blocks, within one wave of the blocks the card
+    holds unless B * KV * chunks alone is more, and a tile fewer per split
+    would need more."""
+    for b, s, kv in ((8, 8192, 8), (8, 32768, 8), (1, 32768, 2), (3, 1000, 5)):
+        plan = fd.launch_plan((b, g * kv, d), (b, s, kv, d), torch.float32)
+        nsplit, per, chunks = plan["splits"], plan["tiles_per_split"], plan["chunks"]
+        resident = plan["blocks_per_sm"] * fd.SMS
+        assert (nsplit, per) == fd.resident_splits(b * kv * chunks, s, resident, 32)
+        assert plan["blocks"] == b * kv * chunks * nsplit and plan["tile"] == 32
+        tiles = -(-s // 32)
+        seen = []
+        for c0 in fd.ffma_head_chunks(g, d):
+            heads = range(c0, min(g, c0 + fd.ffma_max_group(d)))
+            for split in range(nsplit):
+                for t in range(split * per, min(split * per + per, tiles)):
+                    for w in range(fd.WARPS):
+                        seen += [(h, t * 32 + j) for h in heads for j in fd.ffma_warp_slots(w)]
+        assert sorted(seen) == [(h, j) for h in range(g) for j in range(tiles * 32)]
+        if b * kv * chunks <= resident:
+            assert plan["blocks"] <= resident
+            assert per == 1 or b * kv * chunks * -(-tiles // (per - 1)) > resident
+        else:
+            assert nsplit == 1
+        assert plan["part_floats"] == b * kv * nsplit * g * (d + 2)
+
+
+@pytest.mark.parametrize("g", FFMA_GROUPS)
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_k7_ffma_head_chunks(d, g):
+    """Up to 16 heads (12 at D 192) a block serves the whole group on the
+    least chunk size of 1/2/4/8/12/16 that holds it; past that, chunks on a
+    grid axis, each reading its KV head's cache once (the cache read
+    ceil(G / 16) times, ceil(G / 12) at D 192), the last one's rows past G
+    zero."""
+    plan = fd.launch_plan((2, 2 * g, d), (2, 4096, 2, d), torch.float32)
+    most = fd.ffma_max_group(d)
+    assert most == (12 if d == 192 else 16)
+    chunks = list(fd.ffma_head_chunks(g, d))
+    assert plan["chunks"] == len(chunks) == -(-g // most)
+    assert chunks == list(range(0, g, most))
+    sizes = [min(most, g - c0) for c0 in chunks]
+    assert sum(sizes) == g and all(0 < n <= plan["heads_per_warp"] for n in sizes)
+    gp = plan["heads_per_warp"]
+    assert gp in fd.FFMA_HEAD_CLASSES and most >= gp >= min(g, most)
+    assert all(c < min(g, most) for c in fd.FFMA_HEAD_CLASSES if c < gp)  # the least that holds it
+    assert plan["heads_per_warp"] <= fd._MAX_HEADS_PER_WARP["ffma_f32"]
+
+
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_k7_ffma_warp_slices_and_lanes_cover_a_tile(d):
+    """The four warps' 8-slot slices cover a 32-slot tile exactly; within a
+    warp, lane (sl, dl) = (lane & 7, lane >> 3) scores slot sl over float4
+    chunks dl, dl + 4, ..., so the four lanes of a slot cover its row once;
+    for P V, lane L holds O's float2 columns L, L + 32, ... (at D 80 lanes
+    8-31 one), every column of the row once."""
+    assert [s for w in range(fd.WARPS) for s in fd.ffma_warp_slots(w)] == list(range(32))
+    chunks = d // 4
+    for sl in range(8):
+        covered = sorted(c for dl in range(4) for c in range(dl, chunks, 4))
+        assert covered == list(range(chunks))
+        assert all(len(range(dl, chunks, 4)) == chunks // 4 for dl in range(4))
+    nv = -(-(d // 2) // 32)
+    cols = sorted(lane + 32 * i for lane in range(32) for i in range(nv) if lane + 32 * i < d // 2)
+    assert cols == list(range(d // 2))
+
+
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_k7_ffma_shared_memory_reads_meet_no_bank_conflict(d):
+    """Each quarter-warp's K float4 loads (8 slots at one chunk) take 8
+    distinct 16-byte bank groups, as the odd row length of D / 4 + 1 float4s
+    gives (unpadded, D 64/128/192 rows would share one); each half-warp's
+    V float2 loads (one row, 16 consecutive columns) are 128 contiguous
+    bytes; Q's float4s are one address a quarter-warp (a broadcast)."""
+    r4 = fd.ffma_row4(d)
+    assert r4 % 2 == 1
+    for w in range(fd.WARPS):
+        for c in range(d // 4):
+            rows = [8 * w + sl for sl in range(8)]
+            assert len({(fd.ffma_row_offset(r, c, d) % 128) // 16 for r in rows}) == 8
+    if d != 80:
+        assert len({(r * d * 4 + 16 * c) % 128 // 16 for r in range(8) for c in [0]}) < 8
+    for j in range(32):
+        for half in range(2):
+            offs = [fd.ffma_row_offset(j, 0, d) + 8 * (16 * half + lane) for lane in range(16)]
+            assert offs == list(range(offs[0], offs[0] + 128, 8))
+
+
+def _ffma_emulated(q, k, v, valid, plan):
+    """The f32 instance's arithmetic with the plain version's operations, on
+    the CPU: per chunk of heads and split, per 32-slot tile, each warp's 8
+    slots scored against log2(e)/sqrt(D)-scaled Q, masked, an online
+    softmax per warp and head in log2 units (alpha, then exp2 of the scores
+    less the new max); the four warps merged, the split's m in natural-log
+    units, and the splits merged as the merge kernel does."""
+    b, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qf = q.double().reshape(b, kv, g, d) * (math.log2(math.e) / math.sqrt(d))
+    kf, vf = (x.double().permute(0, 2, 1, 3) for x in (k, v))  # (B, KV, S, D)
+    tiles = -(-valid // 32)
+    per = plan["tiles_per_split"]
+    ms, ls, accs = [], [], []
+    for split in range(plan["splits"]):
+        m = torch.full((b, kv, 4, g), -math.inf, dtype=torch.float64)
+        l = torch.zeros((b, kv, 4, g), dtype=torch.float64)
+        acc = torch.zeros((b, kv, 4, g, d), dtype=torch.float64)
+        for t in range(split * per, min(split * per + per, tiles)):
+            kt = kf[:, :, t * 32:(t + 1) * 32].reshape(b, kv, 4, 8, d)
+            vt = vf[:, :, t * 32:(t + 1) * 32].reshape(b, kv, 4, 8, d)
+            sc = torch.einsum("bkgd,bkwsd->bkwgs", qf, kt)
+            slot = t * 32 + torch.arange(32).reshape(4, 1, 8)
+            sc = sc.masked_fill(slot >= valid, -math.inf)
+            live = (t * 32 + 8 * torch.arange(4) < valid).reshape(4, 1)  # a warp with a valid slot
+            mx = torch.where(live, torch.maximum(m, sc.amax(-1)), m)
+            alpha = torch.where(live, torch.exp2(m - mx), 1.0)
+            p = torch.exp2(sc - mx[..., None]).nan_to_num(0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkwgs,bkwsd->bkwgd", p, vt)
+            m = mx
+        mx = m.amax(2)
+        sub = torch.where(mx == -math.inf, 0.0, mx)
+        c = torch.exp2(m - sub[:, :, None])
+        ms.append(torch.where(mx == -math.inf, -1e30, mx * math.log(2)))
+        ls.append((l * c).sum(2))
+        accs.append((acc * c[..., None]).sum(2))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(0).clamp_min(-1e30))
+    out = (acc * w[..., None]).sum(0) / (l * w).sum(0).clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, d).float()
+
+
+@pytest.mark.parametrize("d,g", [(64, 1), (80, 1), (128, 4), (192, 12), (128, 32)])
+def test_k7_ffma_numerics_hold_the_f32_gate(d, g):
+    """The f32 instance's algorithm (per-warp online softmax over 8-slot
+    slices of 32-slot tiles, the four-warp and split merges), emulated in
+    f64, within 2e-5 of ``flash_decode_plain`` at 2000 valid slots and at a
+    ragged 77 (a last tile with warps past valid_len, most splits empty)."""
+    b, kv, s = 2, 2, 2048
+    rng = np.random.default_rng(d + g)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               for sh in ((b, g * kv, d), (b, s, kv, d), (b, s, kv, d)))
+    plan = fd.launch_plan(q.shape, k.shape, q.dtype)
+    for valid in (2000, 77):
+        got = _ffma_emulated(q, k, v, valid, plan)
+        torch.testing.assert_close(got, fd.flash_decode_plain(q, k, v, valid), rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------------------- #
 # the plans agree with the CUDA sources; the build reports what it built
 # --------------------------------------------------------------------------- #
 def _constant(src: str, name: str) -> str:
@@ -737,6 +936,34 @@ def test_plans_match_the_cuda_sources():
     assert "__launch_bounds__(THREADS, min_blocks<D>())" in mma
     assert "constexpr bool on_mma(int D) { return D == 128 || D == 192; }" in dec
     assert fd.MMA_HEAD_DIMS == (128, 192)
+    ff = dec[dec.index("namespace ffma {"):dec.index("}  // namespace ffma")]
+    assert _constant(ff, "TS") == str(fd.FFMA_TILE)
+    assert _constant(ff, "WARP_SLOTS") == "TS / WARPS" and fd.FFMA_WARP_SLOTS == fd.FFMA_TILE // fd.WARPS
+    assert "int max_group(int d) { return d > 128 ? 12 : 16; }" in ff
+    assert [fd.ffma_max_group(d) for d in fd.HEAD_DIMS] == [16, 16, 16, 12]
+    assert _constant(ff, "RING_BYTES") == "110 * 1024" and _constant(ff, "MAX_STAGES") == "4"
+    assert "int row4(int d) { return d / 4 + 1; }" in ff
+    assert "return 2 * TS * row4(d) * 16; }" in ff
+    assert "return stages(d) * stage_bytes(d) + 4 * gp * d + 4 * WARPS * WARP_SLOTS * gp;" in ff
+    assert "return SM_SMEM / (smem_bytes(d, max_group(d)) + BLOCK_RESERVED);" in ff
+    assert _constant(ff, "SM_SMEM") == f"{fd.SM_SMEM}, BLOCK_RESERVED = {fd.BLOCK_SMEM_RESERVED}"
+    assert "__launch_bounds__(THREADS, min_blocks(D))" in ff
+    assert "g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : g <= 12 ? 12 : 16;" in ff
+    for c in fd.FFMA_HEAD_CLASSES:
+        assert f"case {c}: return f(std::integral_constant<int, {c}>{{}});" in ff
+    assert [fd.ffma_head_class(g, 128) for g in range(1, 17)] == [1, 2, 4, 4] + [8] * 4 + [12] * 4 + [16] * 4
+    assert [fd.ffma_head_class(g, 192) for g in (12, 13, 16, 32)] == [12] * 4
+    # the lane map and layouts the tests above mirror
+    assert "const int sl = lane & 7, dl = lane >> 3;" in ff
+    assert "const int c = dl + 4 * i;" in ff and "kt[sl * R4 + c]" in ff
+    assert "const int c2 = lane + 32 * i;" in ff
+    assert "dim3 grid(B * KV, nsplit, (G + max_group(D) - 1) / max_group(D));" in ff
+    assert "const int g0 = blockIdx.z * max_group(D);" in ff
+    # exact f32: FFMAs only, no tensor-core instruction; one barrier a tile
+    # and two around the warps' merge
+    assert "mma" not in ff and "tf32" not in ff.lower() and ff.count("__syncthreads()") == 3
+    assert "bfloat16" not in ff
+    assert "flash_decode_partial<" not in dec and "load16" not in dec
 
 
 def test_ptxas_report_parses_registers_spills_and_shared_memory():
