@@ -24,14 +24,16 @@ comes out:
 1. environment: the card, torch/CUDA versions, the kernels' build time;
    what ``ptxas`` gave each attention kernel instance (registers, static
    shared memory, spills; every bf16 K6 instance (head dims 64, 80, 128,
-   192), the head-dim-80 instances and K7's tensor-core instances (head
-   dims 128 and 192) must not spill, and the flash_attention compiler log
+   192), the head-dim-80 instances and K7's tensor-core instances (every
+   head dim) must not spill, and the flash_attention compiler log
    must hold no C7508 (``setmaxnreg`` ignored) or C7512 (wgmma
    serialised)), and the ``HGMMA`` (wgmma) and ``USETMAXREG``
    (``setmaxnreg``) instructions in the SASS of each bf16
    ``flash_attention`` instance (``cuobjdump -sass``): at least one and two;
-   every f32 K6 and K7 instance must not spill either, and its SASS must
-   hold ``FFMA``s and no ``HMMA`` or ``HGMMA`` (exact f32 products);
+   the ``HMMA`` (``mma.sync``) instructions of each bf16 K7 instance: at
+   least one; every f32 K6 and K7 instance must not spill either, and its
+   SASS must hold ``FFMA``s and no ``HMMA`` or ``HGMMA`` (exact f32
+   products);
 2. kernels vs their plain versions at the main path's shapes (exact,
    ``lap_bid_fused_batched`` bit for bit also on non-integer costs; the bid
    kernels also at 1x4096x4096, more than the L2 holds, and
@@ -60,8 +62,8 @@ comes out:
    64, within 2e-5; K7 in f32 on (e)'s and (e6)'s caches and over whole
    32768-slot caches at D 128 and 192 and at D 80, group 1, within 2e-5)
    and at deepseek-67b's 64 / 8 heads (K7 also over a whole 32768-slot
-   cache at D 192, groups 12 and 1, and at D 128, group 8, on its
-   tensor-core instance), with
+   cache at D 192, groups 12 and 1, at D 128, group 8, and at D 80 and 64,
+   group 1, on its tensor-core instance), with
    kernel / plain / bound / library times (and, for the attention kernels,
    the share of the bound and the ratio to the library call; for K7 the
    plan's instance, splits and blocks, its blocks per SM held to the
@@ -256,7 +258,8 @@ FULL = dict(
         # same bytes, at group 1: a twelfth of the scoring, so its time
         # says whether the 2-stage ring hides the copies; K7 on (e6)'s
         # served cache (D 64, group 1); the whole cache at D 128 and
-        # deepseek-67b's group 8; K7 in f32 on row (e)'s served cache, over a
+        # deepseek-67b's group 8; whole caches at group 1 at (e5)'s D 80
+        # and (e6)'s D 64; K7 in f32 on row (e)'s served cache, over a
         # whole 32768-slot cache at D 128 and at D 192, group 12, on (e6)'s
         # served cache (D 64, group 1) and over a whole cache at group 1 and
         # D 80 (5.37 GB of f32 K and V)
@@ -272,7 +275,8 @@ FULL = dict(
                    (8, 8192, 48, 8, 128, 63), (8, 8192, 32, 32, 80, 63),
                    (8, 8192, 96, 8, 192, 63), (8, 8192, 64, 8, 128, 63),
                    (8, 32768, 96, 8, 192, 32768), (8, 32768, 8, 8, 192, 32768),
-                   (8, 8192, 16, 16, 64, 63), (8, 32768, 64, 8, 128, 32768)],
+                   (8, 8192, 16, 16, 64, 63), (8, 32768, 64, 8, 128, 32768),
+                   (8, 32768, 32, 32, 80, 32768), (8, 32768, 16, 16, 64, 32768)],
     ),
     # phase 5, rows (e2) and (e3): dbrx-132b (8 of 40 layers, 54.6 GB of bf16
     # weights) and deepseek-v2-236b (6 of 60 layers, 50.7 GB) at full width.
@@ -1024,9 +1028,7 @@ def k7_symbol(plan, d):
     head dim ``d`` launches, as ``ptxas`` reports it."""
     if plan["instance"] == "mma_bf16":
         return f"flash_decode_partial_mmaILi{d}E"
-    if plan["instance"] == "ffma_f32":
-        return f"flash_decode_partial_ffmaILi{d}ELi{plan['heads_per_warp']}EE"
-    return f"flash_decode_partial_ringILi{d}ELi{plan['heads_per_warp']}EE"
+    return f"flash_decode_partial_ffmaILi{d}ELi{plan['heads_per_warp']}EE"
 
 
 def compare_flash_decode(shape, device, seed, ptxas=None, dtype="bfloat16"):
@@ -3061,7 +3063,9 @@ def build_report():
     instances must not spill), the flash_attention compiler log free of
     ``K6_PTXAS_FAULTS``, in the SASS of each bf16 K6 instance its ``HGMMA``
     instructions (it must be a tensor-core kernel) and the two
-    ``USETMAXREG`` of its register hand-off (none is a failure), and in the
+    ``USETMAXREG`` of its register hand-off (none is a failure), in the
+    SASS of each bf16 K7 instance (``mma::flash_decode_partial_mma<D>``,
+    every head dim) its ``HMMA`` instructions (none is a failure), and in the
     SASS of each f32 K6 instance its ``FFMA`` count and no ``HMMA`` or
     ``HGMMA`` (its products must stay exact f32), and the same of every K7
     f32 instance (``ffma::flash_decode_partial_ffma<D, GP>``, 23: no spill,
@@ -3090,7 +3094,7 @@ def build_report():
           f"the D = 80 attention instances spill (or were not built): {d80}")
     k6 = [(f"flash_attention_wgmmaILi{d}E", f"K6's bf16 D = {d} instance") for d in HEAD_DIMS]
     k6 += [(f"flash_attention_ffmaILi{d}E", f"K6's f32 D = {d} instance") for d in HEAD_DIMS]
-    k7 = [(f"flash_decode_partial_mmaILi{d}E", f"K7's tensor-core D = {d} instance") for d in (128, 192)]
+    k7 = [(f"flash_decode_partial_mmaILi{d}E", f"K7's tensor-core D = {d} instance") for d in HEAD_DIMS]
     k7 += [(f"flash_decode_partial_ffmaILi{d}E", f"K7's f32 D = {d} instances") for d in HEAD_DIMS]
     for sym, what in k6 + k7:
         inst = {fn: r for fn, r in ptxas.items() if sym in fn}
@@ -3099,11 +3103,11 @@ def build_report():
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[build] cuobjdump not found: the SASS of the bf16 flash_attention instances was NOT checked")
-        return dict(ptxas=ptxas, hgmma=None, setmaxnreg=None, ffma=None, k7_ffma=None)
+        return dict(ptxas=ptxas, hgmma=None, setmaxnreg=None, ffma=None, k7_ffma=None, k7_hmma=None)
     sass = "".join(subprocess.run([tool, "-sass", str(build._target(name))], capture_output=True,
                                   text=True, check=True, timeout=300).stdout
                    for name in ("flash_attention", "flash_decode"))
-    hgmma, setmaxnreg, ffma, k7_ffma, fn = {}, {}, {}, {}, None
+    hgmma, setmaxnreg, ffma, k7_ffma, k7_hmma, fn = {}, {}, {}, {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
@@ -3113,9 +3117,13 @@ def build_report():
                 ffma[fn] = dict(FFMA=0, HMMA=0, HGMMA=0)
             elif "flash_decode_partial_ffma" in fn:
                 k7_ffma[fn] = dict(FFMA=0, HMMA=0, HGMMA=0)
+            elif "flash_decode_partial_mma" in fn:
+                k7_hmma[fn] = 0
         elif fn in hgmma:
             hgmma[fn] += "HGMMA" in line
             setmaxnreg[fn] += "USETMAXREG" in line
+        elif fn in k7_hmma:
+            k7_hmma[fn] += " HMMA" in line
         elif fn in ffma or fn in k7_ffma:
             counts = ffma.get(fn) or k7_ffma[fn]
             for op in counts:
@@ -3130,12 +3138,16 @@ def build_report():
     check(len(ffma) == len(HEAD_DIMS) and all(
         c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0 for c in ffma.values()),
         f"an f32 flash_attention instance is not an exact f32 FFMA kernel: {ffma}")
+    log(f"[build] HMMA instructions per bf16 flash_decode instance: {json.dumps(k7_hmma)}")
+    check(len(k7_hmma) == len(HEAD_DIMS) and all(n > 0 for n in k7_hmma.values()),
+          f"a bf16 flash_decode instance holds no HMMA instruction: {k7_hmma}")
     log(f"[build] FFMA / HMMA / HGMMA per f32 flash_decode instance: {json.dumps(k7_ffma)}")
     n_k7 = sum(c <= ffma_max_group(d) for d in HEAD_DIMS for c in FFMA_HEAD_CLASSES)
     check(len(k7_ffma) == n_k7 and all(
         c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0 for c in k7_ffma.values()),
         f"an f32 flash_decode instance is not an exact f32 FFMA kernel: {k7_ffma}")
-    return dict(ptxas=ptxas, hgmma=hgmma, setmaxnreg=setmaxnreg, ffma=ffma, k7_ffma=k7_ffma)
+    return dict(ptxas=ptxas, hgmma=hgmma, setmaxnreg=setmaxnreg, ffma=ffma, k7_ffma=k7_ffma,
+                k7_hmma=k7_hmma)
 
 
 def run(device, scale):
@@ -3170,7 +3182,7 @@ def run(device, scale):
 
     device = torch.device(device)
     gen = torch.Generator().manual_seed(0)
-    built = dict(ptxas={}, hgmma=None, setmaxnreg=None, ffma=None, k7_ffma=None)
+    built = dict(ptxas={}, hgmma=None, setmaxnreg=None, ffma=None, k7_ffma=None, k7_hmma=None)
 
     # ---- phase 1: environment + build -------------------------------------- #
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3324,20 +3336,18 @@ def run(device, scale):
                 check(got["flash_attention"] > 0 and got["flash_decode"] == 1,
                       f"the {path} path launched {got}: K6 and K7 must have run")
         serve_paths[path], serve_rows[path] = got, row
-    e6 = serve_rows.get("serve_seamless-m4t-medium")
-    if device.type == "cuda" and e6:  # (e6)'s K7 is the D 64 ring at one head a warp
-        ring64 = sorted(fn for fn in built["ptxas"] if "flash_decode_partial_ringILi64ELi1EE" in fn)
-        log(f"[serve] (e6) K7 plan {json.dumps(e6['k7_plan'])}; instance {ring64}")
-        check(e6["k7_plan"]["instance"] == "ring_bf16" and e6["k7_plan"]["heads_per_warp"] == 1
-              and ring64, f"(e6): K7's ring::<64, 1> instance was not built or not chosen: "
-              f"{e6['k7_plan']}, {ring64}")
-    e7 = serve_rows.get("serve_nemotron-4-340b")
-    if device.type == "cuda" and e7:  # (e7)'s K7 is the tensor-core instance at D 192
-        mma192 = sorted(fn for fn in built["ptxas"] if "flash_decode_partial_mmaILi192E" in fn)
-        log(f"[serve] (e7) K7 plan {json.dumps(e7['k7_plan'])}; instance {mma192}")
-        check(e7["k7_plan"]["instance"] == "mma_bf16" and e7["k7_plan"]["heads_per_warp"] == 12
-              and mma192, f"(e7): K7's mma::<192> instance was not built or not chosen: "
-              f"{e7['k7_plan']}, {mma192}")
+    # (e5)'s, (e6)'s and (e7)'s K7 is the tensor-core instance at D 80, 64
+    # (group 1) and 192 (group 12)
+    for path, d, g in (("serve_zamba2-2.7b", 80, 1), ("serve_seamless-m4t-medium", 64, 1),
+                       ("serve_nemotron-4-340b", 192, 12)):
+        row = serve_rows.get(path)
+        if device.type != "cuda" or not row:
+            continue
+        inst = sorted(fn for fn in built["ptxas"] if f"flash_decode_partial_mmaILi{d}E" in fn)
+        log(f"[serve] {path} K7 plan {json.dumps(row['k7_plan'])}; instance {inst}")
+        check(row["k7_plan"]["instance"] == "mma_bf16" and row["k7_plan"]["heads_per_warp"] == g
+              and inst, f"{path}: K7's mma::<{d}> instance was not built or not chosen: "
+              f"{row['k7_plan']}, {inst}")
 
     # ---- phase 6: the evaluation harness ------------------------------------ #
     zero_counts()
@@ -3450,6 +3460,7 @@ def run(device, scale):
                 kernels[-1]["setmaxnreg"] = built["setmaxnreg"]
                 kernels[-1]["ffma"] = built["ffma"]
             else:
+                kernels[-1]["hmma"] = built["k7_hmma"]
                 kernels[-1]["ffma"] = built["k7_ffma"]
     next(k for k in kernels if k["name"] == "flash_attention")["head_dim_routing"] = routing_row
     return kernels

@@ -21,35 +21,26 @@
 // wrapper from B*KV and S so that the grid fills the card's 132 SMs even at
 // batch 1.
 //
-// Three partial kernels:
+// Two partial kernels:
 //
-// * bf16 at D = 64, 80 (ring::): K and V stay bf16 in shared memory, fed by
-//   cp.async.cg 16-byte copies into a ring of 4 tiles (at most ~110 KB, so
-//   3 blocks fit on an SM at D = 64 and 2 at D = 80), with one block
-//   barrier per tile.  Warp w serves heads w, w + 4, ... of the group with
-//   their scaled queries in registers; a cache row is read by D/8 lanes, 16
-//   bytes each, in a lane group of the next power of two (8, or 16 at
-//   D = 80, where lanes 10-15 of a group load nothing and add 0), and the
-//   dot is reduced across the group with xor shuffles, so a warp scores 4
-//   (D = 64) or 2 (D = 80) rows at once, each lane group keeping its own
-//   online softmax (chunks of 8 rows per update, exp2 on log2-scaled
-//   scores) that the warp merges with shuffles at the end.
-// * bf16 at D = 128 and 192 (mma::).  Bytes bound it too (D = 192, B 8 x
-//   32768 slots x 8 KV heads: 1.61 GB, 0.481 ms at 3.35 TB/s), but a
-//   CUDA-core scorer would not keep up: at D = 192 and group 12 its
-//   4*B*H*S*D = 1.93e10 multiply-adds take 0.288 ms at 67 TFLOP/s before
-//   any shuffle or exp (the ring took 3.15 ms there, and 2x the bound at
-//   D = 128, group 8), so the scoring runs on the tensor cores, where it
-//   costs almost nothing.
-//   1. The copy is the ring's: cp.async.cg 16-byte chunks into 2 stages of
-//      64-slot K and V tiles (96 KB at D = 192, 64 KB at D = 128),
-//      zero-filled past valid_len, each chunk c of row r stored at chunk
-//      c ^ (r & 7) of its row (`swizzled`): a 384- or 256-byte row is 0 mod
-//      128, and unswizzled the 8 rows one ldmatrix reads would share a bank
-//      group (8-way conflicts).
+// * bf16 (mma::flash_decode_partial_mma<D>), at every head dim.  Bytes
+//   bound it (D = 192, B 8 x 32768 slots x 8 KV heads: 1.61 GB, 0.481 ms at
+//   3.35 TB/s), but a CUDA-core scorer would not keep up: at D = 192 and
+//   group 12 its 4*B*H*S*D = 1.93e10 multiply-adds take 0.288 ms at 67
+//   TFLOP/s before any shuffle or exp, and at group 1 a scorer that gives
+//   each warp heads of the group leaves three warps in four idle, so the
+//   scoring runs on the tensor cores, where it costs almost nothing.
+//   1. cp.async.cg 16-byte chunks into a ring of `stages<D>` 64-slot K and V
+//      tiles, zero-filled past valid_len.  A staged row is laid out so that
+//      the 8 rows one ldmatrix reads at one chunk take 8 distinct bank
+//      groups (`chunk_offset`): a 128-, 256- or 384-byte row (D = 64, 128,
+//      192) is 0 mod 128, so chunk c of row r is stored at chunk c ^ (r & 7)
+//      of its row; D = 80's 10 chunks would reach chunk 15 that way, and a
+//      160-byte stride puts the 8 rows in 4 bank groups, so its rows are
+//      padded to 11 chunks (176 bytes), an odd stride.
 //   2. Warp w owns slots [16w, 16w + 16) of every tile, so all four warps
-//      score at any group size and each K/V byte is read from shared
-//      memory once.
+//      score at any group size (group 1 too) and each K/V byte is read from
+//      shared memory once.
 //   3. mma.sync m16n8k16 (bf16 in, f32 sums; a wgmma needs 64 rows of M,
 //      which one KV head's query heads do not have).  The group's G <= 16
 //      heads are the M rows (zero rows past G), the warp's 16 slots the N
@@ -59,28 +50,30 @@
 //      reshuffled across lanes into a B fragment; the tensor cores are idle
 //      either way.)  Q's A fragments are loaded once per block, unscaled;
 //      S is scaled in f32 by log2(e)/sqrt(D) after the product.  K's B
-//      fragments come by ldmatrix, V's by ldmatrix.trans, from the
-//      swizzled tile.  The online softmax runs per head row in log2 units;
-//      slots >= valid_len score -inf (a zero-filled row would score 0).
-//      Each lane holds its rows of the 16 x D f32 accumulator as D/8 n8
-//      tiles (96 registers at D = 192).
+//      fragments come by ldmatrix (D / 16 k-steps), V's by ldmatrix.trans
+//      (D / 8 n8 tiles, two an x4), from the staged tile.  The online
+//      softmax runs per head row in log2 units; slots >= valid_len score
+//      -inf (a zero-filled row would score 0).  Each lane holds its rows of
+//      the 16 x D f32 accumulator as D/8 n8 tiles (D / 2 registers).
 //   4. After the last tile the ring is free: each warp's (m, l, acc) for the
 //      group's heads goes there (4 x 16 x (D + 2) floats at most, 49.7 KB at
 //      D = 192), and one pass merges the four warps and writes the split's
-//      state as the ring kernel does, so the merge kernel is the same.  A
-//      block whose split holds no valid tile writes the empty state and
-//      loads nothing.
-//   5. Its shared memory holds 2 blocks on an SM at D = 192 and 3 at
-//      D = 128, and the launch bounds keep registers from binding first
-//      (`min_blocks`): 264 or 396 on the card.  The wrapper's plan sizes the
-//      split-K grid to that: B*KV*splits within one wave where B*KV allows
-//      (at D = 192, B 8 x 8 KV heads x 32768 slots: 4 splits of 128 tiles,
-//      256 blocks, where a target of 4 x 132 blocks gave 9 splits, 576
-//      blocks, 2.18 waves), else one split per (b, kv).
+//      state, which a second kernel merges across the splits.  A block
+//      whose split holds no valid tile writes the empty state and loads
+//      nothing.
+//   5. Residency: 3 / 3 / 2 / 2 stages at D = 64 / 80 / 128 / 192, and the
+//      launch bounds ask for as many blocks an SM as that shared memory
+//      holds (`min_blocks`: 4 / 3 / 3 / 2), so registers never bind first.
+//      On an H100 a whole cache reads at 91-93 % of 3.35 TB/s at D = 64,
+//      128, 192, but at 76-79 % at D = 80 with 2 to 5 stages or 1 to 8
+//      splits: a 160-byte row spans two 128-byte lines, and D = 64's rows
+//      read 32 bytes off a line fall to 61-66 % the same way.  The
+//      wrapper's plan sizes the split-K grid to those blocks: B*KV*splits
+//      within one wave where B*KV allows (at D = 192, B 8 x 8 KV heads x
+//      32768 slots: 4 splits of 128 tiles, 256 blocks), else one split per
+//      (b, kv).
 //   6. The C entry checks the plan's shared memory and heads per warp (G)
 //      against this file's, and G <= 16.
-//   With two stages, the copy of tile t + 1 is in flight while tile t is
-//   scored.
 // * f32 (ffma::flash_decode_partial_ffma<D, GP>): exact f32 on the CUDA
 //   cores, FFMAs only.  Bytes bound it too (D = 192, B 8 x 32768 slots x 8
 //   KV heads: 3.22 GB, 0.962 ms at 3.35 TB/s; at group 12 its 9.7e9 FFMAs
@@ -96,8 +89,8 @@
 //      softmax (exp2, log2(e)/sqrt(D) folded into Q) and P stay in the
 //      warp, which keeps its own (m, l, O) in registers: one block barrier a
 //      tile.  After the last tile the warps merge through the freed ring and
-//      the split's state is written as the other instances write it, so the
-//      merge kernel serves all three.
+//      the split's state is written as the bf16 instance writes it, so the
+//      merge kernel serves both.
 //   3. Lane (sl, dl) = (lane & 7, lane >> 3) scores slot sl against every
 //      head of the chunk over float4 chunks dl, dl + 4, ... of the row (a K
 //      float4 from the ring, Q's float4s broadcast from shared memory: 4
@@ -126,8 +119,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int DBK = 64;       // cache slots per tile
 constexpr int THREADS = 128;  // four warps
 constexpr int WARPS = THREADS / 32;
-// the head dims whose bf16 instance is mma:: (the others' is ring::)
-__host__ __device__ constexpr bool on_mma(int D) { return D == 128 || D == 192; }
+constexpr int SM_SMEM = 233472, BLOCK_RESERVED = 1024;  // an H100 SM's shared memory
 
 struct Strides {
   long long qb, qh, kb, ks, kh, vb, vs, vh;
@@ -156,253 +148,48 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// ---- bf16: cp.async ring ---------------------------------------------------
-namespace ring {
-
-// Ring depth: as many 64-slot K+V tiles as fit in ~110 KB, at most 4.
-template <int D>
-__host__ __device__ constexpr int stages() {
-  return (110 * 1024) / (2 * DBK * D * 2) < 4 ? (110 * 1024) / (2 * DBK * D * 2) : 4;
-}
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return stages<D>() * 2 * DBK * D * 2;
-}
-
-// 8 bf16 (16 bytes) into floats.
-__device__ __forceinline__ void unpack8(const uint4 raw, float* f) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-template <int D, int HPW>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_partial_ring(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid_ptr,
-                          long long valid_host, float* __restrict__ part, int S, int KV, int G,
-                          int tiles_per_split, float scale_log2, Strides st) {
-  static_assert(D % 8 == 0 && D <= 128, "a cache row is whole 16-byte chunks, at most 16");
-  constexpr int NST = stages<D>();
-  constexpr int LPR = D / 8;        // lanes that load a cache row, 16 bytes each
-  constexpr int LG = LPR <= 8 ? 8 : 16;  // lanes per row group
-  constexpr int RPW = 32 / LG;      // rows a warp scores at once
-  constexpr int ROWB = D * 2;       // bytes per cache row
-  constexpr int TILEB = DBK * ROWB;
-  constexpr int CHUNK = 8;          // rows per lane group per softmax update
-  extern __shared__ __align__(16) uint8_t smem[];
-  const uint32_t ring0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-
-  const int bk = blockIdx.x;
-  const int b = bk / KV, kvh = bk - (bk / KV) * KV;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int valid = valid_of(valid_ptr, valid_host, S);
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, (valid + DBK - 1) / DBK);
-  const int grp = lane / LG, cl = lane % LG;  // row group, 16-byte chunk
-  const bool loads = LPR == LG || cl < LPR;   // a lane past the row loads nothing
-  // 16 bytes of a cache row in smem into floats (zeros for a lane past the row)
-  auto row_chunk = [&](const uint8_t* tile, int j, float* f) {
-    if (loads) {
-      unpack8(*reinterpret_cast<const uint4*>(tile + j * ROWB + cl * 16), f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = 0.f;
-    }
-  };
-
-  float qr[HPW][8], acc[HPW][8], m[HPW], l[HPW];
-#pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-    const int g = warp + WARPS * i;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (g < G && loads) {
-      unpack8(__ldg(reinterpret_cast<const uint4*>(q + b * st.qb + (long long)(kvh * G + g) * st.qh + cl * 8)), f);
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      qr[i][e] = f[e] * scale_log2;
-      acc[i][e] = 0.f;
-    }
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-
-  const __nv_bfloat16* kbase = k + b * st.kb + kvh * st.kh;
-  const __nv_bfloat16* vbase = v + b * st.vb + kvh * st.vh;
-  // tile t into stage `stage`: slots at or past valid_len are zero-filled
-  auto load_tile = [&](int t, int stage) {
-    const uint32_t ks = ring0 + stage * 2 * TILEB, vs = ks + TILEB;
-    for (int c = tid; c < DBK * LPR; c += THREADS) {
-      const int r = c / LPR, ch = c - (c / LPR) * LPR;
-      const int slot = t * DBK + r;
-      const bool ok = slot < valid;
-      const long long koff = ok ? (long long)slot * st.ks + ch * 8 : 0;
-      const long long voff = ok ? (long long)slot * st.vs + ch * 8 : 0;
-      cp_async16(ks + r * ROWB + ch * 16, kbase + koff, ok ? 16 : 0);
-      cp_async16(vs + r * ROWB + ch * 16, vbase + voff, ok ? 16 : 0);
-    }
-  };
-#pragma unroll
-  for (int i = 0; i < NST - 1; ++i) {
-    if (t_begin + i < t_end) load_tile(t_begin + i, i);
-    cp_async_commit();
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int it = t - t_begin;
-    cp_async_wait<NST - 2>();  // this thread's copies of tile t are done
-    __syncthreads();           // everyone's are, and the stage reloaded below is consumed
-    if (t + NST - 1 < t_end) load_tile(t + NST - 1, (it + NST - 1) % NST);
-    cp_async_commit();
-    if (warp >= G) continue;  // a warp with no head of the group only loads
-    const uint8_t* ks = smem + (it % NST) * 2 * TILEB;
-    const uint8_t* vs = ks + TILEB;
-#pragma unroll 1
-    for (int c0 = 0; c0 < DBK / RPW; c0 += CHUNK) {
-      float sc[HPW][CHUNK];
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u) {
-        const int j = (c0 + u) * RPW + grp;
-        float kf[8];
-        row_chunk(ks, j, kf);
-#pragma unroll
-        for (int i = 0; i < HPW; ++i) {
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qr[i][e], kf[e], dot);
-#pragma unroll
-          for (int off = LG / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          sc[i][u] = t * DBK + j < valid ? dot : -INFINITY;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < HPW; ++i) {
-        float mx = m[i];
-#pragma unroll
-        for (int u = 0; u < CHUNK; ++u) mx = fmaxf(mx, sc[i][u]);
-        const float sub = mx == -INFINITY ? 0.f : mx;  // no valid row yet: no NaN
-        const float alpha = exp2f(m[i] - sub);
-        m[i] = mx;
-        float ps = 0.f;
-#pragma unroll
-        for (int u = 0; u < CHUNK; ++u) {
-          sc[i][u] = exp2f(sc[i][u] - sub);
-          ps += sc[i][u];
-        }
-        l[i] = l[i] * alpha + ps;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
-      }
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u) {
-        const int j = (c0 + u) * RPW + grp;
-        float vf[8];
-        row_chunk(vs, j, vf);
-#pragma unroll
-        for (int i = 0; i < HPW; ++i) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(sc[i][u], vf[e], acc[i][e]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();  // no copy outlives the block
-
-  // merge the warp's lane groups, then write this split's state per head:
-  // part[(bk, split)] = [m (G), l (G), acc (G x D)], m in natural-log units
-  float* out = part + ((long long)bk * nsplit + split) * G * (D + 2);
-#pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-#pragma unroll
-    for (int off = LG; off < 32; off <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
-      const float mx = fmaxf(m[i], mo);
-      const float sub = mx == -INFINITY ? 0.f : mx;
-      const float a = exp2f(m[i] - sub), c = exp2f(mo - sub);
-      l[i] = l[i] * a + lo * c;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[i][e], off);
-        acc[i][e] = acc[i][e] * a + ao * c;
-      }
-      m[i] = mx;
-    }
-    const int g = warp + WARPS * i;
-    if (g < G && lane < LPR) {
-      if (lane == 0) {
-        out[g] = m[i] == -INFINITY ? kNegInf : m[i] * 0.6931471805599453f;
-        out[G + g] = l[i];
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) out[2 * G + g * D + cl * 8 + e] = acc[i][e];
-    }
-  }
-}
-
-// Opt the instance in to its shared memory, once (not a stream operation).
-template <int D, int HPW>
-cudaError_t prepare() {
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_decode_partial_ring<D, HPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<D>());
-  return opt_in;
-}
-
-template <int D, int HPW>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* valid_ptr,
-                   long long valid_host, float* part, int B, int S, int KV, int G, int nsplit,
-                   int tiles_per_split, const Strides& st, cudaStream_t stream) {
-  const cudaError_t opt_in = prepare<D, HPW>();
-  if (opt_in != cudaSuccess) return opt_in;
-  flash_decode_partial_ring<D, HPW><<<dim3(B * KV, nsplit), THREADS, smem_bytes<D>(), stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, valid_ptr,
-      valid_host, part, S, KV, G, tiles_per_split, 1.4426950408889634f / sqrtf((float)D), st);
-  return cudaGetLastError();
-}
-
-template <int D, int HPW>
-cudaError_t blocks_per_sm(int* blocks) {
-  cudaError_t e = prepare<D, HPW>();
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_decode_partial_ring<D, HPW>,
-                                                      THREADS, smem_bytes<D>());
-  return e;
-}
-
-}  // namespace ring
-
-// ---- bf16 at D = 128, 192: tensor-core scoring -----------------------------
+// ---- bf16: tensor-core scoring --------------------------------------------
 namespace mma {
 
-constexpr int STAGES = 2;                   // 64-slot K+V tiles in the ring
 constexpr int WARP_SLOTS = DBK / WARPS;     // warp w owns slots [16w, 16w + 16) of every tile
 constexpr int MAX_GROUP = 16;               // query heads: the M rows of one m16n8k16
 
+// 64-slot K+V tiles in the ring
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D > 80 ? 2 : 3;
+}
+// 16-byte chunks of a staged K or V row: D / 8, and at D = 80 one of
+// padding, an odd count
+template <int D>
+__host__ __device__ constexpr int row_chunks() {
+  return D % 64 == 0 ? D / 8 : D / 8 + 1;
+}
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * 2 * DBK * D * 2;
+  return stages<D>() * 2 * DBK * row_chunks<D>() * 16;
 }
 // Blocks per SM the launch bounds ask for: as many as the shared memory
-// holds (228 KB: 2 of 96 KB at D = 192, 3 of 64 KB at D = 128), so the
-// registers (at most 255 or 168 a thread) never bind first.
+// holds (4 at D = 64, 3 at D = 80, 128, 2 at D = 192), so the registers
+// (at most 128, 168 or 255 a thread) never bind first.
 template <int D>
 __host__ __device__ constexpr int min_blocks() {
-  return D > 128 ? 2 : 3;
+  return SM_SMEM / (smem_bytes<D>() + BLOCK_RESERVED);
 }
 
-// Byte offset in a tile of 16-byte chunk c of cache row r.  A row is D * 2
-// = 256 or 384 bytes, 0 mod 128, so the 8 rows that one ldmatrix reads at
-// one chunk would share a bank group; stored at chunk c ^ (r & 7) of its
-// row they take 8 distinct ones.  The copy and the reads use this one map.
+// Byte offset in a tile of 16-byte chunk c of cache row r.  A row of D * 2
+// = 128, 256 or 384 bytes is 0 mod 128, so the 8 rows that one ldmatrix
+// reads at one chunk would share a bank group; stored at chunk c ^ (r & 7)
+// of its row they take 8 distinct ones.  At D = 80 the row is padded to 11
+// chunks, whose odd stride does the same.  The copy and the reads use this
+// one map.
 template <int D>
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-  return r * (D * 2) + ((c ^ (r & 7)) << 4);
+__device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
+  if constexpr (D % 64 == 0) {
+    return r * (D * 2) + ((c ^ (r & 7)) << 4);
+  } else {
+    return (r * row_chunks<D>() + c) << 4;
+  }
 }
 
 // Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
@@ -441,11 +228,12 @@ flash_decode_partial_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid_ptr,
                          long long valid_host, float* __restrict__ part, int S, int KV, int G,
                          int tiles_per_split, float scale_log2, Strides st) {
-  static_assert(D % 64 == 0, "a cache row is whole groups of eight 16-byte chunks");
+  static_assert(D % 16 == 0, "a cache row is whole k16 steps, and pairs of n8 tiles");
   static_assert(WARP_SLOTS == 16, "a warp's slots are the N of two n8 tiles, the K of one k16");
   static_assert(WARPS * 16 * (D + 2) * 4 <= smem_bytes<D>(), "the warps' states fit in the ring");
+  constexpr int STAGES = stages<D>();
   constexpr int CH = D / 8;     // 16-byte chunks in a cache row
-  constexpr int TILEB = DBK * D * 2;
+  constexpr int TILEB = DBK * row_chunks<D>() * 16;
   constexpr int KSTEPS = D / 16;  // k16 steps of Q K^T
   constexpr int NTILES = D / 8;   // n8 tiles of P V
   extern __shared__ __align__(128) uint8_t smem[];
@@ -484,7 +272,7 @@ flash_decode_partial_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 
   const __nv_bfloat16* kbase = k + b * st.kb + kvh * st.kh;
   const __nv_bfloat16* vbase = v + b * st.vb + kvh * st.vh;
-  // tile t into stage `stage`, swizzled: slots at or past valid_len are zero-filled
+  // tile t into stage `stage` by `chunk_offset`: slots at or past valid_len are zero-filled
   auto load_tile = [&](int t, int stage) {
     const uint32_t ks = ring0 + stage * 2 * TILEB, vs = ks + TILEB;
     for (int c = tid; c < DBK * CH; c += THREADS) {
@@ -493,8 +281,8 @@ flash_decode_partial_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
       const bool ok = slot < valid;
       const long long koff = ok ? (long long)slot * st.ks + ch * 8 : 0;
       const long long voff = ok ? (long long)slot * st.vs + ch * 8 : 0;
-      cp_async16(ks + swizzled<D>(r, ch), kbase + koff, ok ? 16 : 0);
-      cp_async16(vs + swizzled<D>(r, ch), vbase + voff, ok ? 16 : 0);
+      cp_async16(ks + chunk_offset<D>(r, ch), kbase + koff, ok ? 16 : 0);
+      cp_async16(vs + chunk_offset<D>(r, ch), vbase + voff, ok ? 16 : 0);
     }
   };
   // ldmatrix rows: lane feeds row lane & 7 of matrix mi = lane >> 3.  K:
@@ -525,7 +313,7 @@ flash_decode_partial_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       uint32_t kb[4];
-      ldmatrix_x4(ks + swizzled<D>(k_row, 2 * kk + k_ch), kb);
+      ldmatrix_x4(ks + chunk_offset<D>(k_row, 2 * kk + k_ch), kb);
       mma_16816(s[0], qa[kk], kb[0], kb[1]);
       mma_16816(s[1], qa[kk], kb[2], kb[3]);
     }
@@ -573,7 +361,7 @@ flash_decode_partial_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 #pragma unroll
     for (int jj = 0; jj < NTILES / 2; ++jj) {
       uint32_t vb[4];
-      ldmatrix_x4_trans(vs + swizzled<D>(v_row, 2 * jj + v_ch), vb);
+      ldmatrix_x4_trans(vs + chunk_offset<D>(v_row, 2 * jj + v_ch), vb);
       mma_16816(acc[2 * jj], pa, vb[0], vb[1]);
       mma_16816(acc[2 * jj + 1], pa, vb[2], vb[3]);
     }
@@ -662,7 +450,6 @@ constexpr int TS = 32;                      // cache slots per tile
 constexpr int WARP_SLOTS = TS / WARPS;      // warp w owns slots [8w, 8w + 8) of every tile
 constexpr int RING_BYTES = 110 * 1024;      // the ring's budget, at most MAX_STAGES tiles
 constexpr int MAX_STAGES = 4;
-constexpr int SM_SMEM = 233472, BLOCK_RESERVED = 1024;  // an H100 SM's shared memory
 
 // Query heads a block serves, a chunk of the group: 16, but 12 at D = 192,
 // where 16 heads' 96 floats of O a lane spill past 255 registers.
@@ -1025,21 +812,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* valid
     if (smem != (size_t)ffma::smem_bytes(D, gp) || hpw != gp)
       return cudaErrorInvalidValue;  // the plan and this file disagree
     err = ffma::launch<D>(gp, q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream);
-  } else if constexpr (on_mma(D)) {
+  } else {
     // a warp scores every head of the group on the tensor cores
     if (smem != (size_t)mma::smem_bytes<D>() || hpw != G || G > mma::MAX_GROUP)
       return cudaErrorInvalidValue;  // the plan and this file disagree, or G > 16: no instance
     err = mma::launch<D>(q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream);
-  } else {
-    if (smem != (size_t)ring::smem_bytes<D>() || hpw != (G + WARPS - 1) / WARPS)
-      return cudaErrorInvalidValue;  // the plan and this file disagree
-    switch (hpw) {
-      case 1: err = ring::launch<D, 1>(q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream); break;
-      case 2: err = ring::launch<D, 2>(q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream); break;
-      case 3: err = ring::launch<D, 3>(q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream); break;
-      case 4: err = ring::launch<D, 4>(q, k, v, valid_ptr, valid_host, part, B, S, KV, G, nsplit, tiles_per_split, st, stream); break;
-      default: return cudaErrorInvalidValue;  // G > 16: no instance
-    }
   }
   if (err != cudaSuccess) return err;
   flash_decode_merge<T, D><<<B * H, D, 0, stream>>>(part, (T*)o, H, KV, G, nsplit);
@@ -1052,8 +829,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* valid
 // contiguous; the output is contiguous (B, H, D).  valid_ptr (device int32)
 // wins over valid_host when it is not null.  part is f32 scratch of
 // B*KV*nsplit*G*(D+2) floats.  smem: the partial kernel's dynamic shared
-// memory and hpw its heads per warp (ring: G / 4 rounded up; mma: G; f32:
-// the chunk size, head_class of min(G, 16)), as the wrapper's plan has them
+// memory and hpw its heads per warp (bf16: G; f32: the chunk size,
+// head_class of min(G, 16), 12 at D = 192), as the wrapper's plan has them
 // (checked against this file's).
 // Returns a cudaError_t.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
@@ -1089,8 +866,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
 // Blocks of the partial kernel that one SM holds, as the runtime's occupancy
 // calculator has it: the instance the wrapper's plan takes for dtype (0 =
 // float32, 1 = bfloat16), head dim D and hpw heads per warp (f32: ffma:: at
-// chunk size hpw; bf16: the tensor-core instance at D = 128, 192, the ring's
-// at D = 64, 80).  Returns a cudaError_t.
+// chunk size hpw; bf16: mma::, whatever hpw).  Returns a cudaError_t.
 extern "C" int flash_decode_blocks_per_sm(int dtype, int D, int hpw, int* blocks) {
   if (dtype == 0) {
     switch (D) {
@@ -1102,17 +878,11 @@ extern "C" int flash_decode_blocks_per_sm(int dtype, int D, int hpw, int* blocks
     }
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D == 128) return (int)mma::blocks_per_sm<128>(blocks);
-  if (D == 192) return (int)mma::blocks_per_sm<192>(blocks);
-  switch (D * 8 + hpw) {
-    case 64 * 8 + 1: return (int)ring::blocks_per_sm<64, 1>(blocks);
-    case 64 * 8 + 2: return (int)ring::blocks_per_sm<64, 2>(blocks);
-    case 64 * 8 + 3: return (int)ring::blocks_per_sm<64, 3>(blocks);
-    case 64 * 8 + 4: return (int)ring::blocks_per_sm<64, 4>(blocks);
-    case 80 * 8 + 1: return (int)ring::blocks_per_sm<80, 1>(blocks);
-    case 80 * 8 + 2: return (int)ring::blocks_per_sm<80, 2>(blocks);
-    case 80 * 8 + 3: return (int)ring::blocks_per_sm<80, 3>(blocks);
-    case 80 * 8 + 4: return (int)ring::blocks_per_sm<80, 4>(blocks);
+  switch (D) {
+    case 64: return (int)mma::blocks_per_sm<64>(blocks);
+    case 80: return (int)mma::blocks_per_sm<80>(blocks);
+    case 128: return (int)mma::blocks_per_sm<128>(blocks);
+    case 192: return (int)mma::blocks_per_sm<192>(blocks);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,18 +23,14 @@ heads per warp, blocks per SM), so it is tested on a host without a card.
 
 Bytes bound it: every valid slot's K and V are read once.  Its instances:
 
-- ``ring_bf16`` (D 64, 80): a ring of cp.async copies; a warp scores 4 or
-  2 cache rows at once, each dot reduced by shuffles across the lanes that
-  read the row.  Its shared memory holds 3 blocks on an SM at D 64 and 2
-  at D 80 (ptxas's 64-152 registers a thread allow more); its split-K grid
-  aims at ``_TARGET_BLOCKS`` (:func:`splits_for`), the only grid that does.
-- ``mma_bf16`` (D 128, 192): the scores and P V on the tensor cores
+- ``mma_bf16`` (bf16, every D): the scores and P V on the tensor cores
   (``mma.sync`` m16n8k16, the group's heads as M), warp w owning slots
-  [16w, 16w + 16) of every 64-slot tile, read through a swizzled ring
-  (:func:`mma_chunk_offset`).  Its shared memory holds 3 blocks on an SM
-  at D 128 and 2 at D 192, the launch bounds keep registers to 168 and 255
-  a thread so that they do not bind first, and its split-K grid is sized
-  to those blocks (:func:`resident_splits`): one wave where B * KV allows.
+  [16w, 16w + 16) of every 64-slot tile (:func:`mma_warp_slots`), so all
+  four warps score at group 1 too, read from a ring of
+  :func:`mma_stages` tiles whose rows are swizzled, or at D 80 padded to
+  an odd chunk count (:func:`mma_chunk_offset`).  Its shared memory holds
+  :func:`mma_min_blocks` blocks on an SM (4 at D 64, 3 at D 80 and 128, 2
+  at D 192), and the launch bounds keep registers from binding first.
 - ``ffma_f32`` (f32, every D): exact f32 FFMAs on the CUDA cores
   (``ffma::flash_decode_partial_ffma``).  A ring of ``cp.async`` copies of
   32-slot tiles (:func:`ffma_stages` of them, rows padded by a float4:
@@ -44,9 +40,11 @@ Bytes bound it: every valid slot's K and V are read once.  Its instances:
   size class, :func:`ffma_head_class`; a grid z per chunk, so a larger
   group reads the cache once a chunk) and holding every head's O at its
   columns for P V.  Its shared memory holds 3 blocks on an SM at D 64 and
-  2 at D 80, 128, 192, the launch bounds keep registers from binding first,
-  and its split-K grid is sized to those blocks (:func:`resident_splits`)
-  as ``mma_bf16``'s is.
+  2 at D 80, 128, 192, and the launch bounds keep registers from binding
+  first.
+
+Both instances' split-K grids are sized to the blocks the card holds at
+once (:func:`resident_splits`): one wave where B * KV allows.
 """
 
 from __future__ import annotations
@@ -64,22 +62,17 @@ HEAD_DIMS = (64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: cache slots per kernel tile (csrc/flash_decode.cu DBK)
 TILE = 64
-#: warps of the partial kernels; a ``ring_bf16`` warp serves at most four heads
+#: warps of the partial kernels
 WARPS = 4
 #: the H100: SMs, shared memory per SM (of which a block reserves 1 KB) and
 #: one block may use (227 KB), 32-bit registers per SM
 SMS, SM_SMEM, BLOCK_SMEM_RESERVED, SMEM_LIMIT, SM_REGISTERS = 132, 233_472, 1024, 232_448, 65_536
-#: blocks the ``ring_bf16`` split-K grid aims for (the only grid that does):
-#: four per SM (never measured; its shared memory holds 3 at D 64, 2 at D 80)
-_TARGET_BLOCKS = 4 * SMS
-#: the bf16 ring's budget: at most this much shared memory and at most
-#: ``_MAX_STAGES`` tiles
+#: the ``ffma_f32`` ring's budget: at most this much shared memory and at
+#: most ``_MAX_STAGES`` tiles
 _RING_BYTES, _MAX_STAGES = 110 * 1024, 4
-#: the ``mma_bf16`` instance (csrc/flash_decode.cu ``mma::``): its head dims,
-#: ring depth, largest group (the M rows of one m16n8k16), and the slots a
-#: warp owns in every tile
-MMA_HEAD_DIMS = (128, 192)
-MMA_STAGES, MMA_MAX_GROUP, MMA_WARP_SLOTS = 2, 16, TILE // WARPS
+#: the ``mma_bf16`` instance (csrc/flash_decode.cu ``mma::``): its largest
+#: group (the M rows of one m16n8k16), and the slots a warp owns in every tile
+MMA_MAX_GROUP, MMA_WARP_SLOTS = 16, TILE // WARPS
 #: the ``ffma_f32`` instance (csrc/flash_decode.cu ``ffma::``): cache slots
 #: per tile, the slots a warp owns in every tile, and the chunk sizes with
 #: an instance (a chunk of the group runs on the least that holds it; 16
@@ -87,7 +80,7 @@ MMA_STAGES, MMA_MAX_GROUP, MMA_WARP_SLOTS = 2, 16, TILE // WARPS
 FFMA_TILE, FFMA_WARP_SLOTS = 32, 32 // WARPS
 FFMA_HEAD_CLASSES = (1, 2, 4, 8, 12, 16)
 #: the largest ``heads_per_warp`` each instance has
-_MAX_HEADS_PER_WARP = dict(ring_bf16=4, mma_bf16=MMA_MAX_GROUP, ffma_f32=16)
+_MAX_HEADS_PER_WARP = dict(mma_bf16=MMA_MAX_GROUP, ffma_f32=16)
 
 
 def flash_decode_plain(q, k, v, valid_len) -> torch.Tensor:
@@ -138,26 +131,15 @@ def _check(q, k, v, valid_len) -> None:
         raise ValueError(f"flash_decode: valid_len must be an int or a 0-d tensor, got {type(valid_len)}")
 
 
-def _splits(tiles: int, want: int):
-    """(splits, tiles per split) covering ``tiles`` in at most ``want`` even splits."""
-    per = -(-tiles // max(1, min(tiles, want)))
-    return -(-tiles // per), per
-
-
-def splits_for(batch_kv: int, cache_len: int):
-    """(splits, tiles per split) of the ``ring_bf16`` split-K grid (D 64,
-    80) for ``batch_kv`` = B*KV blocks' worth of cache of ``cache_len``
-    slots: at least ``_TARGET_BLOCKS`` blocks where the tiles allow."""
-    return _splits(max(1, -(-cache_len // TILE)), -(-_TARGET_BLOCKS // batch_kv))
-
-
 def resident_splits(batch_kv: int, cache_len: int, resident: int, tile: int = TILE):
     """(splits, tiles per split) of the ``mma_bf16`` and ``ffma_f32``
-    split-K grids over ``tile``-slot tiles: as many splits as keep
+    split-K grids over ``tile``-slot tiles: as many even splits as keep
     ``batch_kv`` (B*KV, times the head chunks) * splits within the
     ``resident`` blocks the card holds at once (one wave), and one split per
     block of ``batch_kv`` when that alone fills it."""
-    return _splits(max(1, -(-cache_len // tile)), resident // batch_kv)
+    tiles = max(1, -(-cache_len // tile))
+    per = -(-tiles // max(1, min(tiles, resident // batch_kv)))
+    return -(-tiles // per), per
 
 
 def blocks_per_sm(smem_bytes: int, registers: int | None = None) -> int:
@@ -171,15 +153,28 @@ def blocks_per_sm(smem_bytes: int, registers: int | None = None) -> int:
     return min(by_smem, SM_REGISTERS // (per_warp * WARPS))
 
 
-def ring_stages(d: int) -> int:
-    """K/V tiles in flight in the bf16 kernel's ring (``ring::stages<D>``)."""
-    return min(_MAX_STAGES, _RING_BYTES // (2 * TILE * d * 2))
+def mma_stages(d: int) -> int:
+    """64-slot K+V tiles in the ``mma_bf16`` ring at head dim ``d``
+    (``mma::stages<D>``)."""
+    return 2 if d > 80 else 3
+
+
+def mma_row_chunks(d: int) -> int:
+    """16-byte chunks of a K or V row staged by ``mma_bf16``
+    (``mma::row_chunks<D>``): ``d / 8``, and at D 80 one of padding."""
+    return d // 8 if d % 64 == 0 else d // 8 + 1
+
+
+def mma_smem(d: int) -> int:
+    """``mma_bf16``'s dynamic shared memory at head dim ``d``
+    (``mma::smem_bytes<D>``): its ring."""
+    return mma_stages(d) * 2 * TILE * mma_row_chunks(d) * 16
 
 
 def mma_min_blocks(d: int) -> int:
     """Blocks per SM the ``mma_bf16`` instance's launch bounds ask for at
     head dim ``d`` (``mma::min_blocks<D>``): what its shared memory holds."""
-    return 2 if d > 128 else 3
+    return SM_SMEM // (mma_smem(d) + BLOCK_SMEM_RESERVED)
 
 
 def mma_registers(d: int) -> int:
@@ -188,11 +183,14 @@ def mma_registers(d: int) -> int:
     return min(255, SM_REGISTERS // (mma_min_blocks(d) * WARPS * 32) // 8 * 8)
 
 
-def mma_chunk_offset(row: int, chunk: int, d: int = 192) -> int:
+def mma_chunk_offset(row: int, chunk: int, d: int) -> int:
     """Byte offset in a K or V tile of the ``mma_bf16`` ring of 16-byte chunk
-    ``chunk`` of cache row ``row`` (``mma::swizzled``): the chunk is stored
-    at ``chunk ^ (row & 7)`` of its ``2 d``-byte row."""
-    return row * (2 * d) + ((chunk ^ (row & 7)) << 4)
+    ``chunk`` of cache row ``row`` (``mma::chunk_offset``): where ``2 d`` is
+    0 mod 128, the chunk is stored at ``chunk ^ (row & 7)`` of its row;
+    else (D 80) at ``chunk`` of a row padded to an odd chunk count."""
+    if d % 64 == 0:
+        return row * (2 * d) + ((chunk ^ (row & 7)) << 4)
+    return (row * mma_row_chunks(d) + chunk) << 4
 
 
 def mma_warp_slots(warp: int) -> range:
@@ -279,25 +277,18 @@ def launch_plan(q_shape, cache_shape, dtype) -> dict:
     b, h, d = q_shape
     s, kvh = cache_shape[1], cache_shape[2]
     g = h // kvh
-    tile, chunks = TILE, 1
     if dtype == torch.float32:
         tile, chunks, gp = FFMA_TILE, len(ffma_head_chunks(g, d)), ffma_head_class(g, d)
         smem = ffma_smem(d, gp)
-        per_sm = blocks_per_sm(smem, ffma_registers(d))
-        plan = dict(instance="ffma_f32", heads_per_warp=gp, smem_bytes=smem, blocks_per_sm=per_sm)
-        nsplit, per = resident_splits(b * kvh * chunks, s, per_sm * SMS, tile)
-    elif dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
-        smem = MMA_STAGES * 2 * TILE * d * 2
-        per_sm = blocks_per_sm(smem, mma_registers(d))
-        plan = dict(instance="mma_bf16", heads_per_warp=g, smem_bytes=smem, blocks_per_sm=per_sm)
-        nsplit, per = resident_splits(b * kvh, s, per_sm * SMS)
+        plan = dict(instance="ffma_f32", heads_per_warp=gp, smem_bytes=smem,
+                    blocks_per_sm=blocks_per_sm(smem, ffma_registers(d)))
     elif dtype == torch.bfloat16:
-        smem = ring_stages(d) * 2 * TILE * d * 2
-        plan = dict(instance="ring_bf16", heads_per_warp=-(-g // WARPS), smem_bytes=smem,
-                    blocks_per_sm=blocks_per_sm(smem))
-        nsplit, per = splits_for(b * kvh, s)
+        tile, chunks, smem = TILE, 1, mma_smem(d)
+        plan = dict(instance="mma_bf16", heads_per_warp=g, smem_bytes=smem,
+                    blocks_per_sm=blocks_per_sm(smem, mma_registers(d)))
     else:
         raise ValueError(f"flash_decode: the kernel takes float32 or bfloat16, got {dtype}")
+    nsplit, per = resident_splits(b * kvh * chunks, s, plan["blocks_per_sm"] * SMS, tile)
     plan.update(tile=tile, chunks=chunks, splits=nsplit, tiles_per_split=per,
                 blocks=b * kvh * nsplit * chunks, part_floats=b * kvh * nsplit * g * (d + 2))
     return plan

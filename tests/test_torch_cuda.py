@@ -777,9 +777,9 @@ def test_flash_kernels_reject_a_head_dim_without_an_instance(cuda):
 
 
 # --------------------------------------------------------------------------- #
-# K6 / K7: the Hopper designs' tile edges (bf16 on wgmma + TMA for K6, the
-# bf16 cp.async ring for K7, on the tensor cores at D 128 and 192), compared
-# on the card with the plain versions
+# K6 / K7: the Hopper designs' tile edges (bf16 on wgmma + TMA for K6, K7's
+# bf16 mma.sync instance behind its cp.async ring), compared on the card with
+# the plain versions
 # --------------------------------------------------------------------------- #
 def _cuda_attn(seed, b, s, h, kv, d, dtype, device):
     g = torch.Generator(device=device).manual_seed(seed)
@@ -976,7 +976,7 @@ def test_flash_attention_f32_non_causal_rows_peak_in_every_tile(cuda, d):
     assert len({int(j) // 32 for j in keys}) == s // 32
 
 
-_RING = {64: 4 * 64, 80: 4 * 64, 128: 2 * 64, 192: 2 * 64}  # slots in a full ring of the bf16 kernel
+_RING = {64: 3 * 64, 80: 3 * 64, 128: 2 * 64, 192: 2 * 64}  # slots in a full ring of the bf16 kernel
 
 
 @pytest.mark.parametrize("single_split", [True, False])
@@ -996,7 +996,7 @@ def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
     k = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
     v = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(torch.bfloat16)
     plan = fd.launch_plan(q.shape, k.shape, q.dtype)
-    assert (fd.MMA_STAGES if d in fd.MMA_HEAD_DIMS else fd.ring_stages(d)) * 64 == _RING[d]
+    assert plan["instance"] == "mma_bf16" and fd.mma_stages(d) * 64 == _RING[d]
     if single_split:
         plan = dict(plan, splits=1, tiles_per_split=s // 64, part_floats=b * kv * g * (d + 2))
     before = fd.flash_decode.launches
@@ -1015,7 +1015,7 @@ def test_flash_decode_bf16_ring_edges(cuda, valid, d, g, single_split):
 
 # --------------------------------------------------------------------------- #
 # K6 / K7 at head dim 80 (zamba2's shared block): the padded bf16 instance
-# of K6, K7's 16-lane row groups of which 10 lanes load
+# of K6, K7's mma instance on rows padded to 11 chunks
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g", [1, 4])
@@ -1115,11 +1115,11 @@ def test_flash_decode_d192_matches_plain(cuda, dtype, b, h, kv, s, valid):
     torch.testing.assert_close(flash_decode(q, k2, v2, valid), got, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("d", [128, 192])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("g", [1, 2, 3, 12, 16])
 @pytest.mark.parametrize("valid", [15, 16, 17, 48, 49, 64 + 17, 1000])
 def test_flash_decode_mma_warp_slices(cuda, valid, g, d):
-    """The tensor-core instance at D 128 and 192: valid_len on both sides of
+    """The tensor-core instance at every head dim: valid_len on both sides of
     a warp's 16-slot slice (15-17, 48-49; 81 in the second tile, 1000 in the
     last), groups 1-16 (zero M rows past G but at 16): within 3e-2 of the
     plain version and 1e-2 relative L2 error per head; slots past valid_len
@@ -1166,12 +1166,11 @@ def test_flash_decode_d192_mma_whole_cache_is_deterministic(cuda):
         assert torch.equal(flash_decode(q, k, v, s), got)
 
 
-@pytest.mark.parametrize("d,g,per_sm", [(64, 1, 3), (64, 4, 3), (80, 1, 2), (80, 2, 2), (128, 4, 3),
+@pytest.mark.parametrize("d,g,per_sm", [(64, 1, 4), (64, 4, 4), (80, 1, 3), (80, 2, 3), (128, 4, 3),
                                          (128, 16, 3), (192, 1, 2), (192, 12, 2)])
 def test_flash_decode_plan_blocks_per_sm_match_the_card(cuda, d, g, per_sm):
-    """Every bf16 instance's blocks per SM in the plan (the ring's by its
-    shared memory; the mma instance's by its shared memory and launch
-    bounds) are the occupancy calculator's."""
+    """The bf16 instance's blocks per SM in the plan (by its shared memory
+    and launch bounds) are the occupancy calculator's at every head dim."""
     plan = fd.launch_plan((1, 2 * g, d), (1, 512, 2, d), torch.bfloat16)
     assert plan["blocks_per_sm"] == per_sm
     assert fd.card_blocks_per_sm(plan, d) == per_sm

@@ -430,28 +430,29 @@ def test_k6_pipelined_numerics_hold_the_smoke_gate(d, g):
 # K7 flash_decode
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize(
-    "d,instance,stages,per_sm",
-    [(64, "ring_bf16", 4, 3), (80, "ring_bf16", 4, 2), (128, "mma_bf16", 2, 3), (192, "mma_bf16", 2, 2)],
+    "d,stages,row_bytes,per_sm",
+    [(64, 3, 128, 4), (80, 3, 176, 3), (128, 2, 256, 3), (192, 2, 384, 2)],
 )
-def test_k7_bf16_ring_depth_and_shared_memory(d, instance, stages, per_sm):
-    """The ring instances (D 64, 80) keep as many 64-slot K+V tiles as fit
-    in ~110 KB, at most four; the mma instances (D 128, 192) two; and the
-    blocks an SM's 228 KB holds: 3 at D 64 and 128, 2 at D 80 and 192."""
+def test_k7_bf16_ring_depth_and_shared_memory(d, stages, row_bytes, per_sm):
+    """bf16 takes the mma instance at every head dim: a ring of 3 64-slot
+    K+V tiles at D 64 and 80, 2 at D 128 and 192, rows of 2 D bytes (176 at
+    D 80, padded to 11 chunks); and the blocks an SM's 228 KB holds: 4 at D
+    64, 3 at D 80 and 128, 2 at D 192."""
     plan = fd.launch_plan((8, 32, d), (8, 8192, 8, d), torch.bfloat16)
-    assert plan["instance"] == instance
-    assert (fd.ring_stages(d) if instance == "ring_bf16" else fd.MMA_STAGES) == stages
-    assert plan["smem_bytes"] == stages * 2 * 64 * d * 2 <= 110 * 1024
-    assert plan["blocks_per_sm"] == per_sm
+    assert plan["instance"] == "mma_bf16"
+    assert fd.mma_stages(d) == stages and fd.mma_row_chunks(d) * 16 == row_bytes
+    assert plan["smem_bytes"] == stages * 2 * 64 * row_bytes == fd.mma_smem(d) <= fd.SMEM_LIMIT
+    assert plan["blocks_per_sm"] == per_sm == fd.mma_min_blocks(d)
     assert per_sm * (plan["smem_bytes"] + 1024) <= 228 * 1024 < (per_sm + 1) * (plan["smem_bytes"] + 1024)
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("g,hpw", [(1, 1), (4, 1), (5, 2), (6, 2), (8, 2), (12, 3), (16, 4)])
-def test_k7_heads_per_warp(g, hpw, d):
-    """A ring warp (D 64) serves every fourth head of the group; an mma warp
-    (D 128) scores all of them, the M rows of its products."""
+@pytest.mark.parametrize("g", [1, 4, 5, 6, 8, 12, 16])
+def test_k7_heads_per_warp(g, d):
+    """An mma warp scores every head of the group at every head dim, the M
+    rows of its products."""
     plan = fd.launch_plan((2, 2 * g, d), (2, 512, 2, d), torch.bfloat16)
-    assert plan["heads_per_warp"] == (hpw if d == 64 else g)
+    assert plan["instance"] == "mma_bf16" and plan["heads_per_warp"] == g
     assert plan["part_floats"] == 2 * 2 * plan["splits"] * g * (d + 2)
 
 
@@ -459,18 +460,17 @@ def test_k7_plan_at_head_dim_192():
     """nemotron-4's decode (B 8, 96 / 8 heads, 8192 slots, D 192) on the
     tensor-core instance: a ring of 2 stages (98,304 bytes), every warp
     scoring all 12 heads of the group (one at group 1), 2 blocks an SM, so 4
-    splits of 32 tiles, 256 blocks in one wave of 264 (the ring's target of
-    4 x 132 gave 9 x 15); the f32 instance (32-slot tiles, a 2-stage ring of
+    splits of 32 tiles, 256 blocks in one wave of 264; the f32 instance (32-slot tiles, a 2-stage ring of
     rows padded by a float4, Q and the warps' P at chunk size 12) under the
     limit too, 2 blocks an SM, its grid sized to them: 4 splits of 64
     tiles."""
     plan = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.bfloat16)
-    assert plan["instance"] == "mma_bf16" and fd.ring_stages(192) == fd.MMA_STAGES == 2
+    assert plan["instance"] == "mma_bf16" and fd.mma_stages(192) == 2
     assert plan["heads_per_warp"] == 12
     assert plan["smem_bytes"] == 2 * 2 * 64 * 192 * 2 == 98_304 <= fd.SMEM_LIMIT
     assert plan["blocks_per_sm"] == 2
     assert (plan["splits"], plan["tiles_per_split"], plan["blocks"]) == (4, 32, 256)
-    assert fd.splits_for(8 * 8, 8192) == (9, 15)
+    assert (plan["splits"], plan["tiles_per_split"]) == fd.resident_splits(8 * 8, 8192, 2 * 132)
     assert plan["part_floats"] == 8 * 8 * 4 * 12 * 194
     assert fd.launch_plan((2, 4, 192), (2, 512, 4, 192), torch.bfloat16)["heads_per_warp"] == 1
     f32 = fd.launch_plan((8, 96, 192), (8, 8192, 8, 192), torch.float32)
@@ -493,25 +493,26 @@ def test_k7_f32_instance_keeps_its_shared_memory():
 
 @pytest.mark.parametrize(
     "b,s,kv,want",
-    [(8, 8192, 8, (9, 15)), (32, 32768, 8, (3, 171)), (1, 8192, 2, (128, 1)), (2, 64, 2, (1, 1)),
+    [(8, 8192, 8, (8, 16)), (32, 32768, 8, (2, 256)), (1, 8192, 2, (128, 1)), (2, 64, 2, (1, 1)),
      (1, 100, 1, (2, 1)), (600, 4096, 1, (1, 64))],
 )
 def test_k7_split_k_grid(b, s, kv, want):
-    """The ring's split-K grid (D 64, 80) covers every tile once: a serving
-    cache, decode_32k's, batch 1, a single tile, and a batch large enough
-    for one split."""
+    """The split-K grid at D 64 is sized to the 4 x 132 blocks the card
+    holds (``resident_splits``, as at every D) and covers every tile once: a
+    serving cache, decode_32k's, batch 1, a single tile, and a batch large
+    enough for one split."""
     plan = fd.launch_plan((b, 4 * kv, 64), (b, s, kv, 64), torch.bfloat16)
-    assert plan["instance"] == "ring_bf16"
-    assert (plan["splits"], plan["tiles_per_split"]) == want
+    assert plan["instance"] == "mma_bf16" and plan["blocks_per_sm"] == 4
+    assert (plan["splits"], plan["tiles_per_split"]) == want == fd.resident_splits(b * kv, s, 4 * 132)
+    assert plan["blocks"] <= 4 * 132 or plan["splits"] == 1
     tiles = -(-s // 64)
     assert plan["splits"] * plan["tiles_per_split"] >= tiles > (plan["splits"] - 1) * plan["tiles_per_split"]
 
 
 @pytest.mark.parametrize("d", [64, 192])
 def test_k7_launch_refuses_a_group_without_an_instance(d):
-    """More than 16 query heads per KV head has no bf16 instance (the ring:
-    four warps of at most four heads; the mma instance: the 16 M rows of an
-    m16n8k16); the wrapper raises before it touches a card."""
+    """More than 16 query heads per KV head has no bf16 instance (the 16 M
+    rows of an m16n8k16); the wrapper raises before it touches a card."""
     q = torch.zeros((1, 17, d), dtype=torch.bfloat16)
     k = torch.zeros((1, 64, 1, d), dtype=torch.bfloat16)
     plan = fd.launch_plan(q.shape, k.shape, q.dtype)
@@ -520,30 +521,60 @@ def test_k7_launch_refuses_a_group_without_an_instance(d):
 
 
 # --------------------------------------------------------------------------- #
-# K7's tensor-core instance at D 128 and 192: swizzle, warp slices, residency
+# K7's tensor-core instance: row layout, warp slices, residency
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("d", [128, 192])
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
 def test_k7_mma_swizzle_is_a_permutation_of_the_tile(d):
     """Every (row, chunk) of a 64-row tile of d/8 16-byte chunks has its own
-    16-byte slot, inside the tile, and a row's chunks stay in that row."""
-    chunks = d // 8
+    16-byte slot, inside the tile, and a row's chunks stay in that row; at
+    D 64, 128 and 192 the map is a permutation of the tile's 2 d-byte rows
+    (a swizzle)."""
+    chunks, row = d // 8, fd.mma_row_chunks(d) * 16
     offsets = [fd.mma_chunk_offset(r, c, d) for r in range(64) for c in range(chunks)]
     assert all(o % 16 == 0 for o in offsets)
-    assert sorted(o // 16 for o in offsets) == list(range(64 * chunks))
+    assert len(set(offsets)) == len(offsets) and max(offsets) < 64 * row
+    if row == 2 * d:
+        assert sorted(o // 16 for o in offsets) == list(range(64 * chunks))
     for r in range(64):
-        assert {fd.mma_chunk_offset(r, c, d) // (2 * d) for c in range(chunks)} == {r}
+        assert {fd.mma_chunk_offset(r, c, d) // row for c in range(chunks)} == {r}
 
 
-@pytest.mark.parametrize("d", [128, 192])
+@pytest.mark.parametrize("d", [64, 80])
+def test_k7_mma_rows_at_d64_and_d80(d):
+    """D 64's 128-byte rows take the XOR swizzle, whose chunk c ^ (r & 7)
+    stays in the row's 8 chunks; D 80's 10 chunks would reach chunk 15 that
+    way, so its rows are padded to 11 (176 bytes): the map is a bijection of
+    each row's 10 chunks onto the first 10 of its 11, the pad unused, and
+    the 8 rows of each ldmatrix (slots 8j .. 8j + 7 of a tile) at one chunk
+    fall in 8 distinct 16-byte bank groups, where the unpadded 160-byte
+    stride gives 4 (2-way conflicts)."""
+    chunks = d // 8
+    if d == 64:
+        assert fd.mma_row_chunks(d) == 8 and max(c ^ 7 for c in range(chunks)) == 7
+    else:
+        assert fd.mma_row_chunks(d) == 11 and max(c ^ 7 for c in range(chunks)) == 15
+    row = fd.mma_row_chunks(d) * 16
+    for r in range(64):
+        slots = sorted(fd.mma_chunk_offset(r, c, d) - r * row for c in range(chunks))
+        assert slots == [16 * c for c in range(chunks)]
+    for first in range(0, 64, 8):
+        for c in range(chunks):
+            rows = range(first, first + 8)
+            assert len({(fd.mma_chunk_offset(r, c, d) % 128) // 16 for r in rows}) == 8
+            assert len({(r * 2 * d + 16 * c) % 128 // 16 for r in rows}) == (1 if d == 64 else 4)
+
+
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
 def test_k7_mma_ldmatrix_rows_take_distinct_bank_groups(d):
     """Any 8 consecutive rows (one ldmatrix matrix) at one logical chunk fall
     in 8 distinct 16-byte bank groups (of 8 in 128 bytes), at every chunk;
-    unswizzled they would share one (256- or 384-byte rows, 0 mod 128)."""
+    at a stride of 2 d bytes they would share fewer (one for the 128-, 256-
+    and 384-byte rows, 0 mod 128; four for D 80's 160)."""
     for first in range(64 - 7):
         for c in range(d // 8):
             rows = range(first, first + 8)
             assert len({(fd.mma_chunk_offset(r, c, d) % 128) // 16 for r in rows}) == 8
-            assert len({(r * 2 * d + 16 * c) % 128 for r in rows}) == 1
+            assert len({(r * 2 * d + 16 * c) % 128 for r in rows}) < 8
 
 
 def test_k7_mma_warps_own_16_slot_slices():
@@ -551,7 +582,7 @@ def test_k7_mma_warps_own_16_slot_slices():
     assert [fd.mma_warp_slots(w) for w in range(fd.WARPS)] == [range(16 * w, 16 * w + 16) for w in range(4)]
 
 
-@pytest.mark.parametrize("d,resident", [(128, 396), (192, 264)])
+@pytest.mark.parametrize("d,resident", [(64, 528), (80, 396), (128, 396), (192, 264)])
 @pytest.mark.parametrize(
     "b,s,kv", [(8, 32768, 8), (8, 8192, 8), (1, 32768, 8), (1, 100, 1), (2, 64, 2), (32, 32768, 8),
                (600, 4096, 1), (3, 1000, 5)]
@@ -559,8 +590,9 @@ def test_k7_mma_warps_own_16_slot_slices():
 def test_k7_mma_splits_cover_every_slot_once_within_one_wave(b, s, kv, d, resident):
     """Walking every split's tiles and every warp's slice of each covers
     every slot of the cache once; the grid is B * KV * splits blocks, within
-    the blocks the card holds at once (3 an SM at D 128, 2 at D 192) unless
-    B * KV alone is more, and then one split per (b, kv)."""
+    the blocks the card holds at once (4 an SM at D 64, 3 at D 80 and 128,
+    2 at D 192) unless B * KV alone is more, and then one split per (b,
+    kv)."""
     plan = fd.launch_plan((b, 4 * kv, d), (b, s, kv, d), torch.bfloat16)
     nsplit, per = plan["splits"], plan["tiles_per_split"]
     assert plan["blocks"] == b * kv * nsplit and plan["blocks_per_sm"] * 132 == resident
@@ -581,16 +613,23 @@ def test_k7_mma_splits_cover_every_slot_once_within_one_wave(b, s, kv, d, reside
 
 def test_k7_mma_residency_follows_shared_memory_and_registers():
     """Two 96 KB blocks (D 192) fit in an SM's 228 KB, three do not; three
-    64 KB blocks (D 128), not four.  The launch bounds' budgets, 255 and 168
+    64 KB blocks (D 128) or 66 KB ones (D 80), not four; four 48 KB blocks
+    (D 64), not five.  The launch bounds' budgets, 255, 168 and 128
     registers a thread, allow as many blocks of 128 threads, so registers
-    never bind first; 169 would."""
-    assert (fd.mma_registers(192), fd.mma_registers(128)) == (255, 168)
+    never bind first; 169 or 129 would."""
+    assert [fd.mma_registers(d) for d in fd.HEAD_DIMS] == [128, 168, 168, 255]
     assert fd.blocks_per_sm(98_304) == 2 and fd.blocks_per_sm(98_304, 255) == 2
     assert fd.blocks_per_sm(65_536) == 3 and fd.blocks_per_sm(65_536, 168) == 3
     assert fd.blocks_per_sm(65_536, 169) == 2  # registers bind
+    assert fd.blocks_per_sm(67_584) == 3 and fd.blocks_per_sm(67_584, 168) == 3
+    assert fd.blocks_per_sm(49_152) == 4 and fd.blocks_per_sm(49_152, 128) == 4
+    assert fd.blocks_per_sm(49_152, 129) == 3  # registers bind
     plan = fd.launch_plan((8, 96, 192), (8, 32768, 8, 192), torch.bfloat16)
     assert (plan["splits"], plan["tiles_per_split"], plan["blocks"]) == (4, 128, 256)
-    assert fd.splits_for(64, 32768) == (9, 57)  # the ring's target: 576 blocks, 2.18 waves
+    zamba = fd.launch_plan((8, 32, 80), (8, 32768, 32, 80), torch.bfloat16)  # (e5)'s whole cache
+    assert (zamba["splits"], zamba["tiles_per_split"], zamba["blocks"]) == (1, 512, 256)
+    seamless = fd.launch_plan((8, 16, 64), (8, 32768, 16, 64), torch.bfloat16)  # (e6)'s heads
+    assert (seamless["splits"], seamless["tiles_per_split"], seamless["blocks"]) == (4, 128, 512)
     serve = fd.launch_plan((8, 32, 128), (8, 8192, 8, 128), torch.bfloat16)  # llama3-8b's cache
     assert (serve["instance"], serve["splits"], serve["tiles_per_split"], serve["blocks"]) == (
         "mma_bf16", 6, 22, 384)
@@ -642,13 +681,13 @@ def _mma_emulated(q, k, v, valid, splits, per):
     return out.reshape(b, h, d).to(q.dtype)
 
 
-@pytest.mark.parametrize("d,g", [(192, 1), (192, 12), (128, 4), (128, 8)])
+@pytest.mark.parametrize("d,g", [(192, 1), (192, 12), (128, 4), (128, 8), (80, 1), (64, 1)])
 def test_k7_mma_numerics_hold_the_smoke_gate(d, g):
     """P rounded to bf16 per 16-slot warp chunk, then the four-warp and split
     merges, over 4096 valid slots (nemotron-4's D 192 at groups 1 and 12,
-    D 128 at groups 4 and 8): within 3e-2 of ``flash_decode_plain`` and, per
-    head, 1e-2 relative L2 error (the gate the card's smoke holds the kernel
-    to)."""
+    D 128 at groups 4 and 8, zamba2's D 80 and seamless's D 64 at group 1):
+    within 3e-2 of ``flash_decode_plain`` and, per head, 1e-2 relative L2
+    error (the gate the card's smoke holds the kernel to)."""
     b, kv, s = 2, 2, 4096
     rng = np.random.default_rng(g)
     q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(torch.bfloat16)
@@ -924,18 +963,27 @@ def test_plans_match_the_cuda_sources():
     dec = (CSRC / "flash_decode.cu").read_text()
     assert _constant(dec, "DBK") == str(fd.TILE)
     assert _constant(dec, "WARPS") == "THREADS / 32" and _constant(dec, "THREADS") == str(32 * fd.WARPS)
-    assert "(110 * 1024) / (2 * DBK * D * 2) < 4" in dec and fd._RING_BYTES == 110 * 1024
+    assert _constant(dec, "SM_SMEM") == f"{fd.SM_SMEM}, BLOCK_RESERVED = {fd.BLOCK_SMEM_RESERVED}"
+    # one bf16 instance, mma::, at every head dim: no route to another
+    assert "on_mma" not in dec and "namespace ring" not in dec and "partial_ring" not in dec
+    assert "} else {\n    // a warp scores every head of the group on the tensor cores" in dec
+    for d in fd.HEAD_DIMS:
+        assert f"case {d}: return (int)mma::blocks_per_sm<{d}>(blocks);" in dec
     mma = dec[dec.index("namespace mma {"):dec.index("}  // namespace mma")]
-    assert _constant(mma, "STAGES") == str(fd.MMA_STAGES)
     assert _constant(mma, "WARP_SLOTS") == "DBK / WARPS" and fd.MMA_WARP_SLOTS == fd.TILE // fd.WARPS
     assert _constant(mma, "MAX_GROUP") == str(fd.MMA_MAX_GROUP)
-    assert "return D > 128 ? 2 : 3;" in mma  # min_blocks: mma_min_blocks
-    assert [fd.mma_min_blocks(d) for d in fd.MMA_HEAD_DIMS] == [3, 2]
-    assert "return STAGES * 2 * DBK * D * 2;" in mma
-    assert "return r * (D * 2) + ((c ^ (r & 7)) << 4);" in mma  # mma_chunk_offset
+    assert "return D > 80 ? 2 : 3;" in mma  # stages: mma_stages
+    assert [fd.mma_stages(d) for d in fd.HEAD_DIMS] == [3, 3, 2, 2]
+    assert "return D % 64 == 0 ? D / 8 : D / 8 + 1;" in mma  # row_chunks: mma_row_chunks
+    assert [fd.mma_row_chunks(d) for d in fd.HEAD_DIMS] == [8, 11, 16, 24]
+    assert "return stages<D>() * 2 * DBK * row_chunks<D>() * 16;" in mma  # mma_smem
+    assert "return SM_SMEM / (smem_bytes<D>() + BLOCK_RESERVED);" in mma  # min_blocks: mma_min_blocks
+    assert [fd.mma_min_blocks(d) for d in fd.HEAD_DIMS] == [4, 3, 3, 2]
+    # mma_chunk_offset: the XOR swizzle where a row is 0 mod 128, else the padded row
+    assert "if constexpr (D % 64 == 0) {\n    return r * (D * 2) + ((c ^ (r & 7)) << 4);" in mma
+    assert "return (r * row_chunks<D>() + c) << 4;" in mma
+    assert mma.count("chunk_offset<D>(") == 4  # the copy (K, V) and the reads (K, V)
     assert "__launch_bounds__(THREADS, min_blocks<D>())" in mma
-    assert "constexpr bool on_mma(int D) { return D == 128 || D == 192; }" in dec
-    assert fd.MMA_HEAD_DIMS == (128, 192)
     ff = dec[dec.index("namespace ffma {"):dec.index("}  // namespace ffma")]
     assert _constant(ff, "TS") == str(fd.FFMA_TILE)
     assert _constant(ff, "WARP_SLOTS") == "TS / WARPS" and fd.FFMA_WARP_SLOTS == fd.FFMA_TILE // fd.WARPS
@@ -946,7 +994,6 @@ def test_plans_match_the_cuda_sources():
     assert "return 2 * TS * row4(d) * 16; }" in ff
     assert "return stages(d) * stage_bytes(d) + 4 * gp * d + 4 * WARPS * WARP_SLOTS * gp;" in ff
     assert "return SM_SMEM / (smem_bytes(d, max_group(d)) + BLOCK_RESERVED);" in ff
-    assert _constant(ff, "SM_SMEM") == f"{fd.SM_SMEM}, BLOCK_RESERVED = {fd.BLOCK_SMEM_RESERVED}"
     assert "__launch_bounds__(THREADS, min_blocks(D))" in ff
     assert "g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : g <= 12 ? 12 : 16;" in ff
     for c in fd.FFMA_HEAD_CLASSES:
