@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import NO_TIMER, resolve_device
 from repro_torch.kernels.lap_auction import (  # noqa: F401  (SYNC_EVERY, loop_syncs: re-exported)
     NEG_INF,
     SYNC_EVERY,
@@ -72,21 +72,24 @@ def _eps_min_tensor(eps_min, n: int, device) -> torch.Tensor:
     return _as_f32(eps_min, device)
 
 
-def _solve(benefit, p0, col0, eps0, eps_min_t, thr, max_iters, use_kernel, tb=None, neg=None):
+def _solve(
+    benefit, p0, col0, eps0, eps_min_t, thr, max_iters, use_kernel, tb=None, neg=None,
+    timer=NO_TIMER,
+):
     """Run the loop on (B, ...) per-instance start state: the kernel
-    (``use_kernel``) or the plain loop.  Returns ``(col_of, prices, iters,
-    eps)``."""
+    (``use_kernel``) or the plain loop.  ``timer``
+    (``repro_torch.device.device_timer``) times the kernel's launch; the
+    plain loop is not timed.  Returns ``(col_of, prices, iters, eps)``."""
     b = benefit.shape[0]
 
     def per_instance(x):
         return x.expand(b).contiguous()
 
-    solve = lap_auction if use_kernel else lap_auction_plain
-    return solve(
-        benefit, p0.contiguous(), col0, per_instance(eps0), per_instance(eps_min_t),
-        per_instance(thr), max_iters, tb=tb,
-        neg=(NEG_INF if use_kernel else _NEG) if neg is None else neg,
-    )
+    args = (p0.contiguous(), col0, per_instance(eps0), per_instance(eps_min_t), per_instance(thr))
+    if use_kernel:
+        neg = NEG_INF if neg is None else neg
+        return lap_auction(benefit, *args, max_iters, tb=tb, neg=neg, timer=timer)
+    return lap_auction_plain(benefit, *args, max_iters, tb=tb, neg=_NEG if neg is None else neg)
 
 
 def _auction_square(
@@ -101,6 +104,7 @@ def _auction_square(
     span: Optional[torch.Tensor] = None,
     tb: Optional[torch.Tensor] = None,
     neg: Optional[float] = None,
+    timer=NO_TIMER,
 ) -> AuctionResult:
     """The square auction on a (B, n, n) batch.  ``init_col_of`` (B, n)
     starts each instance from an explicit assignment (default: all -1); a
@@ -130,7 +134,7 @@ def _auction_square(
         else init_col_of.to(device=dev, dtype=torch.int64)
     )
     col_of, prices, iters, eps = _solve(
-        benefit, p0, col0, eps0, eps_min_t, thr, max_iters, use_kernel, tb, neg
+        benefit, p0, col0, eps0, eps_min_t, thr, max_iters, use_kernel, tb, neg, timer
     )
     # converged = the FULL epsilon schedule completed with everyone assigned
     converged = (col_of >= 0).all(dim=1) & (eps <= thr)
@@ -144,6 +148,7 @@ def _auction_rect(
     use_kernel: bool,
     init_prices: Optional[torch.Tensor],
     neg: Optional[float] = None,
+    timer=NO_TIMER,
 ) -> AuctionResult:
     """Native rectangular forward auction, (B, n, m) with n <= m: a single
     phase at ``eps_min`` (see the JAX module for why no scaling) — the
@@ -162,7 +167,7 @@ def _auction_rect(
     col0 = torch.full((b, n), -1, dtype=torch.int64, device=dev)
     thr = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
     col_of, prices, iters, _ = _solve(
-        benefit, p0, col0, eps, eps, thr, max_iters, use_kernel, neg=neg
+        benefit, p0, col0, eps, eps, thr, max_iters, use_kernel, neg=neg, timer=timer
     )
     converged = (col_of >= 0).all(dim=1)
     return AuctionResult(col_of, _inverse_assignment(col_of, m), prices, iters, converged)
@@ -220,10 +225,12 @@ def auction_lap_batched(
     use_kernel: Optional[bool] = None,
     init_prices=None,
     warm=None,
+    timer=NO_TIMER,
 ) -> AuctionResult:
     """The square auction over a (B, n, n) batch — the Algorithm-2 fan-out.
     Every result field has a leading batch axis; ``init_prices`` (B, n) and
-    ``warm`` (B,) thread last round's price state per instance."""
+    ``warm`` (B,) thread last round's price state per instance; ``timer``
+    (``repro_torch.device.device_timer``) times the loop on the device."""
     benefits, warm = _batch_inputs(benefits, init_prices, warm)
     return _auction_square(
         benefits,
@@ -232,6 +239,7 @@ def auction_lap_batched(
         _resolve_use_kernel(use_kernel, benefits),
         init_prices,
         warm,
+        timer=timer,
     )
 
 
@@ -242,13 +250,15 @@ def auction_lap_rect_batched(
     use_kernel: Optional[bool] = None,
     init_prices=None,
     warm=None,
+    timer=NO_TIMER,
 ) -> AuctionResult:
     """The rectangular forward auction over (B, n, m) benefits, n <= m.
-    Same warm-start contract as :func:`auction_lap_batched`; ``init_prices``
-    is (B, m) and ``warm`` only matters through them."""
+    Same warm-start and ``timer`` contract as :func:`auction_lap_batched`;
+    ``init_prices`` is (B, m) and ``warm`` only matters through them."""
     benefits, _ = _batch_inputs(benefits, init_prices, warm)
     return _auction_rect(
-        benefits, eps_min, max_iters, _resolve_use_kernel(use_kernel, benefits), init_prices
+        benefits, eps_min, max_iters, _resolve_use_kernel(use_kernel, benefits), init_prices,
+        timer=timer,
     )
 
 

@@ -145,7 +145,8 @@ import torch
 
 from repro_torch.core.matching import hungarian
 from repro_torch.core.matching.auction import masked_rect_benefit, masked_square_benefit
-from repro_torch.device import resolve_device
+from repro_torch.device import device_timer, resolve_device
+from repro_torch.obs.tracer import NULL_TRACER, NullTracer
 
 #: Largest instance size solved by brute-force permutation search (k! <= 720).
 SMALLPERM_MAX_K = 6
@@ -1044,31 +1045,82 @@ def _run_auction(
     init_prices: Optional[torch.Tensor],
     warm: Optional[np.ndarray],
     device: torch.device,
+    span=None,
 ):
     """Dispatch a (possibly warm-started) auction solve on ``device``.
     Returns (col_of (B, R), converged (B,), prices (B, C) DEVICE tensor,
     iters (B,)) — only the assignment readout crosses back to host, in one
     transfer; prices stay on device so a context caches them without a
-    round-trip."""
+    round-trip.  A traced ``span`` (``lap.run``) gets the device time of
+    the kernel backend's one ``lap_auction`` launch, read after the
+    readout."""
     from repro_torch.core.matching.auction import (
         auction_lap_batched,
         auction_lap_rect_batched,
     )
 
     solver = auction_lap_rect_batched if rect else auction_lap_batched
-    res = solver(
-        torch.from_numpy(np.ascontiguousarray(benefit, dtype=np.float32)).to(device),
-        max_iters=max_iters,
-        eps_min=eps_min,
-        use_kernel=use_kernel,
-        init_prices=init_prices,
-        warm=None if warm is None else torch.from_numpy(np.asarray(warm, bool)).to(device),
-    )
-    r = res.col_of.shape[1]
-    packed = torch.cat(
-        [res.col_of, res.converged[:, None].long(), res.iters[:, None].long()], dim=1
-    ).cpu().numpy()
+    benefit32 = np.ascontiguousarray(benefit, dtype=np.float32)
+    with device_timer(span, device) as timer:
+        res = solver(
+            torch.from_numpy(benefit32).to(device),
+            max_iters=max_iters,
+            eps_min=eps_min,
+            use_kernel=use_kernel,
+            init_prices=init_prices,
+            warm=None if warm is None else torch.from_numpy(np.asarray(warm, bool)).to(device),
+            timer=timer,
+        )
+        r = res.col_of.shape[1]
+        packed = torch.cat(
+            [res.col_of, res.converged[:, None].long(), res.iters[:, None].long()], dim=1
+        ).cpu().numpy()
     return packed[:, :r], packed[:, r].astype(bool), res.prices, packed[:, r + 1]
+
+
+class _Stages:
+    """The consecutive child spans of one ``lap.solve``: opening a stage
+    closes the one before it, so together they cover the solve.  A stage
+    opened with a ``syncs`` attribute gets, at its close, the context's
+    device-to-host readouts made inside it (``stats["host_syncs"]``)."""
+
+    __slots__ = ("_tracer", "_stats", "_ctx", "_span", "_syncs0")
+
+    def __init__(self, tracer, context: MatchContext):
+        self._tracer = tracer
+        self._stats = context.stats
+        self._ctx = self._span = None
+        self._syncs0 = 0
+
+    def open(self, name: str, **attrs):
+        self.close()
+        self._ctx = self._tracer.span(name, **attrs)
+        self._span = self._ctx.__enter__()
+        self._syncs0 = self._stats["host_syncs"]
+        return self._span
+
+    def close(self) -> None:
+        if self._ctx is None:
+            return
+        if "syncs" in self._span.attrs:
+            self._span.annotate(syncs=self._stats["host_syncs"] - self._syncs0)
+        self._ctx.__exit__(None, None, None)
+        self._ctx = self._span = None
+
+
+class _NoStages:
+    """The untraced stand-in for :class:`_Stages`."""
+
+    __slots__ = ()
+
+    def open(self, name: str, **attrs):
+        return NULL_TRACER.span(name)
+
+    def close(self) -> None:
+        pass
+
+
+_NO_STAGES = _NoStages()
 
 
 # --------------------------------------------------------------------------- #
@@ -1098,7 +1150,13 @@ def solve_lap_batched(
     ``lap.solve`` span annotated with the per-family context-stat deltas
     (memo/warm/cold instances, bid iters, host syncs) and the solve
     outcome — pure host-side bookkeeping over numbers the solve already
-    read back; no extra device work.
+    read back; no extra device work.  Its children split the call into
+    stages: ``lap.prepare`` (validation, benefit, fingerprint upload),
+    ``lap.identity`` (identity match, memo and warm assembly), ``lap.run``
+    (the solver on the instances not memoised; on CUDA with the device
+    time of the auction kernel), ``lap.check`` (readout, cardinality,
+    certificate), ``lap.fallback`` (only when an exact re-solve runs) and
+    ``lap.store`` (the context write-back).
 
     Args:
       costs: (B, N, M) cost batch (host numpy array).  ``+inf`` under
@@ -1159,7 +1217,7 @@ def solve_lap_batched(
     batch = int(costs.shape[0]) if getattr(costs, "ndim", 2) == 3 else 1
     before = dict(context.stats)
     with obs.tracer.span("lap.solve", family=context_key, batch=batch) as sp:
-        res = _solve_lap_batched_impl(costs, **kwargs)
+        res = _solve_lap_batched_impl(costs, tracer=obs.tracer, **kwargs)
         # host-side annotation only: converged/used_fallback are numpy
         # results the solve already transferred
         sp.annotate(
@@ -1192,10 +1250,19 @@ def _solve_lap_batched_impl(
     col_ids: Optional[np.ndarray] = None,
     tie_break: bool = False,
     device=None,
+    tracer=NULL_TRACER,
 ) -> BatchedMatchResult:
     """The batched-LAP engine body — see :func:`solve_lap_batched` for the
-    full contract (the public name is a thin tracing wrapper)."""
+    full contract (the public name is a thin tracing wrapper; ``tracer``
+    gets the stage spans under its ``lap.solve``)."""
     t0 = time.perf_counter()
+    stages = (
+        _NO_STAGES
+        if context is None or isinstance(tracer, NullTracer)
+        else _Stages(tracer, context)
+    )
+    traced = stages is not _NO_STAGES
+    stages.open("lap.prepare")
     costs = np.asarray(costs, dtype=np.float64)
     if costs.ndim == 2:
         costs = costs[None]
@@ -1232,6 +1299,7 @@ def _solve_lap_batched_impl(
             f"unknown LAP backend {backend!r}; registered: {available_backends()}"
         )
     if b == 0 or n == 0 or m == 0:
+        stages.close()
         return BatchedMatchResult(
             np.full((b, n), -1, np.int64),
             np.zeros(b),
@@ -1303,6 +1371,8 @@ def _solve_lap_batched_impl(
         if cand is not None and cand.transposed == transposed and cand.rect == rect:
             entry = cand
 
+    sp = stages.open("lap.identity", syncs=0)
+
     memo_b = np.zeros(b, bool)
     warm_result = np.zeros(b, bool)
     warm_solver = np.zeros(b, bool)
@@ -1364,7 +1434,10 @@ def _solve_lap_batched_impl(
             context.stats["memo_instances"] += b
             context.stats["warm_instances"] += b
             context.stats["memo_hits"] += 1
+            sp.annotate(memo=b, warm=b)
+            stages.open("lap.check", syncs=0)
             col_of, total, _ = _extract(costs, entry.final_col_of, row_mask, col_mask)
+            stages.close()
             return BatchedMatchResult(
                 col_of,
                 total,
@@ -1472,8 +1545,11 @@ def _solve_lap_batched_impl(
     if stale is not None:
         solve_mask = ~memo_b
         context.stats["rows_invalidated"] += int((stale & solve_mask[:, None]).sum())
+    if traced:
+        sp.annotate(memo=int(memo_b.sum()), warm=int(warm_result.sum()))
 
     if sidx.size:
+        sp = stages.open("lap.run", instances=int(sidx.size), syncs=0)
         sub_ben = oriented[sidx]
         if approx:
             ip_sub = warm_sub = None
@@ -1489,6 +1565,7 @@ def _solve_lap_batched_impl(
                 init_prices=ip_sub,
                 warm=warm_sub,
                 device=dev,
+                span=sp,
             )
             col_solve_full[sidx] = col_solve_sub
             converged[sidx] = conv_sub
@@ -1500,6 +1577,7 @@ def _solve_lap_batched_impl(
             col_solve_full[sidx] = col_solve_sub
             converged[sidx] = conv_sub
 
+    stages.open("lap.check", syncs=0)
     col_full = _to_orig_cols(col_solve_full, transposed, n, m)
     if col_of_memo is not None:
         # memoised instances reuse the FINAL cached assignment (which may
@@ -1522,6 +1600,7 @@ def _solve_lap_batched_impl(
     if needs_fallback.any() and approx:
         fb = _pick_exact() if rect else _pick_auto(size)
         idx = np.nonzero(needs_fallback)[0]
+        sp = stages.open("lap.fallback", instances=int(idx.size))
         fb_solve, _ = _BACKENDS[fb](oriented[idx], None, None)
         fb_res, fb_total, fb_complete = _extract(
             costs[idx],
@@ -1555,8 +1634,10 @@ def _solve_lap_batched_impl(
         col_of[sel] = fb_res[adopt]
         total[sel] = fb_total[adopt]
         used_fallback[sel] = True
+        sp.annotate(adopted=int(sel.size))
 
     if context is not None:
+        stages.open("lap.store", syncs=0)
         context.stats["bid_iters"] += int(bid_iters.sum())
         prices_full = None
         if approx:
@@ -1603,6 +1684,7 @@ def _solve_lap_batched_impl(
                 ids_dev=_ids_to_device(inst, rids, cids, dev),
             ),
         )
+        stages.close()
 
     return BatchedMatchResult(
         col_of,

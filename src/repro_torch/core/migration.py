@@ -42,8 +42,9 @@ import numpy as np
 from repro_torch.core.cluster import EMPTY, MAX_PACK, PlacementPlan, count_migrations
 from repro_torch.core.matching import MatchContext, solve_lap, solve_lap_batched
 from repro_torch.core.matching.engine import APPROX_BACKENDS
-from repro_torch.device import resolve_device
+from repro_torch.device import device_timer, resolve_device
 from repro_torch.kernels.ops import migration_cost_matrix
+from repro_torch.obs.tracer import NULL_TRACER
 
 
 # --------------------------------------------------------------------------- #
@@ -222,13 +223,22 @@ def node_level_matching(
 
 
 def _gpu_pair_costs(
-    slots_u: np.ndarray, slots_v: np.ndarray, weights: np.ndarray, device
+    slots_u: np.ndarray,
+    slots_v: np.ndarray,
+    weights: np.ndarray,
+    device,
+    tracer=NULL_TRACER,
 ) -> np.ndarray:
     """(U, V) GPU-pair cost matrix of two (U, MAX_PACK) / (V, MAX_PACK) slot
     lists, built on ``device`` (the ``migration_cost`` kernel on CUDA, its
     plain version on the CPU) and read back once as host f64 — the engine
-    takes host arrays at its entry."""
-    return migration_cost_matrix(slots_u, slots_v, weights, device).cpu().numpy()
+    takes host arrays at its entry.  ``tracer`` gets a ``migrate.cost``
+    span from the uploads to the host matrix, with the kernel's device time
+    on CUDA."""
+    with tracer.span("migrate.cost", syncs=1) as sp:
+        with device_timer(sp, device) as timer:
+            cost = migration_cost_matrix(slots_u, slots_v, weights, device, timer)
+            return cost.cpu().numpy()
 
 
 # --------------------------------------------------------------------------- #
@@ -261,6 +271,7 @@ def plan_migration(
     down_nodes: Optional[np.ndarray] = None,
     speed_factor: Optional[np.ndarray] = None,
     device=None,
+    tracer=NULL_TRACER,
 ) -> MigrationResult:
     """Compute the relabelling that minimises migrations, then apply it to
     the *full* new plan (jobs unique to one round are excluded from the cost
@@ -292,10 +303,14 @@ def plan_migration(
     same matching objective whenever healthy spare capacity makes the
     move worthwhile.  ``device`` builds the Algorithm-3 cost matrix and
     runs the auction solves (default: the context's device, else CUDA).
+
+    ``tracer`` gets the stages as spans: ``migrate.prepare`` (the plans
+    restricted to the common jobs, the weight table), ``migrate.cost`` (K5
+    and its read-back), the engine's ``lap.solve`` spans, and
+    ``migrate.assemble`` (the physical plan and its migration count).
     """
     t0 = time.perf_counter()
     cluster = prev.cluster
-    occupied_logical = (new_logical.slots != EMPTY).any(axis=(1, 2))
     if algorithm == "none":
         phys = new_logical.copy()
         n_mig = count_migrations(prev, phys)
@@ -303,19 +318,21 @@ def plan_migration(
             phys, n_mig, float(n_mig), None, time.perf_counter() - t0, algorithm
         )
 
-    common = prev.job_ids() & new_logical.job_ids()
-    pi = prev.restricted_to(common)
-    pj = new_logical.restricted_to(common)
-    weights = _weight_lookup(num_gpus_of)
-    if device is not None or context is None:
-        dev = resolve_device(device)
-    else:
-        dev = context.device
+    with tracer.span("migrate.prepare"):
+        occupied_logical = (new_logical.slots != EMPTY).any(axis=(1, 2))
+        common = prev.job_ids() & new_logical.job_ids()
+        pi = prev.restricted_to(common)
+        pj = new_logical.restricted_to(common)
+        weights = _weight_lookup(num_gpus_of)
+        if device is not None or context is None:
+            dev = resolve_device(device)
+        else:
+            dev = context.device
 
     if algorithm == "flat":
         flat_i = pi.slots.reshape(-1, MAX_PACK)
         flat_j = pj.slots.reshape(-1, MAX_PACK)
-        cost = _gpu_pair_costs(flat_i, flat_j, weights, dev)
+        cost = _gpu_pair_costs(flat_i, flat_j, weights, dev, tracer=tracer)
         pen = _relabel_penalties(
             cluster, down_nodes, occupied_logical, speed_factor
         )
@@ -335,15 +352,16 @@ def plan_migration(
             tie_break=tie_break,
             device=dev,
         )
-        gpu_of_logical = np.empty(cluster.num_gpus, dtype=np.int64)
-        gpu_of_logical[cols] = rows
-        phys_slots = np.full_like(new_logical.slots, EMPTY)
-        flat_new = new_logical.slots.reshape(-1, MAX_PACK)
-        phys_flat = phys_slots.reshape(-1, MAX_PACK)
-        for v in range(cluster.num_gpus):
-            phys_flat[gpu_of_logical[v]] = flat_new[v]
-        phys = PlacementPlan(cluster, phys_slots)
-        n_mig = count_migrations(prev, phys)
+        with tracer.span("migrate.assemble"):
+            gpu_of_logical = np.empty(cluster.num_gpus, dtype=np.int64)
+            gpu_of_logical[cols] = rows
+            phys_slots = np.full_like(new_logical.slots, EMPTY)
+            flat_new = new_logical.slots.reshape(-1, MAX_PACK)
+            phys_flat = phys_slots.reshape(-1, MAX_PACK)
+            for v in range(cluster.num_gpus):
+                phys_flat[gpu_of_logical[v]] = flat_new[v]
+            phys = PlacementPlan(cluster, phys_slots)
+            n_mig = count_migrations(prev, phys)
         return MigrationResult(
             phys,
             n_mig,
@@ -367,7 +385,11 @@ def plan_migration(
     # whole (kc*kl) x (kc*kl) GPU-pair matrix, viewed per node pair.
     all_costs = (
         _gpu_pair_costs(
-            pi.slots.reshape(-1, MAX_PACK), pj.slots.reshape(-1, MAX_PACK), weights, dev
+            pi.slots.reshape(-1, MAX_PACK),
+            pj.slots.reshape(-1, MAX_PACK),
+            weights,
+            dev,
+            tracer=tracer,
         )
         .reshape(kc, kl, kc, kl)
         .transpose(0, 2, 1, 3)
@@ -396,8 +418,6 @@ def plan_migration(
     )
     if pen is not None:
         node_cost = node_cost + pen
-    # res.col_of[b, u] = v  ->  gpu_assign[.., v] = u
-    gpu_assign = np.argsort(res.col_of, axis=-1).reshape(kc, kc, kl)
     n_rows, n_cols = solve_lap(
         node_cost * scale,
         backend=backend,
@@ -408,17 +428,20 @@ def plan_migration(
         tie_break=tie_break,
         device=dev,
     )
-    node_assignment = np.empty(kc, dtype=np.int64)
-    node_assignment[n_cols] = n_rows  # logical node l -> physical node k
+    with tracer.span("migrate.assemble"):
+        # res.col_of[b, u] = v  ->  gpu_assign[.., v] = u
+        gpu_assign = np.argsort(res.col_of, axis=-1).reshape(kc, kc, kl)
+        node_assignment = np.empty(kc, dtype=np.int64)
+        node_assignment[n_cols] = n_rows  # logical node l -> physical node k
 
-    phys_slots = np.full_like(new_logical.slots, EMPTY)
-    for l in range(kc):
-        k = node_assignment[l]
-        for v in range(kl):
-            u = gpu_assign[k, l, v]
-            phys_slots[k, u] = new_logical.slots[l, v]
-    phys = PlacementPlan(cluster, phys_slots)
-    n_mig = count_migrations(prev, phys)
+        phys_slots = np.full_like(new_logical.slots, EMPTY)
+        for l in range(kc):
+            k = node_assignment[l]
+            for v in range(kl):
+                u = gpu_assign[k, l, v]
+                phys_slots[k, u] = new_logical.slots[l, v]
+        phys = PlacementPlan(cluster, phys_slots)
+        n_mig = count_migrations(prev, phys)
     return MigrationResult(
         phys,
         n_mig,

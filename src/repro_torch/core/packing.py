@@ -31,6 +31,7 @@ import numpy as np
 from repro_torch.core.jobs import JobState
 from repro_torch.core.matching import MatchContext, solve_lap_batched
 from repro_torch.core.profiler import ThroughputProfile
+from repro_torch.obs.tracer import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -130,6 +131,7 @@ def pack_jobs(
     context: Optional[MatchContext] = None,
     placed_gpu_types: Optional[Sequence[str]] = None,
     tie_break: bool = False,
+    tracer=NULL_TRACER,
 ) -> PackingResult:
     """Algorithm 4.
 
@@ -145,16 +147,23 @@ def pack_jobs(
     re-assembles last round's auction prices for the surviving jobs
     instead of cold-starting the whole matrix, and an unchanged graph
     memo-hits outright.
+
+    ``tracer`` gets a ``pack.graph`` span (the benefit matrix and the
+    identities) and a ``pack.apply`` span (the walk over the matches)
+    around the solve's ``lap.solve``.
     """
     t0 = time.perf_counter()
     if not placed or not pending:
         return PackingResult({}, {}, 0.0, time.perf_counter() - t0, 0)
-    w = build_packing_graph(
-        placed, pending, profile, optimize_strategy, packed_ok, placed_gpu_types
-    )
-    num_edges = int((w > 0).sum())
-    if num_edges == 0:
-        return PackingResult({}, {}, 0.0, time.perf_counter() - t0, 0)
+    with tracer.span("pack.graph"):
+        w = build_packing_graph(
+            placed, pending, profile, optimize_strategy, packed_ok, placed_gpu_types
+        )
+        num_edges = int((w > 0).sum())
+        if num_edges == 0:
+            return PackingResult({}, {}, 0.0, time.perf_counter() - t0, 0)
+        row_ids = np.array([u.job_id for u in placed], np.int64)
+        col_ids = np.array([v.job_id for v in pending], np.int64)
     rows, cols = solve_lap_batched(
         w[None],
         maximize=True,
@@ -162,29 +171,30 @@ def pack_jobs(
         context=context,
         context_key="packing",
         instance_ids=np.zeros(1, np.int64),
-        row_ids=np.array([u.job_id for u in placed], np.int64),
-        col_ids=np.array([v.job_id for v in pending], np.int64),
+        row_ids=row_ids,
+        col_ids=col_ids,
         tie_break=tie_break,
     ).pairs(0)
     matches: Dict[int, int] = {}
     strategies: Dict[int, str] = {}
     total = 0.0
-    for i, j in zip(rows, cols):
-        if w[i, j] <= 0.0:
-            continue  # zero-weight assignment = leave unpacked
-        u, v = placed[i], pending[j]
-        matches[v.job_id] = u.job_id
-        prof_u = (
-            profile
-            if placed_gpu_types is None
-            else profile.for_gpu_type(placed_gpu_types[i])
-        )
-        _, s = prof_u.combined_weight(
-            u.spec.model, v.spec.model, optimize_strategy=optimize_strategy
-        )
-        if s != "dp":
-            strategies[u.job_id] = s
-        total += w[i, j]
+    with tracer.span("pack.apply"):
+        for i, j in zip(rows, cols):
+            if w[i, j] <= 0.0:
+                continue  # zero-weight assignment = leave unpacked
+            u, v = placed[i], pending[j]
+            matches[v.job_id] = u.job_id
+            prof_u = (
+                profile
+                if placed_gpu_types is None
+                else profile.for_gpu_type(placed_gpu_types[i])
+            )
+            _, s = prof_u.combined_weight(
+                u.spec.model, v.spec.model, optimize_strategy=optimize_strategy
+            )
+            if s != "dp":
+                strategies[u.job_id] = s
+            total += w[i, j]
     return PackingResult(
         matches, strategies, float(total), time.perf_counter() - t0, num_edges
     )

@@ -285,10 +285,12 @@ class TesseraeScheduler:
                     context=self.match_context,
                     placed_gpu_types=placed_types,
                     tie_break=self.tie_break,
+                    tracer=tracer,
                 )
                 if packing.matches:
-                    placed_lookup = {j.job_id: j for j in placed}
-                    plan = apply_packing(plan, packing.matches, placed_lookup)
+                    with tracer.span("pack.apply"):
+                        placed_lookup = {j.job_id: j for j in placed}
+                        plan = apply_packing(plan, packing.matches, placed_lookup)
             else:
                 packing = PackingResult({}, {}, 0.0, 0.0, 0)
             sp_pack.annotate(matches=len(packing.matches))
@@ -347,6 +349,7 @@ class TesseraeScheduler:
                         down_nodes=down,
                         speed_factor=speed,
                         device=self.device,
+                        tracer=tracer,
                     )
                     sp_mig.annotate(migrations=migration.num_migrations)
             plan = migration.physical_plan

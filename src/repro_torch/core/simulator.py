@@ -222,7 +222,7 @@ class SimResult:
         if lat:
             # SLO telemetry for the online-serving arc: exact nearest-rank
             # percentiles of per-round decide() wall time
-            h = self.metrics.histogram("decide.latency_s", timing=True)
+            h = self.metrics.histogram("decide.latency_s")
             d["decide_p50_s"] = h.percentile(50)
             d["decide_p99_s"] = h.percentile(99)
         return d
@@ -405,19 +405,20 @@ class Simulator:
 
                 self._apply_events(st)
 
-                active = [
-                    s
-                    for s in st.states.values()
-                    if s.spec.arrival_time <= st.now
-                    and s.eligible_time <= st.now
-                    and not s.finished
-                ]
-                waiting = [
-                    s
-                    for s in st.states.values()
-                    if not s.finished
-                    and (s.spec.arrival_time > st.now or s.eligible_time > st.now)
-                ]
+                with tracer.span("sim.scan"):
+                    active = [
+                        s
+                        for s in st.states.values()
+                        if s.spec.arrival_time <= st.now
+                        and s.eligible_time <= st.now
+                        and not s.finished
+                    ]
+                    waiting = [
+                        s
+                        for s in st.states.values()
+                        if not s.finished
+                        and (s.spec.arrival_time > st.now or s.eligible_time > st.now)
+                    ]
                 if not active and not waiting:
                     break
                 if not active:
@@ -502,19 +503,21 @@ class Simulator:
                     )
                     sp_round.annotate(degrade=decision.degrade_reason)
 
-                plan_map = decision.plan.job_gpu_map()
-                st.prev_gpus = dict(plan_map)
-                st.prev_plan = decision.plan.restricted_to(
-                    [j for j in plan_map if not st.states[j].finished]
-                )
+                with tracer.span("sim.handover"):
+                    plan_map = decision.plan.job_gpu_map()
+                    st.prev_gpus = dict(plan_map)
+                    st.prev_plan = decision.plan.restricted_to(
+                        [j for j in plan_map if not st.states[j].finished]
+                    )
                 st.now += cfg.round_duration_s
                 st.rounds += 1
                 rounds_this_call += 1
 
                 if self.round_hook is not None:
-                    self.round_hook(
-                        st.rounds, st.now, decision, st.states, st.health
-                    )
+                    with tracer.span("sim.hook"):
+                        self.round_hook(
+                            st.rounds, st.now, decision, st.states, st.health
+                        )
 
                 if executor is not None:
                     # The round has advanced, so the NEXT round's active
@@ -541,15 +544,16 @@ class Simulator:
                         )
 
                 # contention bookkeeping for FTF
-                demand = sum(j.num_gpus for j in active)
-                ratio = demand / self.cluster.num_gpus
-                for j in active:
-                    st.contention_num[j.job_id] = (
-                        st.contention_num.get(j.job_id, 0.0) + ratio
-                    )
-                    st.contention_den[j.job_id] = (
-                        st.contention_den.get(j.job_id, 0.0) + 1.0
-                    )
+                with tracer.span("sim.contention"):
+                    demand = sum(j.num_gpus for j in active)
+                    ratio = demand / self.cluster.num_gpus
+                    for j in active:
+                        st.contention_num[j.job_id] = (
+                            st.contention_num.get(j.job_id, 0.0) + ratio
+                        )
+                        st.contention_den[j.job_id] = (
+                            st.contention_den.get(j.job_id, 0.0) + 1.0
+                        )
 
                 if (
                     stop_after_rounds is not None
@@ -603,9 +607,8 @@ class Simulator:
         loop already holds on the host — no device reads, no decision
         inputs touched.  ``match_stats`` keys land as ``match.*`` counters
         (so ``SimResult``'s views re-derive the legacy aggregates), the
-        per-round warm/bid-iter series as exact histograms, and the stage
-        wall times as timing histograms (excluded from deterministic
-        snapshots)."""
+        per-round warm/bid-iter series and the stage wall times as exact
+        histograms."""
         m = self._metrics
         m.counter("sim.rounds").inc()
         m.counter("sim.degrade." + decision.degrade_reason).inc()
@@ -620,11 +623,11 @@ class Simulator:
                 + decision.match_stats.get("fused_bid_iters", 0)
             )
         )
-        m.histogram("decide.latency_s", timing=True).observe(
+        m.histogram("decide.latency_s").observe(
             decision.total_overhead_s
         )
         for k, v in decision.timings.items():
-            m.histogram("decide.stage." + k, timing=True).observe(v)
+            m.histogram("decide.stage." + k).observe(v)
 
     def _reseed_metrics(self, st: _SimState) -> None:
         """Rebuild the registry's deterministic content from a restored

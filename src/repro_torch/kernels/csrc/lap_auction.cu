@@ -636,6 +636,11 @@ cudaError_t dispatch_warp(int group, const float* a, const float* tb, const floa
 #undef LAP_AUCTION_WARP
 }
 
+// records ev (a cudaEvent_t, or null for none) on the stream
+cudaError_t record(void* ev, cudaStream_t s) {
+  return ev == nullptr ? cudaSuccess : cudaEventRecord((cudaEvent_t)ev, s);
+}
+
 }  // namespace
 
 // a (B, n, m) f32 (a COST matrix when fused, with tb (B,)); p0 (B, m) f32;
@@ -645,14 +650,16 @@ cudaError_t dispatch_warp(int group, const float* a, const float* tb, const floa
 // cluster regime, CTAs of rows_per_cta rows each with smem bytes of dynamic
 // shared memory; both 0 the wide regime, one CTA per instance working in
 // scratch (wide_scratch bytes of device memory).  The wrapper's plan is
-// checked against this file's.
+// checked against this file's.  ev_start / ev_end, when not null, are CUDA
+// events recorded on the stream right before and right after the launch
+// (a traced span's device timer).
 extern "C" int lap_auction(const void* a, const void* tb, const void* p0, const void* col0,
                            const void* eps0, const void* eps_min, const void* thr,
                            void* col_out, void* p_out, void* it_out, void* eps_out,
                            long long batch, long long n, long long m, long long max_iters,
                            double neg, int fused, int group, int cluster, int rows_per_cta,
                            int threads, int smem_rows, long long smem, void* scratch,
-                           void* stream) {
+                           void* stream, void* ev_start, void* ev_end) {
   if (batch <= 0 || n <= 0 || m < n || max_iters < 0 || max_iters > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -674,6 +681,7 @@ extern "C" int lap_auction(const void* a, const void* tb, const void* p0, const 
     while (want < m) want *= 2;
     if (group != want || group > 32 || threads != kWarpThreads || cluster != 0)
       return (int)cudaErrorInvalidValue;  // the plan and this file disagree
+    if ((e = record(ev_start, s)) != cudaSuccess) return (int)e;
     e = fused ? dispatch_warp<true>(group, A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch,
                                     (int)n, (int)m, (int)max_iters, ng, s)
               : dispatch_warp<false>(group, A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch,
@@ -683,6 +691,7 @@ extern "C" int lap_auction(const void* a, const void* tb, const void* p0, const 
         scratch == nullptr || batch > INT_MAX)
       return (int)cudaErrorInvalidValue;  // the plan and this file disagree
     unsigned char* SC = (unsigned char*)scratch;
+    if ((e = record(ev_start, s)) != cudaSuccess) return (int)e;
     e = fused ? launch_wide<true>(A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch, (int)n,
                                   (int)m, (int)max_iters, ng, SC, s)
               : launch_wide<false>(A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch, (int)n,
@@ -692,6 +701,7 @@ extern "C" int lap_auction(const void* a, const void* tb, const void* p0, const 
         threads != kClusterThreads || (long long)rows_per_cta * cluster < n ||
         smem != cluster_smem(m, rows_per_cta, smem_rows != 0))
       return (int)cudaErrorInvalidValue;  // the plan and this file disagree
+    if ((e = record(ev_start, s)) != cudaSuccess) return (int)e;
     e = fused ? launch_cluster<true>(A, TB, P0, C0, E0, EM, TH, CO, PO, IO, EO, batch, (int)n,
                                      (int)m, (int)max_iters, ng, cluster, rows_per_cta,
                                      smem_rows, (size_t)smem, s)
@@ -700,5 +710,6 @@ extern "C" int lap_auction(const void* a, const void* tb, const void* p0, const 
                                       smem_rows, (size_t)smem, s);
   }
   if (e != cudaSuccess) return (int)e;
+  if ((e = record(ev_end, s)) != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -122,12 +122,14 @@ migration_cost_kernel(const int* __restrict__ su, const int* __restrict__ sv,
 
 // grid (grid_x, grid_y) of blocks (tx, ty), each thread taking `rows` rows
 // (1, 2, 4 or 8) of each row tile; cudaErrorInvalidValue where that does
-// not cover the (U, V) output.
+// not cover the (U, V) output.  ev_start / ev_end, when not null, are CUDA
+// events recorded on the stream right before and right after the launch
+// (a traced span's device timer).
 extern "C" int migration_cost(const void* slots_u, const void* slots_v,
                               const void* w_u, const void* w_v, void* out,
                               long long U, long long V, int tx, int ty, int rows,
                               long long row_tiles, long long grid_x, long long grid_y,
-                              void* stream) {
+                              void* stream, void* ev_start, void* ev_end) {
   const bool covers = tx >= 1 && ty >= 1 && tx * ty <= kMaxThreads && grid_x >= 1 &&
                       grid_x <= INT_MAX && grid_y >= 1 && grid_y <= 65535 &&
                       grid_x * tx * 2 >= V && row_tiles * ty * rows >= U;
@@ -140,8 +142,15 @@ extern "C" int migration_cost(const void* slots_u, const void* slots_v,
     case 8: kernel = migration_cost_kernel<8>; break;
   }
   if (!covers || kernel == nullptr) return (int)cudaErrorInvalidValue;
-  kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), dim3(tx, ty), 0, (cudaStream_t)stream>>>(
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (ev_start != nullptr && (e = cudaEventRecord((cudaEvent_t)ev_start, s)) != cudaSuccess)
+    return (int)e;
+  kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), dim3(tx, ty), 0, s>>>(
       (const int*)slots_u, (const int*)slots_v, (const double*)w_u, (const double*)w_v,
       (double*)out, U, V, row_tiles);
-  return (int)cudaGetLastError();
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (ev_end != nullptr && (e = cudaEventRecord((cudaEvent_t)ev_end, s)) != cudaSuccess)
+    return (int)e;
+  return (int)cudaSuccess;
 }

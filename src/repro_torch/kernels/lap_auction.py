@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import NO_TIMER
 from repro_torch.kernels import build
 from repro_torch.kernels.lap_bid import NEG_INF, fused_benefit
 
@@ -269,7 +270,8 @@ def _check(a, prices, col_of, eps, eps_min, thr, tb) -> None:
 
 
 def lap_auction(
-    a, prices, col_of, eps, eps_min, thr, max_iters: int, tb=None, neg=NEG_INF, plan=None
+    a, prices, col_of, eps, eps_min, thr, max_iters: int, tb=None, neg=NEG_INF, plan=None,
+    timer=NO_TIMER,
 ):
     """The whole auction over ``a`` (B, n, m), n <= m (see the module
     docstring for the arguments).  Returns ``(col_of (B, n) int64, prices
@@ -279,6 +281,8 @@ def lap_auction(
     ``lap_auction.launches``) as ``plan`` says (default
     :func:`launch_plan`'s; the card tests pass others to reach each layout);
     CPU tensors take :func:`lap_auction_plain`.  Any other device raises.
+    ``timer`` (``repro_torch.device.device_timer``) hands the C entry its
+    event pair, recorded right before and right after the launch.
     """
     _check(a, prices, col_of, eps, eps_min, thr, tb)
     if a.device.type == "cpu":
@@ -305,7 +309,7 @@ def lap_auction(
     fn = build.library("lap_auction").lap_auction
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 4 + [ctypes.c_double] + [
         ctypes.c_int
-    ] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    ] * 6 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -315,7 +319,7 @@ def lap_auction(
             col_out.data_ptr(), p_out.data_ptr(), it_out.data_ptr(), eps_out.data_ptr(),
             b, n, m, max_iters, float(neg), int(tb is not None), plan.group, plan.cluster,
             plan.rows_per_cta, plan.threads, int(plan.smem_rows), plan.smem,
-            None if scratch is None else scratch.data_ptr(), stream,
+            None if scratch is None else scratch.data_ptr(), stream, *timer.handles(),
         )
     build.check(err, "lap_auction")
     lap_auction.launches += 1

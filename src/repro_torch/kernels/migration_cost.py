@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.device import NO_TIMER
 from repro_torch.kernels import build
 
 #: slots per GPU the kernel is unrolled for (core.cluster.MAX_PACK)
@@ -126,10 +127,12 @@ def _check(slots_u, slots_v, w_u, w_v) -> None:
         raise ValueError(f"migration_cost: operands on several devices {devs}")
 
 
-def migration_cost(slots_u, slots_v, w_u, w_v) -> torch.Tensor:
+def migration_cost(slots_u, slots_v, w_u, w_v, timer=NO_TIMER) -> torch.Tensor:
     """(U, V) f64 cost matrix.  CUDA tensors launch the kernel (P must be 2;
     counted in ``migration_cost.launches``); CPU tensors take
-    :func:`migration_cost_plain`.  Any other device raises."""
+    :func:`migration_cost_plain`.  Any other device raises.  ``timer``
+    (``repro_torch.device.device_timer``) hands the C entry its event pair,
+    recorded right before and right after the launch."""
     _check(slots_u, slots_v, w_u, w_v)
     dev = slots_u.device
     if dev.type == "cpu":
@@ -148,13 +151,14 @@ def migration_cost(slots_u, slots_v, w_u, w_v) -> torch.Tensor:
     slots_u, slots_v, w_u, w_v = (_aligned(t) for t in (slots_u, slots_v, w_u, w_v))
     fn = build.library("migration_cost").migration_cost
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             slots_u.data_ptr(), slots_v.data_ptr(), w_u.data_ptr(), w_v.data_ptr(),
             out.data_ptr(), u, v, *geo.block, geo.rows, geo.row_tiles, *geo.grid, stream,
+            *timer.handles(),
         )
     build.check(err, "migration_cost")
     migration_cost.launches += 1

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import NO_TIMER
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import lap_auction as _la
@@ -92,14 +93,15 @@ def slot_weights(slots: np.ndarray, weights: np.ndarray) -> np.ndarray:
 
 
 def migration_cost_matrix(
-    slots_u: np.ndarray, slots_v: np.ndarray, weights: np.ndarray, device
+    slots_u: np.ndarray, slots_v: np.ndarray, weights: np.ndarray, device, timer=NO_TIMER
 ) -> torch.Tensor:
     """Algorithm-3 cost matrix on ``device``.
 
     ``slots_u`` / ``slots_v``: host (U, P) / (V, P) integer job ids (-1
     empty); ``weights``: host f64 lookup ``job id -> 1/(2*num_gpus)``.
     Returns the (U, V) float64 tensor on ``device`` (kernel on CUDA, plain
-    version on the CPU).
+    version on the CPU).  ``timer`` (``repro_torch.device.device_timer``)
+    times the kernel's launch.
     """
     slots_u = np.asarray(slots_u)
     slots_v = np.asarray(slots_v)
@@ -122,6 +124,7 @@ def migration_cost_matrix(
         dev(slots_v, np.int32),
         dev(slot_weights(slots_u, weights), np.float64),
         dev(slot_weights(slots_v, weights), np.float64),
+        timer=timer,
     )
 
 

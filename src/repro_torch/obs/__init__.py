@@ -3,8 +3,10 @@
 Opt-in (``obs=None`` everywhere by default) and provably inert: with obs
 disabled every instrumented call site routes through no-op singletons
 and the decision sequence is bit-identical to the uninstrumented path;
-with obs enabled, only host-side Python bookkeeping runs — no device
-reads, no decision inputs touched.
+with obs enabled, host-side Python bookkeeping runs, and on CUDA a pair
+of timing events around each timed kernel launch
+(``repro_torch.device.device_timer``) — no added device read or
+synchronisation, no decision inputs touched.
 
 Entry point::
 
@@ -27,11 +29,8 @@ from repro_torch.obs.tracer import NULL_TRACER, NullTracer, Span, Tracer, tracer
 from repro_torch.obs.trace_export import (
     OBS_SCHEMA_VERSION,
     to_chrome_trace,
-    to_obs_doc,
     validate_chrome_trace,
-    validate_obs_doc,
     write_chrome_trace,
-    write_obs_doc,
 )
 
 __all__ = [
@@ -47,9 +46,6 @@ __all__ = [
     "tracer_of",
     "OBS_SCHEMA_VERSION",
     "to_chrome_trace",
-    "to_obs_doc",
     "validate_chrome_trace",
-    "validate_obs_doc",
     "write_chrome_trace",
-    "write_obs_doc",
 ]

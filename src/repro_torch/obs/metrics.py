@@ -10,10 +10,6 @@ so a few thousand floats at most) and compute nearest-rank percentiles —
 p50/p95/p99 are exact order statistics, not bucket interpolations, which
 is what lets the tests pin them on known distributions.
 
-A histogram created with ``timing=True`` is excluded from
-:meth:`MetricsRegistry.deterministic_snapshot` — wall-clock latencies
-are never part of bit-identity or CI gating.
-
 stdlib only; see :mod:`repro_torch.obs.tracer` for the contract.
 """
 
@@ -21,7 +17,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 
 class Counter:
@@ -49,13 +45,10 @@ class Gauge:
 class Histogram:
     """Exact-observation histogram with nearest-rank percentiles."""
 
-    __slots__ = ("name", "timing", "values")
+    __slots__ = ("name", "values")
 
-    def __init__(self, name: str, timing: bool = False):
+    def __init__(self, name: str):
         self.name = name
-        #: timing histograms hold wall-clock observations and are excluded
-        #: from deterministic snapshots / CI gates
-        self.timing = timing
         self.values: List[float] = []
 
     def observe(self, value: float) -> None:
@@ -80,19 +73,6 @@ class Histogram:
         ordered = sorted(self.values)
         rank = max(1, math.ceil(p / 100.0 * len(ordered)))
         return ordered[rank - 1]
-
-    def summary(self) -> Dict[str, float]:
-        if not self.values:
-            return {"count": 0}
-        return {
-            "count": self.count,
-            "total": self.total,
-            "min": min(self.values),
-            "max": max(self.values),
-            "p50": self.percentile(50),
-            "p95": self.percentile(95),
-            "p99": self.percentile(99),
-        }
 
 
 class MetricsRegistry:
@@ -124,11 +104,11 @@ class MetricsRegistry:
                 g = self._gauges[name] = Gauge(name)
             return g
 
-    def histogram(self, name: str, timing: bool = False) -> Histogram:
+    def histogram(self, name: str) -> Histogram:
         with self._lock:
             h = self._histograms.get(name)
             if h is None:
-                h = self._histograms[name] = Histogram(name, timing=timing)
+                h = self._histograms[name] = Histogram(name)
             return h
 
     # -- read-only views ------------------------------------------------ #
@@ -147,31 +127,6 @@ class MetricsRegistry:
     def histogram_values(self, name: str) -> List[float]:
         h = self._histograms.get(name)
         return list(h.values) if h is not None else []
-
-    # -- snapshots ------------------------------------------------------ #
-    def snapshot(self) -> Dict[str, Any]:
-        """Everything, timing histograms summarised alongside the rest."""
-        return {
-            "counters": {n: c.value for n, c in sorted(self._counters.items())},
-            "gauges": {n: g.value for n, g in sorted(self._gauges.items())},
-            "histograms": {
-                n: h.summary() for n, h in sorted(self._histograms.items())
-            },
-        }
-
-    def deterministic_snapshot(self) -> Dict[str, Any]:
-        """The snapshot minus wall-clock content: counters, gauges and
-        non-timing histograms only.  Two identical seeded runs produce
-        equal deterministic snapshots; this is what CI gates compare."""
-        return {
-            "counters": {n: c.value for n, c in sorted(self._counters.items())},
-            "gauges": {n: g.value for n, g in sorted(self._gauges.items())},
-            "histograms": {
-                n: h.summary()
-                for n, h in sorted(self._histograms.items())
-                if not h.timing
-            },
-        }
 
     def reset(self) -> None:
         with self._lock:

@@ -34,9 +34,14 @@ class Span:
     """One node of the span tree.  Attribute values must be JSON-safe
     (ints/floats/strs/bools/lists) — they are part of the deterministic
     fingerprint, so only put *decision-derived* values here, never
-    wall-clock readings (timings live on the dedicated fields)."""
+    wall-clock readings (timings live on the dedicated fields).
 
-    __slots__ = ("name", "attrs", "children", "t0", "dur_s", "seq", "tid")
+    ``device_s`` is the device time of the launch the span made (an event
+    pair on the current stream around it); ``None`` unless a device timer
+    (``repro_torch.device.device_timer``) set it.  Like ``t0`` / ``dur_s``
+    it is left out of the fingerprint."""
+
+    __slots__ = ("name", "attrs", "children", "t0", "dur_s", "device_s", "seq", "tid")
 
     def __init__(self, name: str, attrs: Dict[str, Any], seq: int, tid: int):
         self.name = name
@@ -44,6 +49,7 @@ class Span:
         self.children: List["Span"] = []
         self.t0 = 0.0
         self.dur_s = 0.0
+        self.device_s: Optional[float] = None
         self.seq = seq
         self.tid = tid
 
@@ -66,6 +72,7 @@ class Span:
         d = self.structure()
         d["t0_s"] = self.t0
         d["dur_s"] = self.dur_s
+        d["device_s"] = self.device_s
         if self.children:
             d["children"] = [c.to_dict() for c in self.children]
         return d
@@ -104,9 +111,10 @@ class Tracer:
         self._roots: List[Span] = []
         self._tids: Dict[int, int] = {threading.get_ident(): 0}
         self._seq = 0
-        # epoch so exported timestamps are small offsets, not raw
-        # perf_counter readings
-        self._epoch = time.perf_counter()
+        #: the ``time.perf_counter()`` reading every span's ``t0`` counts
+        #: from (set here and at :meth:`reset`): ``epoch_s + t0`` maps a
+        #: span onto any clock tied to ``perf_counter``
+        self.epoch_s = time.perf_counter()
 
     # ------------------------------------------------------------------ #
     def _tid(self) -> int:
@@ -127,7 +135,7 @@ class Tracer:
             seq = self._seq
             self._seq += 1
         sp = Span(name, attrs, seq, self._tid())
-        sp.t0 = time.perf_counter() - self._epoch
+        sp.t0 = time.perf_counter() - self.epoch_s
         stack = self._stack()
         if stack:
             stack[-1].children.append(sp)
@@ -138,7 +146,7 @@ class Tracer:
         return _SpanContext(self, sp)
 
     def _close(self, sp: Span) -> None:
-        sp.dur_s = (time.perf_counter() - self._epoch) - sp.t0
+        sp.dur_s = (time.perf_counter() - self.epoch_s) - sp.t0
         stack = self._stack()
         # close any children left open by an exception, then the span
         while stack and stack[-1] is not sp:
@@ -169,7 +177,7 @@ class Tracer:
             self._roots = []
             self._seq = 0
             self._tids = {threading.get_ident(): 0}
-            self._epoch = time.perf_counter()
+            self.epoch_s = time.perf_counter()
 
 
 class _NullSpan:

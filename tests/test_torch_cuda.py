@@ -259,10 +259,11 @@ def test_migration_cost_entry_refuses_a_geometry_that_misses_cells(cuda, change)
     out = torch.empty((u, v), dtype=torch.float64, device=cuda)
     fn = build.library("migration_cost").migration_cost
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     err = fn(su.data_ptr(), sv.data_ptr(), wu.data_ptr(), wv.data_ptr(), out.data_ptr(), u, v,
-             tx, ty, rows, row_tiles, grid_x, grid_y, torch.cuda.current_stream().cuda_stream)
+             tx, ty, rows, row_tiles, grid_x, grid_y, torch.cuda.current_stream().cuda_stream,
+             None, None)
     assert err != 0
 
 

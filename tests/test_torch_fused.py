@@ -26,6 +26,7 @@ from tests.test_torch_round import (  # noqa: F401  (_one_torch_thread: autouse)
     _assert_sim_equal,
     _one_torch_thread,
 )
+from tests.torch_spans import assert_reference_spans_equal, span_names
 
 JAX = dict(JAX, fu=jfu)
 TORCH = dict(TORCH, fu=tfu)
@@ -260,8 +261,8 @@ def test_fused_round_reads_the_host_only_through_the_loop_flag(monkeypatch):
 def _fused_churn_replay(pkg, tie_break, shards):
     """The churn replay of ``tests/test_fused_decide.py`` (Poisson arrivals,
     completions and Tiresias demotion-resume on 16 GPUs, 60+ rounds) with
-    ``fused_fanout=True``, logging every round's decision and obs
-    fingerprint."""
+    ``fused_fanout=True``, logging every round's decision and obs span
+    forest."""
     prof = pkg["prof"].ThroughputProfile()
     cluster = pkg["cl"].ClusterSpec(4, 4)
     sched = pkg["sch"].TesseraeScheduler(
@@ -281,7 +282,7 @@ def _fused_churn_replay(pkg, tie_break, shards):
             None if mig is None else (mig.matching_cost, mig.num_migrations, mig.algorithm,
                                       None if mig.node_assignment is None
                                       else mig.node_assignment.tolist()),
-            d.match_stats, d.degrade_reason, sched.obs.tracer.fingerprint(),
+            d.match_stats, d.degrade_reason, sched.obs.tracer.structure(),
         ))
         return d
 
@@ -298,8 +299,12 @@ def test_fused_churn_replay_matches_jax(tie_break, shards):
     res_j, log_j = _fused_churn_replay(JAX, tie_break, shards)
     res_t, log_t = _fused_churn_replay(TORCH, tie_break, shards)
     assert len(log_t) >= 30
+    # each round's span forest on the reference's spans (those of its whole
+    # run); the port's own stage spans are projected away
+    names = span_names(log_j[-1][4])
     for t, (lj, lt) in enumerate(zip(log_j, log_t)):
-        assert lj == lt, f"round {t}"
+        assert lj[:4] == lt[:4], f"round {t}"
+        assert_reference_spans_equal(lj[4], lt[4], names)
     assert len(log_j) == len(log_t)
     _assert_sim_equal(res_j, res_t)
     stats = [entry[2] for entry in log_t]

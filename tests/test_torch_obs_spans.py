@@ -1,0 +1,275 @@
+"""The port's stage spans: inside ``lap.solve``, ``pack`` and
+``migrate.host``, and the simulator's own, on the CPU.
+
+Three ``decide`` rounds with an ``Observability`` bundle (the cold round,
+one with ``prev_plan``, one after churn) through each LAP backend family:
+the stages appear in order and cover their parent, ``syncs`` adds up to the
+engine's ``host_syncs`` plus K5's read-back, tracing changes no decision,
+and the untraced path makes no CUDA event.  On a card, the spans that launch
+work carry its device time, and untraced rounds make no CUDA event.  This
+file imports neither JAX nor the JAX package, so its card cases run on the
+card's host too.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core.cluster as tcl
+import repro_torch.core.policies as tpol
+import repro_torch.core.profiler as tprof
+import repro_torch.core.scheduler as tsch
+import repro_torch.core.simulator as tsim
+import repro_torch.core.traces as ttr
+from repro_torch.device import device_timer
+from repro_torch.obs import NULL_TRACER, Observability, to_chrome_trace, validate_chrome_trace
+
+BACKENDS = ("auction", "auction_kernel", "scipy")
+LAP_STAGES = ("lap.prepare", "lap.identity", "lap.run", "lap.check", "lap.fallback", "lap.store")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, as in the other CPU ``test_torch_*`` files:
+    the tensors are tiny and xdist's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _assert_decisions_equal(da, db):
+    np.testing.assert_array_equal(da.plan.slots, db.plan.slots)
+    assert [j.job_id for j in da.placed] == [j.job_id for j in db.placed]
+    assert [j.job_id for j in da.pending] == [j.job_id for j in db.pending]
+    assert da.packing.matches == db.packing.matches
+    assert da.packing.total_weight == db.packing.total_weight
+    assert (da.migration is None) == (db.migration is None)
+    if da.migration is not None:
+        assert da.migration.num_migrations == db.migration.num_migrations
+        assert da.migration.matching_cost == db.migration.matching_cost
+        np.testing.assert_array_equal(da.migration.node_assignment, db.migration.node_assignment)
+    assert da.match_stats == db.match_stats
+
+
+def _three_rounds(backend, obs, device="cpu"):
+    cluster = tcl.ClusterSpec(3, 4)
+    prof = tprof.ThroughputProfile()
+    sched = tsch.TesseraeScheduler(
+        cluster, tpol.TiresiasPolicy(prof), prof, lap_backend=backend, obs=obs, device=device
+    )
+    jobs = ttr.synthetic_active_jobs(12, seed=1, profile=prof)
+    d1 = sched.decide(jobs, now=0.0)
+    d2 = sched.decide(jobs, now=360.0, prev_plan=d1.plan)
+    churned = [j for j in jobs if j.job_id % 5 != 2]  # a few jobs finish
+    d3 = sched.decide(churned, now=720.0, prev_plan=d2.plan)
+    return [d1, d2, d3]
+
+
+@functools.lru_cache(maxsize=None)
+def _traced(backend):
+    obs = Observability()
+    return _three_rounds(backend, obs), obs.tracer
+
+
+def _walk(spans):
+    for s in spans:
+        yield s
+        yield from _walk(s.children)
+
+
+def _decides(tracer):
+    return [s for s in _walk(tracer.roots()) if s.name == "decide"]
+
+
+def _child(span, name):
+    (c,) = [c for c in span.children if c.name == name]
+    return c
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_lap_solve_stages_in_order(backend):
+    _, tracer = _traced(backend)
+    solves = [s for s in _walk(tracer.roots()) if s.name == "lap.solve"]
+    assert len(solves) >= 5
+    approx = backend != "scipy"
+    for s in solves:
+        names = [c.name for c in s.children]
+        # each stage at most once, in the engine's order, always closed
+        assert names == [n for n in LAP_STAGES if n in names]
+        assert names[:2] == ["lap.prepare", "lap.identity"] and "lap.check" in names
+        assert all(c.dur_s > 0 for c in s.children)
+        assert sum(c.dur_s for c in s.children) <= s.dur_s
+        # the stages carry only what ``lap.solve`` does not: readouts,
+        # memo/warm and instance counts
+        assert not _child(s, "lap.prepare").attrs
+        assert set(_child(s, "lap.check").attrs) == {"syncs"}
+        batch = s.attrs["batch"]
+        ident = _child(s, "lap.identity").attrs
+        assert 0 <= ident["warm"] <= batch
+        if "lap.run" in names:
+            run = _child(s, "lap.run").attrs
+            assert set(run) == {"instances", "syncs"}
+            assert run["instances"] == batch - ident["memo"] >= 1
+            assert run["syncs"] == (1 if approx else 0)
+        else:
+            assert ident["memo"] == batch
+        # every solve writes its context back, but the full-memo fast path
+        # (the same identities in the same places), whose entry stays right
+        assert "lap.store" in names or names == ["lap.prepare", "lap.identity", "lap.check"]
+        # the exact re-solve opens its span only where one runs
+        if "lap.fallback" in names:
+            fb = _child(s, "lap.fallback").attrs
+            assert approx and "lap.run" in names
+            assert 0 <= fb["adopted"] <= fb["instances"] <= batch
+            assert fb["adopted"] <= s.attrs["fallbacks"]
+    if backend == "auction":
+        # the churned round's packing trips the certificate and re-solves
+        assert any("lap.fallback" in [c.name for c in s.children] for s in solves)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_pack_and_migrate_hold_their_stages(backend):
+    decisions, tracer = _traced(backend)
+    decides = _decides(tracer)
+    assert len(decides) == 3
+    for k, (d, dec) in enumerate(zip(decides, decisions)):
+        pack = _child(d, "pack")
+        names = [c.name for c in pack.children]
+        assert names[:3] == ["pack.graph", "lap.solve", "pack.apply"]
+        # the walk over the matches, then apply_packing where there are any
+        assert names[3:] == (["pack.apply"] if dec.packing.matches else [])
+        assert pack.children[1].attrs["family"] == "packing"
+        assert not any(c.attrs for c in pack.children[:1] + pack.children[2:])
+        if k == 0:
+            assert "migrate.host" not in [c.name for c in d.children]  # no prev_plan
+            continue
+        mig = _child(d, "migrate.host")
+        assert [c.name for c in mig.children] == [
+            "migrate.prepare", "migrate.cost", "lap.solve", "lap.solve", "migrate.assemble",
+        ]
+        assert [c.attrs["family"] for c in mig.children[2:4]] == [
+            "migration_pairs", "migration_node",
+        ]
+        assert mig.children[1].attrs == {"syncs": 1}  # K5's read-back
+        assert not mig.children[0].attrs and not mig.children[4].attrs
+        for parent in (pack, mig):
+            assert sum(c.dur_s for c in parent.children) <= parent.dur_s
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_syncs_add_up_to_the_rounds_host_syncs(backend):
+    decisions, tracer = _traced(backend)
+    for d, dec in zip(_decides(tracer), decisions):
+        spans = list(_walk([d]))
+        syncs = sum(s.attrs.get("syncs", 0) for s in spans)
+        k5 = sum(1 for s in spans if s.name == "migrate.cost")
+        assert syncs == dec.match_stats.get("host_syncs", 0) + k5
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_tracing_changes_no_decision(backend):
+    traced, _ = _traced(backend)
+    plain = _three_rounds(backend, None)
+    for dt, dp in zip(traced, plain):
+        _assert_decisions_equal(dt, dp)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_untraced_round_makes_no_cuda_event(backend, monkeypatch):
+    def no_event(*a, **k):
+        raise AssertionError("a device timer was entered with tracing off")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    # on a CUDA device the timer of a null span creates nothing and hands
+    # a C entry no event
+    with device_timer(NULL_TRACER.span("x"), torch.device("cuda")) as t:
+        assert t.handles() == (None, None)
+    plain = _three_rounds(backend, None)
+    traced, _ = _traced(backend)
+    for dt, dp in zip(traced, plain):
+        _assert_decisions_equal(dt, dp)
+
+
+def test_chrome_export_validates_and_carries_the_epoch():
+    _, tracer = _traced("auction")
+    doc = to_chrome_trace(tracer)
+    assert validate_chrome_trace(doc) == []
+    assert doc["otherData"]["epoch_s"] == tracer.epoch_s
+    names = {ev["name"] for ev in doc["traceEvents"]}
+    assert {"lap.prepare", "lap.run", "pack.graph", "migrate.cost"} <= names
+    # no device time on the CPU: the spans keep none and export none
+    assert all("device_ms" not in ev.get("args", {}) for ev in doc["traceEvents"])
+    assert all(s.to_dict()["device_s"] is None for s in tracer.roots())
+
+
+def test_simulator_round_spans():
+    """The simulator's own spans, each round: the scan, the round, the
+    hand-over, the hook and the contention bookkeeping (``apply_events``
+    only in a round with fault events, none here)."""
+    cluster = tcl.ClusterSpec(2, 4)
+    prof = tprof.ThroughputProfile()
+    sched = tsch.TesseraeScheduler(
+        cluster, tpol.TiresiasPolicy(prof), prof, lap_backend="scipy", device="cpu"
+    )
+    trace = ttr.shockwave_trace(num_jobs=8, seed=3, profile=prof)
+    obs = Observability()
+    hooked = []
+    sim = tsim.Simulator(
+        cluster, trace, sched, prof, tsim.SimConfig(), obs=obs,
+        round_hook=lambda *a: hooked.append(a[0]),
+    )
+    assert sim.run(stop_after_rounds=3) is None
+    chunks = []  # the roots of each pass of the loop, from its scan on
+    for r in obs.tracer.roots():
+        if r.name == "sim.scan":
+            chunks.append([])
+        chunks[-1].append(r)
+    full = ["sim.scan", "round", "sim.handover", "sim.hook", "sim.contention"]
+    names = [[r.name for r in c] for c in chunks]
+    # a pass with no active job (before the first arrival) only scans
+    assert all(n in (["sim.scan"], full) for n in names)
+    rounds = [c for c, n in zip(chunks, names) if n == full]
+    assert len(rounds) == 3
+    for i, (scan, rnd, hand, hook, cont) in enumerate(rounds):
+        # the round's index and active count ride on ``round`` alone
+        assert rnd.attrs["index"] == i and rnd.attrs["active"] > 0
+        assert not any(s.attrs for s in (scan, hand, hook, cont))
+    assert hooked == [1, 2, 3]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the device timer's events run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_untraced_rounds_on_card_make_no_cuda_event(backend, cuda, monkeypatch):
+    """With ``obs=None`` on the card, no device timer is built and no
+    ``torch.cuda.Event`` is made, whatever the backend launches."""
+    import repro_torch.device as tdev
+
+    def no_event(*a, **k):
+        raise AssertionError("a device timer was entered with tracing off")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    monkeypatch.setattr(tdev, "_DeviceTimer", no_event)
+    plain = _three_rounds(backend, None, device=cuda)
+    assert len(plain) == 3 and plain[2].migration is not None
+
+
+def test_spans_that_launch_work_carry_device_time_on_card(cuda):
+    obs = Observability()
+    _three_rounds("auction_kernel", obs, device=cuda)
+    spans = list(_walk(obs.tracer.roots()))
+    timed = [s for s in spans if s.name in ("lap.run", "migrate.cost")]
+    assert {s.name for s in timed} == {"lap.run", "migrate.cost"}
+    for s in timed:
+        assert s.device_s is not None and 0 < s.device_s <= s.dur_s, (s.name, s.device_s, s.dur_s)
+    assert all(s.device_s is None for s in spans if s.name not in ("lap.run", "migrate.cost"))
+    doc = to_chrome_trace(obs.tracer)
+    assert any("device_ms" in ev.get("args", {}) for ev in doc["traceEvents"])
