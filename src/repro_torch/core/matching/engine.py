@@ -136,8 +136,10 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -1078,6 +1080,74 @@ def _run_auction(
     return packed[:, :r], packed[:, r].astype(bool), res.prices, packed[:, r + 1]
 
 
+class _AheadCount:
+    """Instances whose exact re-solve started on the host worker before
+    the auction, and what became of it: ``used`` by the fallback, or
+    ``dropped`` (the certificate passed, or the instance memo-hit)."""
+
+    def __init__(self) -> None:
+        self.started = self.used = self.dropped = 0
+
+
+#: process-wide tally of the exact re-solves started ahead (instances)
+exact_ahead = _AheadCount()
+
+_ahead_pool: Optional[ThreadPoolExecutor] = None
+_ahead_pool_lock = threading.Lock()
+
+
+def _ahead_worker() -> ThreadPoolExecutor:
+    """The one worker thread, made at first use."""
+    global _ahead_pool
+    with _ahead_pool_lock:
+        if _ahead_pool is None:
+            _ahead_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="lap-exact")
+        return _ahead_pool
+
+
+class _Ahead:
+    """The exact re-solve of the instances ``pred`` of one call, started on
+    one process-wide host worker as soon as their benefit exists.  The
+    worker runs the exact backend alone, on a private copy: no torch, no
+    device, no context.  :meth:`join` or :meth:`drop` ends it."""
+
+    __slots__ = ("pred", "future")
+
+    def __init__(self, backend: str, oriented: np.ndarray, pred: np.ndarray):
+        self.pred = pred
+        self.future = _ahead_worker().submit(
+            _BACKENDS[backend], np.ascontiguousarray(oriented[pred]), None, None
+        )
+        exact_ahead.started += int(pred.size)
+
+    def drop(self) -> None:
+        """Leave the answer unread: no wait, and an error it raised is lost."""
+        self.future.cancel()
+        exact_ahead.dropped += int(self.pred.size)
+
+    def join(self, solve: Callable, oriented: np.ndarray, idx: np.ndarray):
+        """``solve``'s assignments of ``oriented[idx]``: the worker's for
+        the instances it has, the rest solved here in one call first.
+        Returns them with the count taken from the worker and the seconds
+        the join blocked."""
+        pos = np.minimum(np.searchsorted(self.pred, idx), self.pred.size - 1)
+        hit = self.pred[pos] == idx
+        if not hit.any():
+            self.drop()
+            return solve(oriented[idx], None, None)[0], 0, 0.0
+        out = np.empty((idx.size, oriented.shape[1]), np.int64)
+        if not hit.all():
+            out[~hit] = solve(oriented[idx[~hit]], None, None)[0]
+        t = time.perf_counter()
+        early = self.future.result()[0]
+        wait_s = time.perf_counter() - t
+        out[hit] = early[pos[hit]]
+        used = int(hit.sum())
+        exact_ahead.used += used
+        exact_ahead.dropped += int(self.pred.size) - used
+        return out, used, wait_s
+
+
 class _Stages:
     """The consecutive child spans of one ``lap.solve``: opening a stage
     closes the one before it, so together they cover the solve.  A stage
@@ -1157,6 +1227,14 @@ def solve_lap_batched(
     time of the auction kernel), ``lap.check`` (readout, cardinality,
     certificate), ``lap.fallback`` (only when an exact re-solve runs) and
     ``lap.store`` (the context write-back).
+
+    On the auction backends, an instance whose last solve in the context
+    adopted the exact answer gets its exact re-solve started on a host
+    worker before the identity match, so it runs while the auction does;
+    the fallback takes that answer where the instance needs it
+    (``lap.fallback``'s ``ahead`` counts them, ``wait_ms`` is the join's
+    block) and drops it otherwise.  Results are those of the re-solve run
+    in place; :data:`exact_ahead` tallies started, used and dropped.
 
     Args:
       costs: (B, N, M) cost batch (host numpy array).  ``+inf`` under
@@ -1360,16 +1438,26 @@ def _solve_lap_batched_impl(
     dev = context.device if context is not None else (
         resolve_device(device) if approx else None
     )
+    ahead = None
     if context is not None:
         context.stats["solves"] += 1
         inst = _as_instance_ids(instance_ids, b)
         if rids is None:
             rids = _pad_ids(_as_id_matrix(row_ids, b, n, "row_ids"), ne)
             cids = _pad_ids(_as_id_matrix(col_ids, b, m, "col_ids"), me)
-        bits = torch.from_numpy(_f64_bits(benefit_nm)).to(dev)
         cand = context.get(key)
         if cand is not None and cand.transposed == transposed and cand.rect == rect:
             entry = cand
+        if approx and entry is not None and entry.used_fallback.any():
+            # an instance whose last solve adopted the exact answer will
+            # most likely again: start that re-solve now, on the host
+            # worker, so it runs while the auction does
+            old = _positions_in(inst[None], entry.instance_ids[None])[0]
+            pred = np.nonzero(old >= 0)[0]
+            pred = pred[entry.used_fallback[old[pred]]]
+            if pred.size:
+                ahead = _Ahead(_pick_exact() if rect else _pick_auto(size), oriented, pred)
+        bits = torch.from_numpy(_f64_bits(benefit_nm)).to(dev)
 
     sp = stages.open("lap.identity", syncs=0)
 
@@ -1435,6 +1523,8 @@ def _solve_lap_batched_impl(
             context.stats["warm_instances"] += b
             context.stats["memo_hits"] += 1
             sp.annotate(memo=b, warm=b)
+            if ahead is not None:
+                ahead.drop()
             stages.open("lap.check", syncs=0)
             col_of, total, _ = _extract(costs, entry.final_col_of, row_mask, col_mask)
             stages.close()
@@ -1601,7 +1691,13 @@ def _solve_lap_batched_impl(
         fb = _pick_exact() if rect else _pick_auto(size)
         idx = np.nonzero(needs_fallback)[0]
         sp = stages.open("lap.fallback", instances=int(idx.size))
-        fb_solve, _ = _BACKENDS[fb](oriented[idx], None, None)
+        if ahead is None:
+            fb_solve, _ = _BACKENDS[fb](oriented[idx], None, None)
+            n_ahead, wait_s = 0, 0.0
+        else:
+            fb_solve, n_ahead, wait_s = ahead.join(_BACKENDS[fb], oriented, idx)
+            ahead = None
+        sp.annotate(ahead=n_ahead, wait_ms=wait_s * 1e3)
         fb_res, fb_total, fb_complete = _extract(
             costs[idx],
             _to_orig_cols(fb_solve, transposed, n, m),
@@ -1635,6 +1731,8 @@ def _solve_lap_batched_impl(
         total[sel] = fb_total[adopt]
         used_fallback[sel] = True
         sp.annotate(adopted=int(sel.size))
+    if ahead is not None:
+        ahead.drop()
 
     if context is not None:
         stages.open("lap.store", syncs=0)

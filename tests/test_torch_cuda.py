@@ -44,6 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from torch_rect_replay import packing_replay, traced_packing
 
 
 @pytest.fixture
@@ -620,6 +621,28 @@ def test_decide_on_card_equals_cpu(cuda, backend):
         assert dg.match_stats == dc.match_stats
         if dc.migration is not None:
             assert dg.migration.matching_cost == dc.migration.matching_cost
+
+
+def test_packing_on_card_takes_the_exact_answer_solved_ahead(cuda):
+    """A packing-shaped rectangle (175 placed by 2,000 pending jobs of 7
+    model types, so weights tie): a cold round, then three that each churn
+    5 jobs and stale the last auction's unassigned prices, so each adopts
+    the exact answer.  From the second of them the exact re-solve comes
+    from the host worker, run while the card bids; the plans are the CPU
+    path's bit for bit."""
+    rounds = packing_replay(0, 4, 175, 2000, models=7, churn=5)
+    before = lap_auction.launches
+    on_card, fb_card = traced_packing(rounds, "auction_kernel", cuda)
+    assert lap_auction.launches == before + 4
+    on_cpu, fb_cpu = traced_packing(rounds, "auction_kernel", "cpu")
+    for rg, rc in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(rg.col_of, rc.col_of)
+        np.testing.assert_array_equal(rg.total_cost, rc.total_cost)
+        np.testing.assert_array_equal(rg.bid_iters, rc.bid_iters)
+        np.testing.assert_array_equal(rg.used_fallback, rc.used_fallback)
+    assert [r.used_fallback[0] for r in on_card] == [False, True, True, True]
+    assert fb_card[0] is None and fb_cpu[0] is None
+    assert [fb["ahead"] for fb in fb_card[1:]] == [fb["ahead"] for fb in fb_cpu[1:]] == [0, 1, 1]
 
 
 # --------------------------------------------------------------------------- #

@@ -5,7 +5,9 @@ Three ``decide`` rounds with an ``Observability`` bundle (the cold round,
 one with ``prev_plan``, one after churn) through each LAP backend family:
 the stages appear in order and cover their parent, ``syncs`` adds up to the
 engine's ``host_syncs`` plus K5's read-back, tracing changes no decision,
-and the untraced path makes no CUDA event.  On a card, the spans that launch
+and the untraced path makes no CUDA event.  A packing replay whose warm
+rounds adopt the exact answer: ``lap.fallback`` counts the answers the host
+worker solved ahead.  On a card, the spans that launch
 work carry its device time, and untraced rounds make no CUDA event.  This
 file imports neither JAX nor the JAX package, so its card cases run on the
 card's host too.
@@ -23,8 +25,10 @@ import repro_torch.core.profiler as tprof
 import repro_torch.core.scheduler as tsch
 import repro_torch.core.simulator as tsim
 import repro_torch.core.traces as ttr
+from repro_torch.core.matching import engine
 from repro_torch.device import device_timer
 from repro_torch.obs import NULL_TRACER, Observability, to_chrome_trace, validate_chrome_trace
+from torch_rect_replay import packing_replay, traced_packing
 
 BACKENDS = ("auction", "auction_kernel", "scipy")
 LAP_STAGES = ("lap.prepare", "lap.identity", "lap.run", "lap.check", "lap.fallback", "lap.store")
@@ -123,11 +127,29 @@ def test_lap_solve_stages_in_order(backend):
         if "lap.fallback" in names:
             fb = _child(s, "lap.fallback").attrs
             assert approx and "lap.run" in names
+            assert set(fb) == {"instances", "adopted", "ahead", "wait_ms"}
             assert 0 <= fb["adopted"] <= fb["instances"] <= batch
             assert fb["adopted"] <= s.attrs["fallbacks"]
+            # the answers the host worker solved ahead, and the join's block
+            assert 0 <= fb["ahead"] <= fb["instances"] and fb["wait_ms"] >= 0.0
+            if not fb["ahead"]:
+                assert fb["wait_ms"] == 0.0
     if backend == "auction":
         # the churned round's packing trips the certificate and re-solves
         assert any("lap.fallback" in [c.name for c in s.children] for s in solves)
+
+
+def test_packing_fallback_carries_the_answers_solved_ahead():
+    """Once a round has adopted the exact answer, the next round's
+    ``lap.fallback`` takes it from the host worker: ``ahead`` is its one
+    instance, and ``wait_ms`` how long the join blocked."""
+    before = dict(vars(engine.exact_ahead))
+    results, fbs = traced_packing(packing_replay(1, 4, 5, 14), "auction", "cpu")
+    tally = {k: v - before[k] for k, v in vars(engine.exact_ahead).items()}
+    assert fbs[0] is None and [r.used_fallback[0] for r in results] == [False] + [True] * 3
+    assert [fb["ahead"] for fb in fbs[1:]] == [0, 1, 1]
+    assert all(fb["instances"] == 1 and fb["wait_ms"] >= 0.0 for fb in fbs[1:])
+    assert tally == dict(started=2, used=2, dropped=0)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
