@@ -33,6 +33,7 @@ measures 60% fewer migrations than the no-remap baseline (Fig. 11 repro).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, Optional
@@ -185,6 +186,19 @@ def _relabel_penalties(
     return pen
 
 
+def _penalty_span(tracer, cluster):
+    """A ``migrate.penalties`` span (``types``: distinct GPU types,
+    ``racks``) where the cluster's types or racks add relabel penalties;
+    none on a single-type, single-rack cluster."""
+    if not (cluster.is_heterogeneous or cluster.has_topology):
+        return contextlib.nullcontext()
+    return tracer.span(
+        "migrate.penalties",
+        types=len(set(cluster.node_types())),
+        racks=cluster.num_racks,
+    )
+
+
 def _cost_scale(num_gpus_of: Dict[int, int], backend: str) -> float:
     """Quantisation scale for the approximate (auction) backends.
 
@@ -306,8 +320,10 @@ def plan_migration(
 
     ``tracer`` gets the stages as spans: ``migrate.prepare`` (the plans
     restricted to the common jobs, the weight table), ``migrate.cost`` (K5
-    and its read-back), the engine's ``lap.solve`` spans, and
-    ``migrate.assemble`` (the physical plan and its migration count).
+    and its read-back), the engine's ``lap.solve`` spans,
+    ``migrate.penalties`` (the type and rack terms added to the costs, on
+    a typed or racked cluster only) and ``migrate.assemble`` (the physical
+    plan and its migration count).
     """
     t0 = time.perf_counter()
     cluster = prev.cluster
@@ -333,14 +349,15 @@ def plan_migration(
         flat_i = pi.slots.reshape(-1, MAX_PACK)
         flat_j = pj.slots.reshape(-1, MAX_PACK)
         cost = _gpu_pair_costs(flat_i, flat_j, weights, dev, tracer=tracer)
-        pen = _relabel_penalties(
-            cluster, down_nodes, occupied_logical, speed_factor
-        )
-        if pen is not None:
-            # expand node-level penalties to every (physical, logical) GPU
-            # pair: each relabelled GPU's state crosses the boundary
-            kl = cluster.gpus_per_node
-            cost = cost + np.repeat(np.repeat(pen, kl, axis=0), kl, axis=1)
+        with _penalty_span(tracer, cluster):
+            pen = _relabel_penalties(
+                cluster, down_nodes, occupied_logical, speed_factor
+            )
+            if pen is not None:
+                # expand node-level penalties to every (physical, logical)
+                # GPU pair: each relabelled GPU's state crosses the boundary
+                kl = cluster.gpus_per_node
+                cost = cost + np.repeat(np.repeat(pen, kl, axis=0), kl, axis=1)
         gpu_ids = np.arange(cluster.num_gpus, dtype=np.int64)
         rows, cols = solve_lap(
             cost * _cost_scale(num_gpus_of, backend),
@@ -413,11 +430,12 @@ def plan_migration(
         device=dev,
     )
     node_cost = (res.total_cost / scale).reshape(kc, kc)
-    pen = _relabel_penalties(
-        cluster, down_nodes, occupied_logical, speed_factor
-    )
-    if pen is not None:
-        node_cost = node_cost + pen
+    with _penalty_span(tracer, cluster):
+        pen = _relabel_penalties(
+            cluster, down_nodes, occupied_logical, speed_factor
+        )
+        if pen is not None:
+            node_cost = node_cost + pen
     n_rows, n_cols = solve_lap(
         node_cost * scale,
         backend=backend,

@@ -268,13 +268,14 @@ class TesseraeScheduler:
                     # heterogeneous cluster: each placed job's packing
                     # weights (incl. HBM feasibility) are profiled on its
                     # node's type
-                    gmap_placed = plan.job_gpu_map()
-                    placed_types = [
-                        self.cluster.gpu_type_of(
-                            self.cluster.node_of(min(gmap_placed[j.job_id]))
-                        )
-                        for j in placed
-                    ]
+                    with tracer.span("pack.types", rows=len(placed)):
+                        gmap_placed = plan.job_gpu_map()
+                        placed_types = [
+                            self.cluster.gpu_type_of(
+                                self.cluster.node_of(min(gmap_placed[j.job_id]))
+                            )
+                            for j in placed
+                        ]
                 packing = pack_jobs(
                     placed,
                     pending,

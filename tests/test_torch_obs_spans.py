@@ -7,10 +7,11 @@ the stages appear in order and cover their parent, ``syncs`` adds up to the
 engine's ``host_syncs`` plus K5's read-back, tracing changes no decision,
 and the untraced path makes no CUDA event.  A packing replay whose warm
 rounds adopt the exact answer: ``lap.fallback`` counts the answers the host
-worker solved ahead.  On a card, the spans that launch
-work carry its device time, and untraced rounds make no CUDA event.  This
-file imports neither JAX nor the JAX package, so its card cases run on the
-card's host too.
+worker solved ahead.  On a typed or racked cluster, ``migrate.penalties``
+and ``pack.types`` wrap the typed terms; a homogeneous round opens neither.
+On a card, the spans that launch work carry its device time, and untraced
+rounds make no CUDA event.  This file imports neither JAX nor the JAX
+package, so its card cases run on the card's host too.
 """
 
 import functools
@@ -58,11 +59,12 @@ def _assert_decisions_equal(da, db):
     assert da.match_stats == db.match_stats
 
 
-def _three_rounds(backend, obs, device="cpu"):
-    cluster = tcl.ClusterSpec(3, 4)
+def _three_rounds(backend, obs, device="cpu", cluster=None, **kw):
+    cluster = cluster or tcl.ClusterSpec(3, 4)
     prof = tprof.ThroughputProfile()
     sched = tsch.TesseraeScheduler(
-        cluster, tpol.TiresiasPolicy(prof), prof, lap_backend=backend, obs=obs, device=device
+        cluster, tpol.TiresiasPolicy(prof), prof, lap_backend=backend, obs=obs, device=device,
+        **kw,
     )
     jobs = ttr.synthetic_active_jobs(12, seed=1, profile=prof)
     d1 = sched.decide(jobs, now=0.0)
@@ -179,6 +181,50 @@ def test_pack_and_migrate_hold_their_stages(backend):
         assert not mig.children[0].attrs and not mig.children[4].attrs
         for parent in (pack, mig):
             assert sum(c.dur_s for c in parent.children) <= parent.dur_s
+
+
+TYPED_CLUSTERS = {
+    # (types, nodes_per_rack) -> the attributes of ``migrate.penalties``
+    "homogeneous": ((None, 0), None),
+    "typed-racked": ((("a100", "a100", "v100", "v100"), 2), {"types": 2, "racks": 2}),
+    "typed": ((("a100", "v100", "a100", "v100"), 0), {"types": 2, "racks": 1}),
+    "racked": ((None, 1), {"types": 1, "racks": 4}),
+}
+
+
+@pytest.mark.parametrize("algorithm", ["node", "flat"])
+@pytest.mark.parametrize("kind", sorted(TYPED_CLUSTERS))
+def test_typed_terms_open_their_spans(kind, algorithm):
+    """On a typed or racked cluster, ``migrate.penalties`` wraps the relabel
+    penalties (the node match's or the flat LAP's) and ``pack.types`` the
+    placed jobs' node types, each with exactly its attributes; a cluster
+    of one type opens no ``pack.types``, and a homogeneous one neither."""
+    (types, per_rack), pen_attrs = TYPED_CLUSTERS[kind]
+    obs = Observability()
+    cluster = tcl.ClusterSpec(4, 4, node_gpu_types=types, nodes_per_rack=per_rack)
+    decisions = _three_rounds("auction", obs, cluster=cluster, migration_algorithm=algorithm)
+    decides = _decides(obs.tracer)
+    assert len(decides) == 3
+    for k, (d, dec) in enumerate(zip(decides, decisions)):
+        pack = _child(d, "pack")
+        names = [c.name for c in pack.children]
+        if types is None:
+            assert "pack.types" not in names
+        else:
+            assert names[:2] == ["pack.types", "pack.graph"]
+            assert pack.children[0].attrs == {"rows": len(dec.placed)} and dec.placed
+        if k == 0 or pen_attrs is None:
+            assert "migrate.penalties" not in [s.name for s in _walk([d])]
+            continue
+        mig = _child(d, "migrate.host")
+        want = ["migrate.prepare", "migrate.cost", "lap.solve", "migrate.penalties", "lap.solve",
+                "migrate.assemble"]
+        if algorithm == "flat":
+            want = ["migrate.prepare", "migrate.cost", "migrate.penalties", "lap.solve",
+                    "migrate.assemble"]
+        assert [c.name for c in mig.children] == want
+        pen = _child(mig, "migrate.penalties")
+        assert pen.attrs == pen_attrs and not pen.children and pen.dur_s > 0
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
