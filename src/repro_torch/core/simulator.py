@@ -271,6 +271,16 @@ class _SimState:
     failed_jobs: List[int] = dataclasses.field(default_factory=list)
     prewarm_wall: float = 0.0
     prewarm_overlap: float = 0.0
+    # -- the live-job index (derived from ``states`` and ``now``; never
+    # snapshotted, rebuilt by ``load_state``) so a round visits the jobs
+    # that can act, not the whole trace --------------------------------- #
+    #: position in the simulator's sorted trace of the first job not yet
+    #: admitted to ``live``.
+    cursor: int = 0
+    #: arrived, unfinished jobs in trace order (the order of ``states``).
+    live: Dict[int, JobState] = dataclasses.field(default_factory=dict)
+    #: ids of the live jobs whose ``gpus`` is not empty.
+    holders: set = dataclasses.field(default_factory=set)
 
 
 #: version tag of the simulator round-state snapshot format.  v2 adds the
@@ -405,29 +415,21 @@ class Simulator:
 
                 self._apply_events(st)
 
-                with tracer.span("sim.scan"):
-                    active = [
-                        s
-                        for s in st.states.values()
-                        if s.spec.arrival_time <= st.now
-                        and s.eligible_time <= st.now
-                        and not s.finished
-                    ]
-                    waiting = [
-                        s
-                        for s in st.states.values()
-                        if not s.finished
-                        and (s.spec.arrival_time > st.now or s.eligible_time > st.now)
-                    ]
-                if not active and not waiting:
+                with tracer.span("sim.scan") as sp_scan:
+                    active = self._scan_active(st)
+                    sp_scan.annotate(live=len(st.live))
+                if not st.live and st.cursor == len(self.trace):
                     break
                 if not active:
                     # idle until the next arrival's (or backoff expiry's)
                     # round boundary; fault events in the skipped window
-                    # are applied at the next loop top
-                    next_t = min(
-                        max(s.spec.arrival_time, s.eligible_time) for s in waiting
-                    )
+                    # are applied at the next loop top.  Every live job is
+                    # in backoff; a job not yet admitted never ran, so its
+                    # arrival is its boundary, and the cursor's is the least
+                    waits = [s.eligible_time for s in st.live.values()]
+                    if st.cursor < len(self.trace):
+                        waits.append(self.trace[st.cursor].arrival_time)
+                    next_t = min(waits)
                     k = int(np.floor(next_t / cfg.round_duration_s))
                     now_new = max(
                         st.now + cfg.round_duration_s, k * cfg.round_duration_s
@@ -497,10 +499,7 @@ class Simulator:
                             [j.job_id for j in decision.placed]
                         )
 
-                    self._advance_round(
-                        decision, st.states, st.now, st.prev_gpus,
-                        st.num_gpus_of, st.health, sim_state=st,
-                    )
+                    self._advance_round(decision, st)
                     sp_round.annotate(degrade=decision.degrade_reason)
 
                 with tracer.span("sim.handover"):
@@ -527,13 +526,7 @@ class Simulator:
                     # rounds) so the next decide() memo/warm-hits.
                     # Purely a cache side effect — decisions are
                     # unaffected.  The FTF bookkeeping below overlaps it.
-                    spec_active = [
-                        s
-                        for s in st.states.values()
-                        if s.spec.arrival_time <= st.now
-                        and s.eligible_time <= st.now
-                        and not s.finished
-                    ]
+                    spec_active = self._scan_active(st)
                     if spec_active:
                         pending_prewarm = executor.submit(
                             _timed_prewarm,
@@ -566,9 +559,15 @@ class Simulator:
             if executor is not None:
                 executor.shutdown(wait=True)
 
-        unfinished = [s for s in st.states.values() if not s.finished]
-        for s in unfinished:  # should not happen with max_time high enough
+        # should not happen with max_time high enough: the live jobs and
+        # those yet to be admitted (none of which ever ran)
+        unfinished = list(st.live.values()) + [
+            st.states[s.job_id] for s in self.trace[st.cursor:]
+        ]
+        for s in unfinished:
             s.finish_time = cfg.max_time_s
+        st.live.clear()
+        st.holders.clear()
         makespan = max((s.finish_time for s in st.states.values()), default=0.0)
         contention = {
             j: st.contention_num[j] / st.contention_den[j]
@@ -598,6 +597,18 @@ class Simulator:
         )
         self._state = None
         return result
+
+    def _scan_active(self, st: _SimState) -> List[JobState]:
+        """Admit the jobs that have arrived by ``st.now`` to the live index,
+        then return the live jobs out of backoff, in trace order (the
+        order of ``st.states``)."""
+        trace, now = self.trace, st.now
+        while st.cursor < len(trace) and trace[st.cursor].arrival_time <= now:
+            s = st.states[trace[st.cursor].job_id]
+            if not s.finished:
+                st.live[s.job_id] = s
+            st.cursor += 1
+        return [s for s in st.live.values() if s.eligible_time <= now]
 
     # ------------------------------------------------------------------ #
     # Metrics recording (host-side aggregation; always on, decision-inert)
@@ -721,12 +732,15 @@ class Simulator:
 
     def _evict_node(self, st: _SimState, node: int) -> None:
         """Node-down: every job with at least one GPU on the node crashes
-        (no checkpoint save — gang-synchronous training dies whole)."""
-        for s in st.states.values():
-            if s.finished or not s.gpus:
-                continue
-            if any(self.cluster.node_of(g) == node for g in s.gpus):
-                self._crash_job(st, s, preempt=True)
+        (no checkpoint save — gang-synchronous training dies whole).  Only
+        live jobs hold GPUs; the victims crash in trace order."""
+        victims = [
+            s
+            for s in st.live.values()
+            if s.gpus and any(self.cluster.node_of(g) == node for g in s.gpus)
+        ]
+        for s in victims:
+            self._crash_job(st, s, preempt=True)
 
     def _crash_job(self, st: _SimState, s: JobState, preempt: bool) -> None:
         cfg = self.config
@@ -744,6 +758,7 @@ class Simulator:
         s.attained_service = s.ckpt_service
         s.executed_time = s.ckpt_executed
         s.gpus = frozenset()
+        st.holders.discard(s.job_id)
         s.packed_with = None
         s.migration_debt = 0.0
         if preempt:
@@ -764,6 +779,7 @@ class Simulator:
         if s.retries > cfg.max_retries:
             s.failed = True
             s.finish_time = st.now
+            st.live.pop(s.job_id, None)
             st.failed_jobs.append(s.job_id)
             self._metrics.counter("faults.failed_jobs").inc()
         else:
@@ -813,38 +829,21 @@ class Simulator:
         young = (2.0 * delta * mtbf / nodes_spanned) ** 0.5
         return min(base, max(cfg.round_duration_s, young))
 
-    def _advance_round(
-        self,
-        decision: RoundDecision,
-        states: Dict[int, JobState],
-        now: float,
-        prev_gpus: Dict[int, frozenset],
-        num_gpus_of: Dict[int, int],
-        health: Optional[ClusterHealth] = None,
-        sim_state: Optional[_SimState] = None,
-    ) -> None:
-        with tracer_of(self.obs).span("advance_round"):
-            self._advance_round_impl(
-                decision, states, now, prev_gpus, num_gpus_of, health, sim_state
-            )
+    def _advance_round(self, decision: RoundDecision, st: _SimState) -> None:
+        # ``swept``: the previous round's GPU holders, which the release
+        # loop visits in place of every job of the trace
+        with tracer_of(self.obs).span("advance_round", swept=len(st.holders)):
+            self._advance_round_impl(decision, st)
 
-    def _advance_round_impl(
-        self,
-        decision: RoundDecision,
-        states: Dict[int, JobState],
-        now: float,
-        prev_gpus: Dict[int, frozenset],
-        num_gpus_of: Dict[int, int],
-        health: Optional[ClusterHealth] = None,
-        sim_state: Optional[_SimState] = None,
-    ) -> None:
+    def _advance_round_impl(self, decision: RoundDecision, st: _SimState) -> None:
         cfg = self.config
+        states, now, prev_gpus, health = st.states, st.now, st.prev_gpus, st.health
         plan_map = decision.plan.job_gpu_map()
         packed_partner: Dict[int, int] = {}
         for pending_id, placed_id in decision.packing.matches.items():
             packed_partner[pending_id] = placed_id
             packed_partner[placed_id] = pending_id
-        degraded = health is not None and health.degraded
+        degraded = health.degraded
 
         for jid, gpus in plan_map.items():
             s = states[jid]
@@ -876,19 +875,16 @@ class Simulator:
                     s.ckpt_iters = s.iters_done
                     s.ckpt_executed = s.executed_time
                     s.ckpt_service = s.attained_service
-                    if sim_state is not None and health is not None:
-                        # drain telemetry: did this move leave a degraded
-                        # node for strictly faster ones?
-                        prev_speed = min(
-                            health.speed_factor[self.cluster.node_of(g)]
-                            for g in prev
-                        )
-                        new_speed = min(
-                            health.speed_factor[self.cluster.node_of(g)]
-                            for g in gpus
-                        )
-                        if prev_speed < 1.0 and new_speed > prev_speed:
-                            sim_state.drain_migrations += 1
+                    # drain telemetry: did this move leave a degraded node
+                    # for strictly faster ones?
+                    prev_speed = min(
+                        health.speed_factor[self.cluster.node_of(g)] for g in prev
+                    )
+                    new_speed = min(
+                        health.speed_factor[self.cluster.node_of(g)] for g in gpus
+                    )
+                    if prev_speed < 1.0 and new_speed > prev_speed:
+                        st.drain_migrations += 1
             s.gpus = gpus
 
             # heterogeneous clusters: the job's TRUE rate (and packing
@@ -928,6 +924,7 @@ class Simulator:
                 s.finish_time = now + finish_delay
                 s.executed_time += remaining / rate
                 s.attained_service += s.num_gpus * (remaining / rate)
+                st.live.pop(jid, None)
             else:
                 s.iters_done += rate * run_time
                 s.executed_time += run_time
@@ -943,14 +940,16 @@ class Simulator:
                     s.ckpt_service = s.attained_service
 
         # jobs not in the plan keep waiting (attain no service); a job the
-        # scheduler just released drained gracefully, i.e. it checkpointed
-        for jid, s in states.items():
-            if jid not in plan_map and not s.finished:
-                if s.gpus:
-                    s.ckpt_iters = s.iters_done
-                    s.ckpt_executed = s.executed_time
-                    s.ckpt_service = s.attained_service
+        # scheduler just released drained gracefully, i.e. it checkpointed.
+        # Only the previous round's GPU holders have GPUs to release.
+        for jid in st.holders:
+            if jid not in plan_map:
+                s = states[jid]
+                s.ckpt_iters = s.iters_done
+                s.ckpt_executed = s.executed_time
+                s.ckpt_service = s.attained_service
                 s.gpus = frozenset()
+        st.holders = {jid for jid in plan_map if not states[jid].finished}
 
     # ------------------------------------------------------------------ #
     # Crash snapshot / resume
@@ -1074,6 +1073,12 @@ class Simulator:
                 prewarm_wall=float(meta["prewarm_wall"]),
                 prewarm_overlap=float(meta["prewarm_overlap"]),
             )
+            # the live index is derived, not saved: admit every job that
+            # has arrived by ``now`` and is unfinished, then find the holders
+            self._scan_active(self._state)
+            self._state.holders = {
+                jid for jid, s in self._state.live.items() if s.gpus
+            }
             self.scheduler.match_context = MatchContext.from_payload(
                 meta["ctx"],
                 lambda name: z[f"ctx.{name}"],

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import repro_torch.core.cluster as tcl
+import repro_torch.core.faults as tfa
 import repro_torch.core.policies as tpol
 import repro_torch.core.profiler as tprof
 import repro_torch.core.scheduler as tsch
@@ -273,39 +274,136 @@ def test_chrome_export_validates_and_carries_the_epoch():
     assert all(s.to_dict()["device_s"] is None for s in tracer.roots())
 
 
-def test_simulator_round_spans():
-    """The simulator's own spans, each round: the scan, the round, the
-    hand-over, the hook and the contention bookkeeping (``apply_events``
-    only in a round with fault events, none here)."""
+def _sim_passes(trace, rounds=None, faults=False, resume_after=None, tmp_path=None):
+    """The port's simulator under a tracer on 2 nodes: the roots of each
+    pass of its loop, from its scan on (``apply_events`` left out where
+    there are faults), the
+    indices the round hook saw, and what each round's ``decide`` found in
+    the states: the jobs arrived by then and not finished, and the jobs
+    holding GPUs.  With ``faults``, every fourth job fails 1.5 and 5.5
+    rounds after it arrives (one retry allowed) and node 1 is down for six
+    rounds from the arrival of the trace's middle job.  With
+    ``resume_after``, the run is saved after that many rounds and finished
+    by a new simulator that loads the state."""
     cluster = tcl.ClusterSpec(2, 4)
     prof = tprof.ThroughputProfile()
     sched = tsch.TesseraeScheduler(
         cluster, tpol.TiresiasPolicy(prof), prof, lap_backend="scipy", device="cpu"
     )
-    trace = ttr.shockwave_trace(num_jobs=8, seed=3, profile=prof)
+    jobs = trace(prof)
+    cfg = tsim.SimConfig(max_retries=1)
+    events = []
+    if faults:
+        rnd = cfg.round_duration_s
+        for j in jobs[1::4]:
+            events += [
+                tfa.FailureEvent(j.arrival_time + 1.5 * rnd, tfa.JOB_FAIL, job_id=j.job_id),
+                tfa.FailureEvent(j.arrival_time + 5.5 * rnd, tfa.JOB_FAIL, job_id=j.job_id),
+            ]
+        t = jobs[len(jobs) // 2].arrival_time
+        events += [
+            tfa.FailureEvent(t, tfa.NODE_DOWN, node=1),
+            tfa.FailureEvent(t + 6 * rnd, tfa.NODE_UP, node=1),
+        ]
     obs = Observability()
-    hooked = []
-    sim = tsim.Simulator(
-        cluster, trace, sched, prof, tsim.SimConfig(), obs=obs,
-        round_hook=lambda *a: hooked.append(a[0]),
-    )
-    assert sim.run(stop_after_rounds=3) is None
-    chunks = []  # the roots of each pass of the loop, from its scan on
+    sims, hooked, seen = [], [], []
+    decide = sched.decide
+
+    def watched_decide(active, now, *a, **k):
+        states = sims[-1]._state.states
+        live = sum(
+            1
+            for s in states.values()
+            if s.spec.arrival_time <= now and (s.finish_time is None or s.finish_time > now)
+        )
+        holders = sum(1 for s in states.values() if s.gpus and not s.finished)
+        seen.append((live, holders))
+        return decide(active, now, *a, **k)
+
+    sched.decide = watched_decide
+
+    def simulator():
+        sims.append(
+            tsim.Simulator(
+                cluster, jobs, sched, prof, cfg, failures=events, obs=obs,
+                round_hook=lambda *a: hooked.append(a[0]),
+            )
+        )
+        return sims[-1]
+
+    if resume_after is None:
+        simulator().run(stop_after_rounds=rounds)
+    else:
+        path = str(tmp_path / "sim.npz")
+        assert simulator().run(stop_after_rounds=resume_after) is None
+        sims[-1].save_state(path)
+        simulator().load_state(path)
+        sims[-1].run(stop_after_rounds=rounds)
+    chunks = []
     for r in obs.tracer.roots():
+        if faults and r.name == "apply_events":
+            continue
         if r.name == "sim.scan":
             chunks.append([])
         chunks[-1].append(r)
-    full = ["sim.scan", "round", "sim.handover", "sim.hook", "sim.contention"]
+    return chunks, hooked, seen
+
+
+SIM_ROUND = ["sim.scan", "round", "sim.handover", "sim.hook", "sim.contention"]
+
+
+def _check_live_and_swept(chunks, seen):
+    """Each round's ``sim.scan`` carries ``live``, the jobs arrived and not
+    finished, and its ``advance_round`` carries ``swept``, the jobs holding
+    GPUs when the round began (those the previous round left, less any a
+    fault took them from); no other simulator span has an attribute but
+    ``round``.  Returns the rounds' ``live``."""
+    rounds = [c for c in chunks if [r.name for r in c] == SIM_ROUND]
+    assert len(rounds) == len(seen)
+    lives = []
+    for i, ((scan, rnd, hand, hook, cont), (live, holders)) in enumerate(zip(rounds, seen)):
+        # the round's index and active count ride on ``round``
+        assert rnd.attrs["index"] == i and rnd.attrs["active"] > 0
+        assert scan.attrs == {"live": live} and live >= rnd.attrs["active"]
+        assert _child(rnd, "advance_round").attrs == {"swept": holders}
+        assert not any(s.attrs for s in (hand, hook, cont))
+        lives.append(live)
+    return lives
+
+
+def test_simulator_round_spans():
+    """The simulator's own spans, each round: the scan, the round, the
+    hand-over, the hook and the contention bookkeeping (``apply_events``
+    only in a round with fault events, none here)."""
+    chunks, hooked, seen = _sim_passes(
+        lambda prof: ttr.shockwave_trace(num_jobs=8, seed=3, profile=prof), rounds=3
+    )
     names = [[r.name for r in c] for c in chunks]
     # a pass with no active job (before the first arrival) only scans
-    assert all(n in (["sim.scan"], full) for n in names)
-    rounds = [c for c, n in zip(chunks, names) if n == full]
-    assert len(rounds) == 3
-    for i, (scan, rnd, hand, hook, cont) in enumerate(rounds):
-        # the round's index and active count ride on ``round`` alone
-        assert rnd.attrs["index"] == i and rnd.attrs["active"] > 0
-        assert not any(s.attrs for s in (scan, hand, hook, cont))
+    assert all(n in (["sim.scan"], SIM_ROUND) for n in names)
+    assert names.count(SIM_ROUND) == 3
+    assert len(_check_live_and_swept(chunks, seen)) == 3
     assert hooked == [1, 2, 3]
+
+
+@pytest.mark.parametrize("faults", [False, True])
+def test_simulator_scan_visits_only_live_jobs(faults, tmp_path):
+    """On a trace most of whose jobs have finished or not arrived yet, each
+    round's scan visits the live jobs alone (``live`` under a quarter of the
+    trace), and the release sweep the jobs holding GPUs; through job
+    failures, a node outage and a saved and resumed state too."""
+    num_jobs = 64
+    chunks, hooked, seen = _sim_passes(
+        lambda prof: ttr.shockwave_trace(
+            num_jobs=num_jobs, arrival_rate_per_hour=4.0, seed=3, profile=prof
+        ),
+        faults=faults,
+        resume_after=100 if faults else None,
+        tmp_path=tmp_path,
+    )
+    lives = _check_live_and_swept(chunks, seen)
+    assert len(lives) > 200 and hooked == list(range(1, len(lives) + 1))
+    assert max(lives) < num_jobs / 4
 
 
 @pytest.fixture

@@ -10,6 +10,8 @@ same name: the two auction bid paths differ on single-column instances
 in the port.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -129,19 +131,37 @@ def test_decide_three_rounds_full_spans_repeat(backend, nodes, num_jobs, kw):
     assert tr_a.fingerprint() == tr_b.fingerprint()
 
 
-def _make_sim(pkg, backend, num_jobs=8, failures=(), **kw):
+def _make_sim(pkg, backend, num_jobs=8, failures=(), rate=80.0, sim=None, **kw):
     cluster = pkg["cl"].ClusterSpec(2, 4)
     sched, prof = _scheduler(pkg, cluster, backend, **kw)
-    trace = pkg["tr"].shockwave_trace(num_jobs=num_jobs, seed=3, profile=prof)
+    trace = pkg["tr"].shockwave_trace(
+        num_jobs=num_jobs, arrival_rate_per_hour=rate, seed=3, profile=prof
+    )
+    if callable(failures):
+        failures = failures(trace)
     events = [pkg["fa"].FailureEvent(*ev) for ev in failures]
     return pkg["sim"].Simulator(
-        cluster, trace, sched, prof, pkg["sim"].SimConfig(), failures=events
+        cluster, trace, sched, prof, pkg["sim"].SimConfig(**(sim or {})), failures=events
     )
 
 
 def _sim(pkg, backend, stop_after=None, **kw):
     sim = _make_sim(pkg, backend, **kw)
     return sim, sim.run(stop_after_rounds=stop_after)
+
+
+def _stepped_sim(pkg, backend, steps, path, **kw):
+    """``steps`` calls of one round each, the state saved and loaded into a
+    new simulator, ``steps`` more single rounds there, then the rest."""
+    sim = _make_sim(pkg, backend, **kw)
+    for _ in range(steps):
+        assert sim.run(stop_after_rounds=1) is None
+    sim.save_state(path)
+    sim = _make_sim(pkg, backend, **kw)
+    sim.load_state(path)
+    for _ in range(steps):
+        assert sim.run(stop_after_rounds=1) is None
+    return sim.run()
 
 
 def _assert_sim_equal(rj, rt):
@@ -158,6 +178,19 @@ def _assert_sim_equal(rj, rt):
     assert rj.failed_jobs == rt.failed_jobs
 
 
+def _assert_every_field_equal(rj, rt):
+    """Every field of every job's state, its spec's too, and every field of
+    the result that does not hold a wall time."""
+    for jid, sj in rj.jobs.items():
+        st = rt.jobs[jid]
+        assert dataclasses.asdict(sj) == dataclasses.asdict(st), jid
+    timed = {"overhead", "lp_refresh_s", "prewarm_wall_s", "prewarm_overlap_s", "metrics", "jobs"}
+    for f in dataclasses.fields(rj):
+        if f.name not in timed:
+            assert getattr(rj, f.name) == getattr(rt, f.name), f.name
+    assert rj.degrade_counts == rt.degrade_counts
+
+
 _FAULTS = (
     (1500.0, "node-down", 1),
     (4000.0, "node-up", 1),
@@ -165,16 +198,53 @@ _FAULTS = (
 )
 
 
+def _sparse_faults(trace):
+    """Faults over a trace most of whose jobs have finished or not arrived
+    yet: every fourth job fails twice, 1.5 and 5.5 rounds after it
+    arrives (backoff, then a retry budget of one running out where the
+    second failure finds it running), and each node goes down for a while
+    (evictions)."""
+    rnd = 360.0
+    events = []
+    for s in trace[1::4]:
+        events += [
+            (s.arrival_time + 1.5 * rnd, "job-fail", None, s.job_id),
+            (s.arrival_time + 5.5 * rnd, "job-fail", None, s.job_id),
+        ]
+    third = len(trace) // 3
+    for node, t in ((1, trace[third].arrival_time), (0, trace[2 * third].arrival_time)):
+        events += [(t, "node-down", node), (t + 6 * rnd, "node-up", node)]
+    return tuple(events)
+
+
+#: 32 jobs at 3 an hour on 8 GPUs (at most 6 live at once), paused round by
+#: round for 67 rounds, saved on the boundary where node 0 goes down (so the
+#: resumed run evicts from the rebuilt index first), then 67 more single rounds
+_SPARSE = dict(num_jobs=32, rate=3.0, sim=dict(max_retries=1), steps=67)
+
+
 @pytest.mark.parametrize(
     "backend,failures,kw",
     [
         ("auction", (), {}),
         ("auto", _FAULTS, {"health_aware": True}),
+        pytest.param("auction", _sparse_faults, _SPARSE, id="sparse-live-faults-resumed"),
     ],
 )
-def test_simulator_run_matches_jax(backend, failures, kw):
+def test_simulator_run_matches_jax(backend, failures, kw, tmp_path):
+    kw = dict(kw)
+    steps = kw.pop("steps", None)
     _, rj = _sim(JAX, backend, failures=failures, **kw)
-    _, rt = _sim(TORCH, backend, failures=failures, **kw)
+    if steps is None:
+        _, rt = _sim(TORCH, backend, failures=failures, **kw)
+    else:
+        rt = _stepped_sim(
+            TORCH, backend, steps, str(tmp_path / "sim.npz"), failures=failures, **kw
+        )
+        _assert_every_field_equal(rj, rt)
+        # backoff, a retry budget running out and evictions all occurred
+        assert rt.retries_total > len(rt.failed_jobs) > 0 and rt.preemptions > 0
+        assert rt.num_rounds > 2 * steps
     _assert_sim_equal(rj, rt)
     assert rt.num_rounds > 3
 
