@@ -35,6 +35,7 @@ matrix-completion baseline (Gavel/Quasar style).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -109,7 +110,14 @@ LLM_STRATEGIES = tuple(STRATEGIES.keys())
 
 def _pair_hash_unit(a: str, b: str, salt: str = "") -> float:
     """Deterministic pseudo-random unit float for a model pair."""
-    key = "|".join(sorted((a, b))) + "#" + salt
+    return _key_unit("|".join(sorted((a, b))) + "#" + salt)
+
+
+@functools.cache
+def _key_unit(key: str) -> float:
+    # a pure function of the key, so every profile, wrapper and GPU type
+    # shares one memo; its keys are the catalog's names, the strategies
+    # and the salts, so it stays small
     h = hashlib.sha256(key.encode()).digest()
     return int.from_bytes(h[:8], "little") / 2**64
 
@@ -134,6 +142,17 @@ class ThroughputProfile:
         #: memo for combined_weight: the packing-graph build queries the
         #: same (model_a, model_b) pair thousands of times per round.
         self._weight_cache: Dict = {}
+        #: memo for normalized_packed: the simulator asks it for every
+        #: packed job every round.  Keyed on the catalog entries, so a
+        #: model re-registered under its name misses.
+        self._packed_cache: Dict = {}
+
+    def _adopt(self, base: "ThroughputProfile") -> None:
+        """Take ``base``'s settings, with memos of this profile's own: a
+        wrapper's answers differ from its base's."""
+        self.__dict__.update(base.__dict__)
+        self._weight_cache = {}
+        self._packed_cache = {}
 
     def for_gpu_type(self, gpu_type: str) -> "ThroughputProfile":
         """Profile variant keyed to another GPU type (heterogeneous
@@ -205,9 +224,19 @@ class ThroughputProfile:
         Normalised = packed tput / isolated tput at the same GPU count
         (§4.2 "Profiling").  Returns (0, 0) if the pair OOMs.
         """
+        ma, mb = self.model(a), self.model(b)
+        key = (ma, mb, strat_a, strat_b)
+        hit = self._packed_cache.get(key)
+        if hit is None:
+            hit = self._packed_cache[key] = self._packed(ma, mb, strat_a, strat_b)
+        return hit
+
+    def _packed(
+        self, ma: ModelProfile, mb: ModelProfile, strat_a: str, strat_b: str
+    ) -> Tuple[float, float]:
+        a, b = ma.name, mb.name
         if not self.packable(a, b, strat_a, strat_b):
             return 0.0, 0.0
-        ma, mb = self.model(a), self.model(b)
         overlap = ma.ci * mb.ci + (1 - ma.ci) * (1 - mb.ci)
         interference = self.gamma + (1 - self.gamma) * overlap
         # memory pressure: the fuller the HBM, the harsher the contention
@@ -268,8 +297,7 @@ class RestrictedStrategyProfile(ThroughputProfile):
     Tesserae-T (DP) / Tesserae-T (Default PP) / full Tesserae-T)."""
 
     def __init__(self, base: ThroughputProfile, allowed: Tuple[str, ...]):
-        self.__dict__.update(base.__dict__)
-        self._weight_cache = {}
+        self._adopt(base)
         self._allowed = tuple(allowed)
 
     def strategies(self, name: str) -> Tuple[str, ...]:
@@ -284,8 +312,7 @@ class NoisyProfile(ThroughputProfile):
     """Multiplies packed-throughput lookups by U[1-n, 1+n] (§7.2)."""
 
     def __init__(self, base: ThroughputProfile, noise: float, seed: int = 0):
-        self.__dict__.update(base.__dict__)
-        self._weight_cache = {}
+        self._adopt(base)
         self._noise = noise
         self._seed = seed
 
@@ -306,8 +333,7 @@ class TabulatedProfile(ThroughputProfile):
     """
 
     def __init__(self, base: ThroughputProfile, table: Dict[Tuple[str, str, str], Tuple[float, float]]):
-        self.__dict__.update(base.__dict__)
-        self._weight_cache = {}
+        self._adopt(base)
         self._table = table
         self._base = base
 
